@@ -1,0 +1,30 @@
+"""PyTorch/CUDA port of ccsd_tpu for NVIDIA Hopper (H100).
+
+The graph sampling path of ``config/community_small.yaml`` runs here, with
+both of the JAX package's Pallas kernels replaced by hand-written CUDA C++
+kernels for ``sm_90a`` (``ccsd_tpu_torch/csrc``).  The package imports
+``torch`` and ``numpy`` only; ``ccsd_tpu`` stays the numerical reference.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
+the CPU every kernel wrapper takes its plain PyTorch version.
+"""
+
+import torch
+
+
+def default_device() -> torch.device:
+    """The device an entry point runs on when the caller names none.
+
+    Raises when no CUDA device is present: the port never falls back to the
+    CPU silently (pass ``device="cpu"`` to run the plain path there).
+    """
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run the plain "
+            "PyTorch path on the CPU"
+        )
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    return default_device() if device is None else torch.device(device)

@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels of the port, their plain versions and wrappers.
+
+``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper
+adds one where it launches its kernel and nowhere else, so a run can show
+that its path went through the kernels.
+"""
+
+from typing import Dict
+
+LAUNCHES: Dict[str, int] = {"gcn_aggregate": 0, "gmh_attention": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

@@ -1,0 +1,68 @@
+"""Linear layers, MLP and Glorot initialisation.
+
+Port of ccsd_tpu/models/nn.py:22-128 onto ``nn.Linear``.  State-dict names
+follow the reference: an MLP of one layer holds ``linear``, a deeper one
+``linears.{i}``.  BatchNorm is not ported: every config sets
+``use_bn: false``, and a model asked for it raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+ACT = {"relu": F.relu, "elu": F.elu, "tanh": torch.tanh}
+
+
+def glorot_(t: torch.Tensor, fan_in: int, fan_out: int,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Glorot/Xavier uniform in place, from an explicit generator."""
+    stdv = (6.0 / (fan_in + fan_out)) ** 0.5
+    with torch.no_grad():
+        return t.uniform_(-stdv, stdv, generator=generator)
+
+
+def linear(in_dim: int, out_dim: int,
+           generator: Optional[torch.Generator] = None) -> nn.Linear:
+    """nn.Linear with Glorot-uniform weight and zero bias."""
+    lin = nn.Linear(in_dim, out_dim)
+    glorot_(lin.weight, in_dim, out_dim, generator)
+    nn.init.zeros_(lin.bias)
+    return lin
+
+
+def check_no_bn(use_bn: bool) -> None:
+    if use_bn:
+        raise NotImplementedError("use_bn=True is not ported (no config sets it)")
+
+
+class MLP(nn.Module):
+    """n-layer perceptron over the trailing dim; one layer is a Linear."""
+
+    def __init__(self, num_layers: int, input_dim: int, hidden_dim: int,
+                 output_dim: int, use_bn: bool = False, act: str = "relu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if num_layers < 1:
+            raise ValueError("Number of layers should be >= 1.")
+        check_no_bn(use_bn)
+        self.num_layers = num_layers
+        self.act = ACT[act]
+        if num_layers == 1:
+            self.linear = linear(input_dim, output_dim, generator)
+        else:
+            dims = [input_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
+            self.linears = nn.ModuleList(
+                linear(dims[i], dims[i + 1], generator) for i in range(num_layers)
+            )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.num_layers == 1:
+            return self.linear(x)
+        h = x
+        for lin in self.linears[:-1]:
+            h = self.act(lin(h))
+        return self.linears[-1](h)

@@ -1,0 +1,56 @@
+"""Score network for the adjacency tensor A (graph mode).
+
+Port of ccsd_tpu/models/score_a.py:104-217 (``_a_layers`` and
+ScoreNetworkA with the ``concat`` final MLP).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ccsd_tpu_torch.models.attention import AttentionLayer
+from ccsd_tpu_torch.models.nn import MLP, check_no_bn
+from ccsd_tpu_torch.ops.masks import default_mask, mask_adjs, pow_tensor
+
+
+class ScoreNetworkA(nn.Module):
+    def __init__(self, max_feat_num: int, max_node_num: int, nhid: int,
+                 num_layers: int, num_linears: int, c_init: int, c_hid: int,
+                 c_final: int, adim: int, num_heads: int = 4, conv: str = "GCN",
+                 use_bn: bool = False, is_cc: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        check_no_bn(use_bn)
+        if is_cc:
+            raise NotImplementedError("CC mode is not ported yet")
+        self.max_node_num, self.c_init = max_node_num, c_init
+        layers = []
+        for k in range(num_layers):
+            if k == 0:  # first / last / middle shapes: score_a.py:112-130
+                dims = (max_feat_num, nhid, nhid, c_init, c_hid)
+            elif k == num_layers - 1:
+                dims = (nhid, adim, nhid, c_hid, c_final)
+            else:
+                dims = (nhid, adim, nhid, c_hid, c_hid)
+            layers.append(AttentionLayer(num_linears, *dims, num_heads, conv,
+                                         generator=generator))
+        self.layers = nn.ModuleList(layers)
+        self.fdim = c_hid * (num_layers - 1) + c_final + c_init
+        self.final = MLP(3, self.fdim, 2 * self.fdim, 1, act="elu",
+                         generator=generator)
+        self.register_buffer("mask", default_mask(max_node_num), persistent=False)
+
+    def forward(self, x: torch.Tensor, adj: torch.Tensor,
+                flags: Optional[torch.Tensor] = None) -> torch.Tensor:
+        adjc = pow_tensor(adj, self.c_init)
+        adj_list = [adjc]
+        h = x
+        for layer in self.layers:
+            h, adjc = layer(h, adjc, flags)
+            adj_list.append(adjc)
+        adjs = torch.cat(adj_list, dim=1).permute(0, 2, 3, 1)
+        score = self.final(adjs)[..., 0]
+        return mask_adjs(score * self.mask[None], flags)

@@ -1,0 +1,542 @@
+#!/usr/bin/env python3
+"""On-card smoke run of ccsd_tpu_torch, the PyTorch/CUDA port, on one GPU.
+
+Run from the root of a checkout, on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py                 # the phases below
+    python3 chip_smoke.py --profile DIR   # also a torch.profiler breakdown
+                                          # of 20 sampler steps, its trace
+                                          # written to DIR/sampler_trace.json
+
+Phases, each printing one line of its own results:
+
+1. device  -- require CUDA; print the card's name and power limit; switch
+              TF32 off for matmuls and cuDNN so f32 means f32.
+2. build   -- nvcc both kernels (ccsd_tpu_torch/csrc), in parallel.
+3. kernels -- each kernel against its plain PyTorch version on the card,
+              at every shape the community_small path gives it.
+4. models  -- ScoreNetworkX / ScoreNetworkA at B = 128 on the card (kernel
+              path) against a CPU copy of the same weights (plain path).
+5. sample  -- the full community_small graph sampler: B = 128, N = 20,
+              1000 Euler + Langevin steps through ``Sampler``; the launch
+              counters must equal the expected counts exactly, and the
+              graphs must be valid.
+6. timing  -- CUDA-event times of each kernel and its plain version at the
+              path's shapes (device time from a CUDA-graph replay, and the
+              time of an eager host loop), beside the card's bound for the
+              same work.
+
+Then one JSON line of per-kernel results (``ms``, ``plain_ms`` and
+``bound_ms`` per launch, averaged over the path's layer shapes; each shape
+under ``shapes``), the ``nvidia-smi`` name and power limit, and the result
+line.  Any failed phase exits non-zero without the result line.  Imports
+only torch, numpy and ccsd_tpu_torch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# kernel vs plain on the card: f32 on both sides, only the summation order
+# differs (the kernel's FMA loops against cuBLAS), as in the CPU tests
+KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
+# whole networks, card vs CPU: those per-layer differences pass through
+# three GCN layers or five AttentionLayers and the MLP heads
+MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
+# H100 SXM data-sheet peaks (at the 700 W limit): HBM3 and non-tensor f32
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+TIMING_ITERS = 200
+SEEDED_ADJ_HEAD_SCALE = 0.01  # see smoke_sampler
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise PhaseError(msg)
+
+
+def say(phase: str, **kv) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
+
+
+def smi_name_power() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(out.returncode == 0 and out.stdout.strip(), f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+def import_port():
+    """Import the port from this checkout, and only from here."""
+    sys.path.insert(0, HERE)
+    import ccsd_tpu_torch
+
+    where = os.path.dirname(os.path.abspath(ccsd_tpu_torch.__file__))
+    check(where == os.path.join(HERE, "ccsd_tpu_torch"),
+          f"ccsd_tpu_torch imported from {where}, not from this checkout")
+    return ccsd_tpu_torch
+
+
+# ----------------------------------------------------------------- costs --
+
+def gcn_cost(B, N, Fi, Fo):
+    """(bytes, flops) of one gcn_aggregate: inputs read once, output
+    written once; FMA = 2 operations."""
+    nbytes = 4 * (B * N * Fi + B * N * N + Fi * Fo + Fo + B * N * Fo)
+    flops = B * (2 * N * Fi * Fo          # X W
+                 + 3 * N * N + N          # degree, rsqrt, d A' d^T
+                 + 2 * N * N * Fo         # aggregation
+                 + N * Fo)                # bias
+    return nbytes, flops
+
+
+def gmh_cost(B, C, N, Fi, A, O, H):
+    """(bytes, flops) of one gmh_attention launch over C channels."""
+    P = 2 * A + O
+    nbytes = 4 * (B * N * Fi + B * C * N * N + C * Fi * P + C * P
+                  + B * N * C * O + B * N * N * C)
+    flops = B * C * (3 * N * N + N       # degree, rsqrt, d A' d^T
+                     + 2 * N * Fi * P    # X [Wq | Wk | Wv]
+                     + 2 * N * N * P     # aggregation
+                     + N * P             # bias
+                     + 2 * N * N * A     # Q_h K_h^T over all heads
+                     + 3 * H * N * N     # scale, tanh, head sum
+                     + 3 * N * N)        # mean, symmetrise
+    return nbytes, flops
+
+
+def bound_ms(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# --------------------------------------------------------------- helpers --
+
+def _events_ms(run, iters):
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def call_ms(fn, iters=TIMING_ITERS):
+    """(device ms, host-loop ms) of one fn() call, by CUDA events.
+
+    Device: ``iters`` calls captured in one CUDA graph and replayed, so the
+    host's launch cost is out of the time.  Host loop: the same calls issued
+    eagerly back to back, which is what the sampler's Python loop pays when
+    the host, not the card, sets the pace.
+    """
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    device = _events_ms(graph.replay, iters)
+    del graph
+
+    def loop():
+        for _ in range(iters):
+            fn()
+
+    loop()
+    return device, _events_ms(loop, iters)
+
+
+def compare(got, ref, tol):
+    """(max abs err, max rel err, within tolerance) of got against ref."""
+    import torch
+
+    diff = (got - ref).abs()
+    ok = bool((diff <= tol["atol"] + tol["rtol"] * ref.abs()).all())
+    rel = (diff / ref.abs().clamp_min(1e-30)).max().item()
+    return diff.max().item(), rel, ok and bool(got.isfinite().all())
+
+
+def path_shapes(models):
+    """The kernel cases of the community_small path, from the built models.
+
+    gcn: (name, B, N, F_in, F_out, loop); gmh: (name, B, C, N, F_in, attn,
+    F_out, H).  The ``improved`` GCN case (loop = 2) is checked but is not
+    on the path.
+    """
+    from ccsd_tpu_torch.kernels.gmh_attention import head_split
+
+    B, N = 128, models["adj"].max_node_num
+    gcn = [(f"x.layers.{k}", B, N, l.in_channels, l.out_channels, l.loop)
+           for k, l in enumerate(models["x"].layers)]
+    gcn.append(("improved", B, N, gcn[-1][3], gcn[-1][4], 2.0))
+    gmh = []
+    for k, layer in enumerate(models["adj"].layers):
+        a = layer.attn[0]
+        gmh.append((f"adj.layers.{k}", B, len(layer.attn), N, a.in_dim,
+                    a.attn_dim, a.out_dim, head_split(a.attn_dim, a.num_heads)[0]))
+    return gcn, gmh
+
+
+def sym(t):
+    import torch
+
+    t = torch.triu(t, 1)
+    return t + t.transpose(-1, -2)
+
+
+def glorot(shape, gen, dev):
+    import torch
+
+    bound = (6.0 / (shape[-2] + shape[-1])) ** 0.5
+    return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound
+
+
+def gcn_inputs(case, gen, dev):
+    import torch
+
+    _, B, N, Fi, Fo, loop = case
+    x = torch.randn(B, N, Fi, generator=gen, device=dev)
+    adj = sym(torch.randn(B, N, N, generator=gen, device=dev))
+    w = glorot((Fi, Fo), gen, dev)
+    b = 0.1 * torch.randn(Fo, generator=gen, device=dev)
+    return (x, adj, w, b, loop)
+
+
+def gmh_inputs(case, gen, dev):
+    import torch
+
+    _, B, C, N, Fi, A, O, H = case
+    x = torch.randn(B, N, Fi, generator=gen, device=dev)
+    adj = sym(torch.randn(B, C, N, N, generator=gen, device=dev))
+    r = lambda *s: 0.1 * torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    w = [glorot((C, Fi, A), gen, dev), r(C, A), glorot((C, Fi, A), gen, dev),
+         r(C, A), glorot((C, Fi, O), gen, dev), r(C, O)]
+    return (x, adj, *w, H, O)
+
+
+# ---------------------------------------------------------------- phases --
+
+def phase_device():
+    import torch
+
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say("device", nvidia_smi=repr(smi_name_power()),
+        torch=torch.__version__, cuda=torch.version.cuda,
+        kind=repr(torch.cuda.get_device_name(0)), count=torch.cuda.device_count(),
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+
+
+def phase_build():
+    from ccsd_tpu_torch.kernels import build
+
+    seconds = build.build_all()
+    regs = {name: " | ".join(ln.split("info    : ")[-1].strip()
+                             for ln in log.splitlines() if "Used" in ln)
+            for name, log in build.BUILD_LOG.items()}
+    say("build", seconds=f"{seconds:.2f}", kernels=",".join(build.SIGNATURES),
+        ptxas=json.dumps(regs))
+
+
+def phase_kernels(gcn_cases, gmh_cases, dev):
+    import torch
+    from ccsd_tpu_torch.kernels.gcn import gcn_aggregate, gcn_aggregate_plain
+    from ccsd_tpu_torch.kernels.gmh_attention import gmh_attention, gmh_attention_plain
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {"gcn_aggregate": 0.0, "gmh_attention": 0.0}
+    for kname, cases, mk, kern, plain in (
+        ("gcn_aggregate", gcn_cases, gcn_inputs, gcn_aggregate, gcn_aggregate_plain),
+        ("gmh_attention", gmh_cases, gmh_inputs, gmh_attention, gmh_attention_plain),
+    ):
+        for case in cases:
+            args = mk(case, gen, dev)
+            got = kern(*args)
+            torch.cuda.synchronize()
+            ref = plain(*args)
+            got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+            for i, (g, r) in enumerate(zip(got, ref)):
+                check(g.shape == r.shape, f"{kname} {case[0]}: shape {g.shape} vs {r.shape}")
+                abs_err, rel_err, ok = compare(g, r, KERNEL_TOL)
+                say("kernels", kernel=kname, case=case[0], output=i,
+                    shape="x".join(map(str, g.shape)), max_abs_err=f"{abs_err:.3e}",
+                    max_rel_err=f"{rel_err:.3e}", tol=json.dumps(KERNEL_TOL), ok=ok)
+                check(ok, f"{kname} {case[0]} output {i} disagrees with its plain version")
+                errs[kname] = max(errs[kname], abs_err)
+    return errs
+
+
+def phase_models(models, train_adjs, dev):
+    import copy
+
+    import numpy as np
+    import torch
+    from ccsd_tpu_torch.data.loader import init_flags
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.ops.masks import mask_adjs, mask_x
+
+    B, N = 128, models["adj"].max_node_num
+    F = models["x"].max_feat_num
+    rng = np.random.default_rng(1)
+    flags = torch.from_numpy(init_flags(train_adjs, B, rng))
+    x = mask_x(torch.from_numpy(rng.standard_normal((B, N, F)).astype(np.float32)), flags)
+    adj = mask_adjs(sym(torch.from_numpy(rng.standard_normal((B, N, N)).astype(np.float32))),
+                    flags)
+    expect = {"x": ("gcn_aggregate", len(models["x"].layers)),
+              "adj": ("gmh_attention", len(models["adj"].layers))}
+    for name, model in models.items():
+        cpu = copy.deepcopy(model).cpu()
+        kname, count = expect[name]
+        reset_launches()
+        with torch.no_grad():
+            got = model(x.to(dev), adj.to(dev), flags.to(dev))
+            torch.cuda.synchronize()
+            launched = LAUNCHES[kname]
+            ref = cpu(x, adj, flags)
+        check(launched == count,
+              f"model {name}: {launched} {kname} launches, expected {count}")
+        abs_err, rel_err, ok = compare(got.cpu(), ref, MODEL_TOL)
+        say("models", model=type(model).__name__, shape="x".join(map(str, got.shape)),
+            launches=f"{kname}:{launched}", max_abs_err=f"{abs_err:.3e}",
+            max_rel_err=f"{rel_err:.3e}", tol=json.dumps(MODEL_TOL), ok=ok)
+        check(ok, f"{type(model).__name__} on the card disagrees with the CPU copy")
+
+
+def sample_config(steps=None):
+    from ccsd_tpu_torch.utils.config import AttrDict, get_config
+
+    config = get_config("community_small", seed=0, folder=HERE)
+    ckpts = sorted(glob.glob(os.path.join(HERE, "checkpoints", "community_small",
+                                          "*.ckpt.pkl")))
+    if ckpts:
+        config.ckpt = os.path.basename(ckpts[0])[: -len(".ckpt.pkl")]
+    if steps is not None:
+        config = AttrDict(config.to_dict())
+        for k in ("x", "adj"):
+            config.sde[k].num_scales = steps
+    return config
+
+
+def smoke_sampler(config, train_adjs):
+    """``Sampler`` on the default device (CUDA).  Without a checkpoint the
+    weights are the port's seeded Glorot init, with the adjacency network's
+    last layer scaled by ``SEEDED_ADJ_HEAD_SCALE``: at full Glorot scale
+    untrained weights feed the adjacency back into itself through
+    ``pow_tensor`` and the reverse diffusion overflows after ~230 of the
+    1000 steps, in the JAX package as in the port."""
+    import torch
+    from ccsd_tpu_torch.sampling.sampler import Sampler
+
+    class SmokeSampler(Sampler):
+        def load_models(self):
+            configt, models, source = super().load_models()
+            if not self.config.get("ckpt"):
+                with torch.no_grad():
+                    models["adj"].final.linears[-1].weight.mul_(SEEDED_ADJ_HEAD_SCALE)
+                source += f", adjacency head x {SEEDED_ADJ_HEAD_SCALE}"
+            return configt, models, source
+
+    return SmokeSampler(config, train_adjs)
+
+
+def phase_sample(train_adjs):
+    import numpy as np
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    smoke_sampler(sample_config(steps=10), train_adjs).sample(128)  # warm-up
+    config = sample_config()
+    steps = int(config.sde.adj.num_scales)
+    evals = steps * (int(config.sampler.n_steps) + 1
+                     if config.sampler.corrector == "Langevin" else 1)
+    expect = {"gcn_aggregate": evals * int(config.model.depth),
+              "gmh_attention": evals * int(config.model.num_layers)}
+
+    sampler = smoke_sampler(config, train_adjs)
+    reset_launches()
+    res = sampler.sample(128)
+    launches = dict(LAUNCHES)
+
+    adj, x, flags = res["adj"], res["x"], res["flags"]
+    B, N = adj.shape[0], adj.shape[1]
+    check(res["device"].startswith("cuda"), f"sampler ran on {res['device']}")
+    check(adj.shape == (128, 20, 20) and x.shape == (128, 20, 11),
+          f"shapes adj {adj.shape}, x {x.shape}")
+    check(res["finite"], "non-finite sampler output")
+    check(set(np.unique(adj)) <= {0.0, 1.0}, "adjacency not quantized")
+    check(np.array_equal(adj, adj.transpose(0, 2, 1)), "adjacency not symmetric")
+    check(not adj[:, np.arange(N), np.arange(N)].any(), "non-zero diagonal")
+    absent = flags == 0
+    check(not adj[absent].any() and not adj.transpose(0, 2, 1)[absent].any(),
+          "edges on absent nodes")
+    check(not x[absent].any(), "features on absent nodes")
+    check(launches == expect, f"launches {launches}, expected exactly {expect}")
+    edges = adj.sum((1, 2)) / 2
+    say("sample", graphs=B, steps=steps, seconds=f"{res['sampling_time']:.3f}",
+        steps_per_s=f"{res['steps_per_s']:.2f}", mean_edges=f"{edges.mean():.3f}",
+        mean_nodes=f"{flags.sum(-1).mean():.3f}", weights=repr(res["weights"]),
+        launches=json.dumps(launches), expected=json.dumps(expect))
+    return launches
+
+
+def phase_timing(gcn_cases, gmh_cases, dev, launches, errs):
+    import torch
+    from ccsd_tpu_torch.kernels.gcn import gcn_aggregate, gcn_aggregate_plain
+    from ccsd_tpu_torch.kernels.gmh_attention import gmh_attention, gmh_attention_plain
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for kname, src, replaces, cases, mk, kern, plain, cost in (
+        ("gcn_aggregate", "ccsd_tpu_torch/csrc/gcn_aggregate.cu",
+         "ccsd_tpu/ops/pallas/gcn.py:45", gcn_cases, gcn_inputs,
+         gcn_aggregate, gcn_aggregate_plain, lambda c: gcn_cost(*c[1:5])),
+        ("gmh_attention", "ccsd_tpu_torch/csrc/gmh_attention.cu",
+         "ccsd_tpu/ops/pallas/gmh_attention.py:62", gmh_cases, gmh_inputs,
+         gmh_attention, gmh_attention_plain, lambda c: gmh_cost(*c[1:])),
+    ):
+        per = []
+        with torch.no_grad():
+            for case in cases:
+                args = mk(case, gen, dev)
+                ms, host_ms = call_ms(lambda: kern(*args))
+                plain_ms, plain_host_ms = call_ms(lambda: plain(*args))
+                b_ms, by = bound_ms(*cost(case))
+                per.append({"case": case[0], "ms": ms, "plain_ms": plain_ms,
+                            "host_loop_ms": host_ms, "plain_host_loop_ms": plain_host_ms,
+                            "bound_ms": b_ms, "bound_by": by})
+                say("timing", kernel=kname, case=case[0], ms=f"{ms:.5f}",
+                    plain_ms=f"{plain_ms:.5f}", host_loop_ms=f"{host_ms:.5f}",
+                    plain_host_loop_ms=f"{plain_host_ms:.5f}", bound_ms=f"{b_ms:.6f}",
+                    bound_by=by, library_ms="null")
+        on_path = [p for p in per if p["case"] != "improved"]
+        mean = lambda k: sum(p[k] for p in on_path) / len(on_path)  # noqa: E731
+        b_ms = mean("bound_ms")
+        rows.append({
+            "name": kname, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[kname], "max_abs_err": errs[kname],
+            # per launch, averaged over the path's layer shapes
+            "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": b_ms,
+            "bound_by": max(on_path, key=lambda p: p["bound_ms"])["bound_by"],
+            "library_ms": None, "shapes": per,
+        })
+    return rows
+
+
+def phase_profile(train_adjs, out_dir):
+    """torch.profiler over a 20-step sampler run: device time by kernel and
+    the device's busy share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = 20
+    sampler = smoke_sampler(sample_config(steps=steps), train_adjs)
+    sampler.sample(128)  # warm-up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sampler.sample(128)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "sampler_trace.json"))
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = {e.key: getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0)) for e in device}
+    total = sum(dev_us.values())
+    check(total > 0, "the profiler saw no device time")
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
+    host = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA),
+                  key=lambda e: -e.self_cpu_time_total)[:12]
+    say("profile", steps=steps, wall_s=f"{wall:.4f}", device_busy_s=f"{total / 1e6:.4f}",
+        busy_share=f"{total / 1e6 / wall:.4f}",
+        device_kernels_per_step=f"{sum(e.count for e in device) / steps:.1f}",
+        top_device_us=json.dumps([(k[:60], round(v, 1)) for k, v in top]),
+        top_host_self_us=json.dumps([(e.key[:40], e.count, round(e.self_cpu_time_total, 1))
+                                     for e in host]))
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="also profile 20 sampler steps; trace into DIR")
+    args = ap.parse_args(argv)
+    t0 = time.perf_counter()
+    phase = "import"
+    try:
+        import numpy as np
+        import torch
+
+        phase = "device"
+        phase_device()
+        phase = "import"
+        import_port()
+        from ccsd_tpu_torch.data.loader import community_small_adjs
+        from ccsd_tpu_torch.models.registry import load_model, load_model_params
+
+        dev = torch.device("cuda")
+        phase = "build"
+        phase_build()
+
+        config = sample_config()
+        defs = dict(zip(("x", "adj"), load_model_params(config)))
+        g = torch.Generator().manual_seed(0)
+        models = {n: load_model(defs[n], generator=g).to(dev).eval() for n in defs}
+        gcn_cases, gmh_cases = path_shapes(models)
+        train_adjs = community_small_adjs(100, np.random.default_rng(0),
+                                          int(config.data.max_node_num))
+
+        phase = "kernels"
+        errs = phase_kernels(gcn_cases, gmh_cases, dev)
+        phase = "models"
+        phase_models(models, train_adjs, dev)
+        phase = "sample"
+        launches = phase_sample(train_adjs)
+        phase = "timing"
+        rows = phase_timing(gcn_cases, gmh_cases, dev, launches, errs)
+        if args.profile:
+            phase = "profile"
+            phase_profile(train_adjs, args.profile)
+        phase = "result"
+        say("done", seconds=f"{time.perf_counter() - t0:.1f}")
+        print(json.dumps({"kernels": rows}))
+        print(smi_name_power())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    except Exception as e:  # noqa: BLE001 - any failure fails the smoke
+        import traceback
+
+        traceback.print_exc()
+        print(f"chip_smoke: FAILED in phase {phase}: {type(e).__name__}: {e}",
+              file=sys.stderr, flush=True)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
