@@ -7,7 +7,9 @@ Usage:
 
 The node counts come from ``--train-adjs`` (a (M, N, N) numpy array of
 padded training adjacencies); without it, community_small draws them from
-its generation recipe.  Training is not ported yet.
+its generation recipe.  The config's ``sample.fused`` and ``sample.fast``
+(both on when absent) pick the network path, as in ``Sampler``.  Training
+is not ported yet.
 """
 
 from __future__ import annotations

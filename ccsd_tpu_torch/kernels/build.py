@@ -25,7 +25,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of each kernel's entry point: (symbol, argtypes)
 SIGNATURES: Dict[str, Tuple[str, list]] = {
     "gcn_aggregate": (
@@ -39,6 +39,17 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
         # B, C, N, F_in, attn_dim, F_out, heads, head_dim,
         # score_div, add_loop, loop, stream
         [_P] * 10 + [_I] * 8 + [_F, _I, _F, _P],
+    ),
+    "channel_agg": (
+        "channel_agg_f32",
+        # norm, x, out, B, rows (C * N), N, F, stream
+        [_P, _P, _P, _I, _I, _I, _I, _P],
+    ),
+    "gmh_scores": (
+        "gmh_scores_run",
+        # q, k, out, B, C, N, attn_dim, heads, head_dim,
+        # q strides (b, c, n), k strides (b, c, n), score_div, bf16, stream
+        [_P, _P, _P] + [_I] * 6 + [_L] * 6 + [_F, _I, _P],
     ),
 }
 

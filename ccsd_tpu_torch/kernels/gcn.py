@@ -46,8 +46,11 @@ def gcn_aggregate_plain(x, adj, weight, bias=None, loop: float = 1.0,
     return out if bias is None else out + bias
 
 
-def check_cuda_f32(name: str, **tensors: Optional[torch.Tensor]) -> None:
-    """The checks every kernel wrapper makes before a launch."""
+def check_cuda_f32(name: str, dense_rows: bool = False,
+                   **tensors: Optional[torch.Tensor]) -> None:
+    """The checks every kernel wrapper makes before a launch.  With
+    ``dense_rows`` a tensor need only have a unit stride in its last
+    dimension (the kernel takes the other strides)."""
     dev = None
     for arg, t in tensors.items():
         if t is None:
@@ -59,8 +62,9 @@ def check_cuda_f32(name: str, **tensors: Optional[torch.Tensor]) -> None:
         dev = t.device
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected float32")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} is not contiguous")
+        if not (t.stride(-1) == 1 if dense_rows else t.is_contiguous()):
+            raise ValueError(f"{name}: {arg} is not "
+                             + ("dense in its last dimension" if dense_rows else "contiguous"))
         if torch.is_grad_enabled() and t.requires_grad:
             raise NotImplementedError(f"{name}: the kernel has no backward yet")
 

@@ -1,0 +1,93 @@
+"""Head scores of the fused AttentionLayer: CUDA kernel, plain version,
+wrapper.
+
+Replaces ``make_pallas_reg(dtype, nc)`` (tools/pallas_scores_probe.py:85-104,
+body ``_scores_reg_kernel`` :66-82) and ``make_pallas(dtype)`` (:127-146,
+body ``_scores_kernel`` :109-124), the Pallas kernels of the head scores of
+the fused AttentionLayer (ccsd_tpu/models/attention.py:296-327):
+
+    att[b, c, n, m] = (1/H) sum_h tanh(sum_d Q[b,c,n,h*ds+d] K[b,c,m,h*ds+d] / sqrt(O))
+
+Q, K (B, C, N, A) f32, head h = columns [h*ds, (h+1)*ds) as torch's
+``Q.split(A // H, -1)`` cuts them; O is the layer's ``conv_output_dim``.
+``gmh_scores`` returns the map symmetrised and channels-last, (B, N, N, C),
+as the layer consumes it (attention.py:327, :332); ``head_scores`` is the
+map before that, in the probes' (B, C, N, N) order.
+
+``bf16=True`` is ``scores_impl="mulreduce_h_bf16"`` (and ``"dot_bf16"``):
+Q and K rounded to bf16, products exact in f32, each head's sum rounded to
+bf16 once, tanh and the head mean in f32 -- where XLA rounds the JAX
+expression.  The probes' bf16 kernels round at every add instead, so they
+differ from this by a few bf16 ulps of the sum (tests/test_torch_fused_kernels.py).
+The kernel is ``csrc/gmh_scores.cu``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ccsd_tpu_torch.kernels import LAUNCHES
+from ccsd_tpu_torch.kernels.build import check_status, kernel_fn
+from ccsd_tpu_torch.kernels.gcn import check_cuda_f32
+from ccsd_tpu_torch.kernels.gmh_attention import SMEM_LIMIT, head_split
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest bf16 (ties to even) -> f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def head_scores(q: torch.Tensor, k: torch.Tensor, num_heads: int, out_dim: int,
+                bf16: bool = False) -> torch.Tensor:
+    """Plain head-mean tanh scores: q, k (B, C, N, A) -> (B, C, N, N)."""
+    B, C, N, A = q.shape
+    H, ds = head_split(A, num_heads)
+    if bf16:
+        q, k = round_bf16(q), round_bf16(k)
+    s = torch.einsum("bcnhd,bcmhd->bchnm", q.reshape(B, C, N, H, ds),
+                     k.reshape(B, C, N, H, ds))
+    if bf16:
+        s = round_bf16(s)
+    return torch.tanh(s / math.sqrt(out_dim)).mean(dim=2)
+
+
+def gmh_scores_plain(q: torch.Tensor, k: torch.Tensor, num_heads: int,
+                     out_dim: int, bf16: bool = False) -> torch.Tensor:
+    """q, k (B, C, N, A) -> symmetrised map, channels-last (B, N, N, C)."""
+    att = head_scores(q, k, num_heads, out_dim, bf16)
+    return ((att + att.transpose(-1, -2)) / 2).permute(0, 2, 3, 1).contiguous()
+
+
+def smem_bytes(N: int, A: int) -> int:
+    """Dynamic shared memory of one block of csrc/gmh_scores.cu."""
+    return 4 * (2 * N * (A + 1) + N * N)
+
+
+def gmh_scores(q: torch.Tensor, k: torch.Tensor, num_heads: int, out_dim: int,
+               bf16: bool = False) -> torch.Tensor:
+    """Head scores: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors.  On the card q and k may be strided views whose last
+    dimension is dense."""
+    if q.device.type == "cpu":
+        return gmh_scores_plain(q, k, num_heads, out_dim, bf16)
+    check_cuda_f32("gmh_scores", dense_rows=True, q=q, k=k)
+    if q.dim() != 4 or k.shape != q.shape:
+        raise ValueError(f"gmh_scores: q {tuple(q.shape)} and k {tuple(k.shape)} "
+                         "must both be (B, C, N, A)")
+    B, C, N, A = q.shape
+    H, ds = head_split(A, num_heads)
+    smem = smem_bytes(N, A)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"gmh_scores: N={N}, attn={A} need {smem} B of shared "
+                         f"memory (limit {SMEM_LIMIT})")
+    out = torch.empty((B, N, N, C), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    status = kernel_fn("gmh_scores")(
+        q.data_ptr(), k.data_ptr(), out.data_ptr(), B, C, N, A, H, ds,
+        *q.stride()[:3], *k.stride()[:3], math.sqrt(out_dim), int(bf16), stream,
+    )
+    check_status("gmh_scores", status)
+    LAUNCHES["gmh_scores"] += 1
+    return out

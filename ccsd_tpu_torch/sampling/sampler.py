@@ -1,7 +1,11 @@
 """Graph sampler: weights -> PC reverse diffusion -> quantized graphs.
 
-Port of the graph path of ccsd_tpu/sampling/sampler.py:210-375 with the
-unfused f32 models and without the MMD evaluation.  Weights come from a
+Port of the graph path of ccsd_tpu/sampling/sampler.py:210-375 without the
+MMD evaluation.  As in the JAX package (:220-223), the models are built by
+``with_fused(defs, sample.fused, fast=sample.fast)``, both on by default:
+ScoreNetworkA takes the channel-folded path with bf16 head scores and the
+``blocksum`` final layer; ``sample.fused: false`` gives the unfused f32
+network, ``sample.fast: false`` the fused one in f32.  Weights come from a
 JAX ``.ckpt.pkl`` when the config names one (``ckpt``), else from the
 port's own seeded initialisation.  Each round samples ``batch_size`` graphs;
 ``sample`` runs ``ceil(num_samples / batch_size)`` rounds and returns numpy.
@@ -21,7 +25,7 @@ from ccsd_tpu_torch.data.loader import init_flags
 from ccsd_tpu_torch.diffusion.losses import get_score_fn
 from ccsd_tpu_torch.diffusion.sde import load_sde
 from ccsd_tpu_torch.diffusion.solvers import get_pc_sampler
-from ccsd_tpu_torch.models.registry import load_model, load_model_params
+from ccsd_tpu_torch.models.registry import load_model, load_model_params, with_fused
 from ccsd_tpu_torch.ops.masks import quantize
 from ccsd_tpu_torch.training.checkpoint import (
     ckpt_path,
@@ -55,20 +59,26 @@ class Sampler:
         """(train config, {name: module on the device}, source of the weights)."""
         cfg = self.config
         name = cfg.get("ckpt")
+
+        def defs_of(defs):  # the fused fast path by default at inference
+            return with_fused(defs, bool(cfg.sample.get("fused", True)),
+                              fast=bool(cfg.sample.get("fast", True)))
+
         if name:
             path = ckpt_path(cfg.get("folder", "./"), str(cfg.data.data), str(name))
             ckpt = load_ckpt_file(path)
             configt = AttrDict(ckpt["model_config"])
             use_ema = bool(cfg.sample.get("use_ema", False))
+            defs = defs_of({n: ckpt[f"params_{n}"] for n in NAMES})
             models = {}
             for n in NAMES:
-                m = load_model(ckpt[f"params_{n}"])
+                m = load_model(defs[n])
                 models[n] = load_jax_params(m, params_from_ckpt(ckpt, n, use_ema))
             source = f"{path} ({'ema' if use_ema else 'raw'} params)"
         else:
             configt = cfg
             g = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
-            defs = dict(zip(NAMES, load_model_params(cfg)))
+            defs = defs_of(dict(zip(NAMES, load_model_params(cfg))))
             models = {n: load_model(defs[n], generator=g) for n in NAMES}
             source = f"seeded init (seed {int(cfg.get('seed', 0))})"
         models = {n: m.to(self.device).eval() for n, m in models.items()}

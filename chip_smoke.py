@@ -5,32 +5,42 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py                 # the phases below
     python3 chip_smoke.py --profile DIR   # also a torch.profiler breakdown
-                                          # of 20 sampler steps, its trace
-                                          # written to DIR/sampler_trace.json
+                                          # of 20 sampler steps of each path,
+                                          # the default path's trace written
+                                          # to DIR/sampler_trace.json
 
 Phases, each printing one line of its own results:
 
 1. device  -- require CUDA; print the card's name and power limit; switch
               TF32 off for matmuls and cuDNN so f32 means f32.
-2. build   -- nvcc both kernels (ccsd_tpu_torch/csrc), in parallel.
+2. build   -- nvcc the four kernels (ccsd_tpu_torch/csrc), in parallel.
 3. kernels -- each kernel against its plain PyTorch version on the card,
-              at every shape the community_small path gives it.
-4. models  -- ScoreNetworkX / ScoreNetworkA at B = 128 on the card (kernel
-              path) against a CPU copy of the same weights (plain path).
+              at every shape the community_small paths give it
+              (``gmh_scores`` in f32 and in bf16, with a tolerance derived
+              from one bf16 ulp of the head sums, printed).
+4. models  -- ScoreNetworkX and ScoreNetworkA (unfused; fused f32; fused
+              fast, the sampler's default) at B = 128 on the card (kernel
+              path) against a float64 CPU copy of the same weights (plain
+              path).
 5. sample  -- the full community_small graph sampler: B = 128, N = 20,
-              1000 Euler + Langevin steps through ``Sampler``; the launch
-              counters must equal the expected counts exactly, and the
-              graphs must be valid.
+              1000 Euler + Langevin steps through ``Sampler``, first with
+              its defaults (``sample.fused`` and ``sample.fast`` on: the
+              fused fast path), then with ``sample.fused: false`` (the
+              unfused path); the launch counters of each run must equal the
+              expected counts exactly, the graphs must be valid, and each
+              run prints its steps/s.
 6. timing  -- CUDA-event times of each kernel and its plain version at the
               path's shapes (device time from a CUDA-graph replay, and the
               time of an eager host loop), beside the card's bound for the
-              same work.
+              same work and, where one PyTorch call computes the same
+              function, that call's time.
 
 Then one JSON line of per-kernel results (``ms``, ``plain_ms`` and
 ``bound_ms`` per launch, averaged over the path's layer shapes; each shape
-under ``shapes``), the ``nvidia-smi`` name and power limit, and the result
-line.  Any failed phase exits non-zero without the result line.  Imports
-only torch, numpy and ccsd_tpu_torch.
+under ``shapes``; ``launches`` from the run of the path the kernel is on),
+the ``nvidia-smi`` name and power limit, and the result line.  Any failed
+phase exits non-zero without the result line.  Imports only torch, numpy
+and ccsd_tpu_torch.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from __future__ import annotations
 import argparse
 import glob
 import json
+import math
 import os
 import subprocess
 import sys
@@ -48,9 +59,24 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # kernel vs plain on the card: f32 on both sides, only the summation order
 # differs (the kernel's FMA loops against cuBLAS), as in the CPU tests
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
-# whole networks, card vs CPU: those per-layer differences pass through
-# three GCN layers or five AttentionLayers and the MLP heads
+# whole networks, card (f32) vs a CPU copy in float64: those per-layer
+# differences pass through three GCN layers or five AttentionLayers and the
+# MLP heads.  The reference is float64 because the CPU's own f32 results
+# were not stable on the card's machine: in 2 of about 12 runs its f32 CPU
+# copy of ScoreNetworkX moved by up to 2e-4 from one process to the next,
+# while the card's result equalled this repo's f32 CPU result elsewhere.
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
+# the fast network (bf16 head scores), card vs CPU: the two sides' f32 Q, K
+# and head sums differ by rounding (the f32 networks agree to ~2e-5), and
+# where such a value sits near a bf16 rounding boundary the two round it to
+# neighbours one bf16 ulp apart (2^-8 relative): a head sum moves a map
+# entry by up to ulp(|s|) / sqrt(O), a Q or K element a whole row of
+# them, and the later layers carry that on.  No bound through five layers
+# is tight, so the tolerance sits between that noise and what a wrong
+# rounding point gives: phase 4 prints the distance from the fast to the f32
+# fused network on the CPU and fails unless it exceeds the tolerance
+# (first card run: card vs CPU 8.2e-3; fast vs f32 on the CPU 4.1e-2)
+BF16_MODEL_TOL = dict(rtol=1e-4, atol=2e-2)
 # H100 SXM data-sheet peaks (at the 700 W limit): HBM3 and non-tensor f32
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -119,6 +145,21 @@ def gmh_cost(B, C, N, Fi, A, O, H):
     return nbytes, flops
 
 
+def agg_cost(B, C, N, F):
+    """(bytes, flops) of one channel_agg launch."""
+    return 4 * (B * C * N * N + B * N * F + B * C * N * F), 2 * B * C * N * N * F
+
+
+def scores_cost(B, C, N, A, H, O):
+    """(bytes, flops) of one gmh_scores launch: Q and K read once, the
+    channels-last map written once."""
+    nbytes = 4 * (2 * B * C * N * A + B * N * N * C)
+    flops = B * C * (2 * N * N * A         # Q_h K_h^T over all heads
+                     + 3 * H * N * N       # scale, tanh, head sum
+                     + 3 * N * N)          # mean, symmetrise
+    return nbytes, flops
+
+
 def bound_ms(nbytes, flops):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -181,11 +222,12 @@ def compare(got, ref, tol):
 
 
 def path_shapes(models):
-    """The kernel cases of the community_small path, from the built models.
+    """The kernel cases of the community_small paths, from the built models.
 
     gcn: (name, B, N, F_in, F_out, loop); gmh: (name, B, C, N, F_in, attn,
-    F_out, H).  The ``improved`` GCN case (loop = 2) is checked but is not
-    on the path.
+    F_out, H); agg: (name, B, C, N, F_in); scores: (name, B, C, N, attn, H,
+    F_out).  The ``improved`` GCN case (loop = 2) is checked but is not on
+    the path.
     """
     from ccsd_tpu_torch.kernels.gmh_attention import head_split
 
@@ -193,12 +235,14 @@ def path_shapes(models):
     gcn = [(f"x.layers.{k}", B, N, l.in_channels, l.out_channels, l.loop)
            for k, l in enumerate(models["x"].layers)]
     gcn.append(("improved", B, N, gcn[-1][3], gcn[-1][4], 2.0))
-    gmh = []
+    gmh, agg, scores = [], [], []
     for k, layer in enumerate(models["adj"].layers):
-        a = layer.attn[0]
-        gmh.append((f"adj.layers.{k}", B, len(layer.attn), N, a.in_dim,
-                    a.attn_dim, a.out_dim, head_split(a.attn_dim, a.num_heads)[0]))
-    return gcn, gmh
+        a, C, name = layer.attn[0], len(layer.attn), f"adj.layers.{k}"
+        H = head_split(a.attn_dim, a.num_heads)[0]
+        gmh.append((name, B, C, N, a.in_dim, a.attn_dim, a.out_dim, H))
+        agg.append((name, B, C, N, a.in_dim))
+        scores.append((name, B, C, N, a.attn_dim, H, a.out_dim))
+    return {"gcn": gcn, "gmh": gmh, "agg": agg, "scores": scores}
 
 
 def sym(t):
@@ -238,6 +282,47 @@ def gmh_inputs(case, gen, dev):
     return (x, adj, *w, H, O)
 
 
+def agg_inputs(case, gen, dev):
+    import torch
+    from ccsd_tpu_torch.kernels.gcn import gcn_norm
+
+    _, B, C, N, F = case
+    adj = sym(torch.rand(B, C, N, N, generator=gen, device=dev))
+    return (gcn_norm(adj), torch.randn(B, N, F, generator=gen, device=dev))
+
+
+def scores_inputs(case, gen, dev):
+    """Q and K as the fused layer hands them over: strided column blocks of
+    one (C, B, N, 2A + O) projection."""
+    import torch
+
+    _, B, C, N, A, H, O = case
+    qkv = torch.randn(C, B, N, 2 * A + O, generator=gen, device=dev).transpose(0, 1)
+    return (qkv[..., :A], qkv[..., A:2 * A], H, O)
+
+
+def bf16_scores_tol(q, k, H, O):
+    """Kernel vs plain in bf16, element by element: both round Q, K and each
+    head's sum s_h to bf16 once, but their f32 sums may round to the two
+    bf16 neighbours of the exact sum.  That moves tanh(s_h / sqrt(O)) by at
+    most one bf16 ulp of |s_h| over sqrt(O) (tanh has slope <= 1); the head
+    mean and the symmetrisation average those bounds."""
+    import torch
+
+    B, C, N, A = q.shape
+    s = torch.einsum("bcnhd,bcmhd->bchnm", q.reshape(B, C, N, H, -1),
+                     k.reshape(B, C, N, H, -1))
+    ulp = torch.exp2(torch.floor(torch.log2(s.abs().clamp_min(1e-30))) - 7)
+    b = ulp.mean(dim=2) / math.sqrt(O)
+    b = ((b + b.transpose(-1, -2)) / 2).permute(0, 2, 3, 1)
+    return dict(rtol=0.0, atol=KERNEL_TOL["atol"] + b)
+
+
+def tol_text(tol):
+    return json.dumps({k: v if isinstance(v, float) else
+                       f"elementwise, max {v.max().item():.3e}" for k, v in tol.items()})
+
+
 # ---------------------------------------------------------------- phases --
 
 def phase_device():
@@ -264,35 +349,64 @@ def phase_build():
         ptxas=json.dumps(regs))
 
 
-def phase_kernels(gcn_cases, gmh_cases, dev):
-    import torch
+def kernel_specs():
+    """(kernel, variant, shape key, inputs, kernel fn, plain fn, tolerance
+    of (args)) of every kernel check, for every kernel of the port."""
+    import functools
+
+    from ccsd_tpu_torch.kernels.channel_agg import channel_agg, channel_agg_plain
     from ccsd_tpu_torch.kernels.gcn import gcn_aggregate, gcn_aggregate_plain
     from ccsd_tpu_torch.kernels.gmh_attention import gmh_attention, gmh_attention_plain
+    from ccsd_tpu_torch.kernels.gmh_scores import gmh_scores, gmh_scores_plain
+
+    def folded(fn):  # the probes' (B, C*N, N) form of the same sum
+        def run(norm, x):
+            B, C, N, _ = norm.shape
+            return fn(norm.view(B, C * N, N), x).view(B, C, N, -1)
+        return run
+
+    f32 = lambda *args: KERNEL_TOL  # noqa: E731
+    return [
+        ("gcn_aggregate", "f32", "gcn", gcn_inputs, gcn_aggregate, gcn_aggregate_plain, f32),
+        ("gmh_attention", "f32", "gmh", gmh_inputs, gmh_attention, gmh_attention_plain, f32),
+        ("channel_agg", "4d", "agg", agg_inputs, channel_agg, channel_agg_plain, f32),
+        ("channel_agg", "folded", "agg", agg_inputs, folded(channel_agg),
+         folded(channel_agg_plain), f32),
+        ("gmh_scores", "f32", "scores", scores_inputs, gmh_scores, gmh_scores_plain, f32),
+        ("gmh_scores", "bf16", "scores", scores_inputs,
+         functools.partial(gmh_scores, bf16=True),
+         functools.partial(gmh_scores_plain, bf16=True), bf16_scores_tol),
+    ]
+
+
+def phase_kernels(shapes, dev):
+    import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {"gcn_aggregate": 0.0, "gmh_attention": 0.0}
-    for kname, cases, mk, kern, plain in (
-        ("gcn_aggregate", gcn_cases, gcn_inputs, gcn_aggregate, gcn_aggregate_plain),
-        ("gmh_attention", gmh_cases, gmh_inputs, gmh_attention, gmh_attention_plain),
-    ):
-        for case in cases:
+    errs = {}
+    for kname, variant, key, mk, kern, plain, tol_of in kernel_specs():
+        for case in shapes[key]:
             args = mk(case, gen, dev)
             got = kern(*args)
             torch.cuda.synchronize()
             ref = plain(*args)
+            tol = tol_of(*args)
             got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
             for i, (g, r) in enumerate(zip(got, ref)):
                 check(g.shape == r.shape, f"{kname} {case[0]}: shape {g.shape} vs {r.shape}")
-                abs_err, rel_err, ok = compare(g, r, KERNEL_TOL)
-                say("kernels", kernel=kname, case=case[0], output=i,
+                abs_err, rel_err, ok = compare(g, r, tol)
+                say("kernels", kernel=kname, variant=variant, case=case[0], output=i,
                     shape="x".join(map(str, g.shape)), max_abs_err=f"{abs_err:.3e}",
-                    max_rel_err=f"{rel_err:.3e}", tol=json.dumps(KERNEL_TOL), ok=ok)
-                check(ok, f"{kname} {case[0]} output {i} disagrees with its plain version")
-                errs[kname] = max(errs[kname], abs_err)
+                    max_rel_err=f"{rel_err:.3e}", tol=tol_text(tol), ok=ok)
+                check(ok, f"{kname} ({variant}) {case[0]} output {i} disagrees "
+                          "with its plain version")
+                errs[kname] = max(errs.get(kname, 0.0), abs_err)
     return errs
 
 
 def phase_models(models, train_adjs, dev):
+    """Each network on the card against a float64 CPU copy; ``models`` maps
+    a name to (module, launches of one forward, tolerance)."""
     import copy
 
     import numpy as np
@@ -301,34 +415,50 @@ def phase_models(models, train_adjs, dev):
     from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
     from ccsd_tpu_torch.ops.masks import mask_adjs, mask_x
 
-    B, N = 128, models["adj"].max_node_num
-    F = models["x"].max_feat_num
+    B, N = 128, models["adj"][0].max_node_num
+    F = models["x"][0].max_feat_num
     rng = np.random.default_rng(1)
     flags = torch.from_numpy(init_flags(train_adjs, B, rng))
     x = mask_x(torch.from_numpy(rng.standard_normal((B, N, F)).astype(np.float32)), flags)
     adj = mask_adjs(sym(torch.from_numpy(rng.standard_normal((B, N, N)).astype(np.float32))),
                     flags)
-    expect = {"x": ("gcn_aggregate", len(models["x"].layers)),
-              "adj": ("gmh_attention", len(models["adj"].layers))}
-    for name, model in models.items():
-        cpu = copy.deepcopy(model).cpu()
-        kname, count = expect[name]
+    refs = {}
+    x64, adj64, flags64 = x.double(), adj.double(), flags.double()
+    for name, (model, expect, tol) in models.items():
+        cpu = copy.deepcopy(model).cpu().double()
         reset_launches()
         with torch.no_grad():
             got = model(x.to(dev), adj.to(dev), flags.to(dev))
             torch.cuda.synchronize()
-            launched = LAUNCHES[kname]
-            ref = cpu(x, adj, flags)
-        check(launched == count,
-              f"model {name}: {launched} {kname} launches, expected {count}")
-        abs_err, rel_err, ok = compare(got.cpu(), ref, MODEL_TOL)
-        say("models", model=type(model).__name__, shape="x".join(map(str, got.shape)),
-            launches=f"{kname}:{launched}", max_abs_err=f"{abs_err:.3e}",
-            max_rel_err=f"{rel_err:.3e}", tol=json.dumps(MODEL_TOL), ok=ok)
-        check(ok, f"{type(model).__name__} on the card disagrees with the CPU copy")
+            launched = {k: v for k, v in LAUNCHES.items() if v}
+            ref = refs[name] = cpu(x64, adj64, flags64)
+        check(launched == expect, f"model {name}: launches {launched}, expected {expect}")
+        got = got.cpu().double()
+        abs_err, rel_err, ok = compare(got, ref, tol)
+        at = tuple(int(i) for i in
+                   torch.unravel_index((got - ref).abs().argmax(), got.shape))
+        say("models", model=name, shape="x".join(map(str, got.shape)),
+            launches=json.dumps(launched), max_abs_err=f"{abs_err:.3e}",
+            max_rel_err=f"{rel_err:.3e}", worst_at=json.dumps(at),
+            card=f"{got[at].item():.6e}", cpu=f"{ref[at].item():.6e}",
+            tol=json.dumps(tol), ok=ok)
+        if not ok:  # say whether either side is unstable before failing
+            with torch.no_grad():
+                got2 = model(x.to(dev), adj.to(dev), flags.to(dev)).cpu().double()
+                ref2 = cpu(x64, adj64, flags64)
+            say("models", model=name, card_repeat_diff=f"{(got2 - got).abs().max().item():.3e}",
+                cpu_repeat_diff=f"{(ref2 - ref).abs().max().item():.3e}",
+                repeat_max_abs_err=f"{(got2 - ref2).abs().max().item():.3e}")
+        check(ok, f"{name} on the card disagrees with the CPU copy")
+    sep = (refs["adj_fused_fast"] - refs["adj_fused_f32"]).abs().max().item()
+    say("models", bf16_vs_f32_scores_on_cpu=f"{sep:.3e}",
+        fast_tol=json.dumps(BF16_MODEL_TOL))
+    check(sep > BF16_MODEL_TOL["atol"],
+          "the fast network's tolerance cannot tell bf16 from f32 scores")
 
 
-def sample_config(steps=None):
+def sample_config(steps=None, fused=True):
+    """community_small's config; ``fused=False`` sets ``sample.fused: false``."""
     from ccsd_tpu_torch.utils.config import AttrDict, get_config
 
     config = get_config("community_small", seed=0, folder=HERE)
@@ -336,10 +466,12 @@ def sample_config(steps=None):
                                           "*.ckpt.pkl")))
     if ckpts:
         config.ckpt = os.path.basename(ckpts[0])[: -len(".ckpt.pkl")]
+    config = AttrDict(config.to_dict())
     if steps is not None:
-        config = AttrDict(config.to_dict())
         for k in ("x", "adj"):
             config.sde[k].num_scales = steps
+    if not fused:
+        config.sample.fused = False
     return config
 
 
@@ -365,23 +497,29 @@ def smoke_sampler(config, train_adjs):
     return SmokeSampler(config, train_adjs)
 
 
-def phase_sample(train_adjs):
+def sample_once(train_adjs, fused):
+    """One 1000-step sample of 128 graphs after a 10-step warm-up; checks
+    the graphs and the exact launch counts; returns the counts."""
     import numpy as np
     from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
 
-    smoke_sampler(sample_config(steps=10), train_adjs).sample(128)  # warm-up
-    config = sample_config()
+    smoke_sampler(sample_config(steps=10, fused=fused), train_adjs).sample(128)  # warm-up
+    config = sample_config(fused=fused)
     steps = int(config.sde.adj.num_scales)
     evals = steps * (int(config.sampler.n_steps) + 1
                      if config.sampler.corrector == "Langevin" else 1)
-    expect = {"gcn_aggregate": evals * int(config.model.depth),
-              "gmh_attention": evals * int(config.model.num_layers)}
+    per_layer = ("channel_agg", "gmh_scores") if fused else ("gmh_attention",)
+    expect = {k: 0 for k in LAUNCHES}
+    expect["gcn_aggregate"] = evals * int(config.model.depth)
+    for k in per_layer:
+        expect[k] = evals * int(config.model.num_layers)
 
     sampler = smoke_sampler(config, train_adjs)
     reset_launches()
     res = sampler.sample(128)
     launches = dict(LAUNCHES)
 
+    path = "default (sample.fused, sample.fast on)" if fused else "sample.fused: false"
     adj, x, flags = res["adj"], res["x"], res["flags"]
     B, N = adj.shape[0], adj.shape[1]
     check(res["device"].startswith("cuda"), f"sampler ran on {res['device']}")
@@ -395,95 +533,141 @@ def phase_sample(train_adjs):
     check(not adj[absent].any() and not adj.transpose(0, 2, 1)[absent].any(),
           "edges on absent nodes")
     check(not x[absent].any(), "features on absent nodes")
-    check(launches == expect, f"launches {launches}, expected exactly {expect}")
+    check(launches == expect, f"{path}: launches {launches}, expected exactly {expect}")
     edges = adj.sum((1, 2)) / 2
-    say("sample", graphs=B, steps=steps, seconds=f"{res['sampling_time']:.3f}",
-        steps_per_s=f"{res['steps_per_s']:.2f}", mean_edges=f"{edges.mean():.3f}",
+    say("sample", path=repr(path), graphs=B, steps=steps,
+        seconds=f"{res['sampling_time']:.3f}", mean_edges=f"{edges.mean():.3f}",
         mean_nodes=f"{flags.sum(-1).mean():.3f}", weights=repr(res["weights"]),
         launches=json.dumps(launches), expected=json.dumps(expect))
+    say("steps_per_s", path=repr(path), steps_per_s=f"{res['steps_per_s']:.2f}")
     return launches
 
 
-def phase_timing(gcn_cases, gmh_cases, dev, launches, errs):
+def phase_sample(train_adjs):
+    """The default (fused fast) sample, then the unfused one; returns each
+    kernel's launches in the run of the path it is on."""
+    fast = sample_once(train_adjs, fused=True)
+    unfused = sample_once(train_adjs, fused=False)
+    return {k: max(fast[k], unfused[k]) for k in fast}
+
+
+def timing_specs():
+    """(kernel, source, the TPU kernels it replaces, shape key, inputs,
+    {variant: (kernel fn, plain fn)} with the path's variant first, the
+    PyTorch call of the same function or None, cost of a case)."""
+    import functools
+
     import torch
+    from ccsd_tpu_torch.kernels.channel_agg import channel_agg, channel_agg_plain
     from ccsd_tpu_torch.kernels.gcn import gcn_aggregate, gcn_aggregate_plain
     from ccsd_tpu_torch.kernels.gmh_attention import gmh_attention, gmh_attention_plain
+    from ccsd_tpu_torch.kernels.gmh_scores import gmh_scores, gmh_scores_plain
+
+    return [
+        ("gcn_aggregate", "ccsd_tpu_torch/csrc/gcn_aggregate.cu",
+         "ccsd_tpu/ops/pallas/gcn.py:45", "gcn", gcn_inputs,
+         {"f32": (gcn_aggregate, gcn_aggregate_plain)}, None,
+         lambda c: gcn_cost(*c[1:5])),
+        ("gmh_attention", "ccsd_tpu_torch/csrc/gmh_attention.cu",
+         "ccsd_tpu/ops/pallas/gmh_attention.py:62", "gmh", gmh_inputs,
+         {"f32": (gmh_attention, gmh_attention_plain)}, None,
+         lambda c: gmh_cost(*c[1:])),
+        ("channel_agg", "ccsd_tpu_torch/csrc/channel_agg.cu",
+         "tools/probe_pallas_agg.py:43 (agg_pallas), tools/probe_pallas_agg.py:64 "
+         "(agg_pallas_2d)", "agg", agg_inputs,
+         {"f32": (channel_agg, channel_agg_plain)},
+         lambda norm, x: torch.matmul(norm, x[:, None]),
+         lambda c: agg_cost(*c[1:])),
+        ("gmh_scores", "ccsd_tpu_torch/csrc/gmh_scores.cu",
+         "tools/pallas_scores_probe.py:85 (make_pallas_reg), "
+         "tools/pallas_scores_probe.py:127 (make_pallas)", "scores", scores_inputs,
+         {"bf16": (functools.partial(gmh_scores, bf16=True),
+                   functools.partial(gmh_scores_plain, bf16=True)),
+          "f32": (gmh_scores, gmh_scores_plain)}, None,
+         lambda c: scores_cost(*c[1:])),
+    ]
+
+
+def phase_timing(shapes, dev, launches, errs):
+    import torch
 
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = []
-    for kname, src, replaces, cases, mk, kern, plain, cost in (
-        ("gcn_aggregate", "ccsd_tpu_torch/csrc/gcn_aggregate.cu",
-         "ccsd_tpu/ops/pallas/gcn.py:45", gcn_cases, gcn_inputs,
-         gcn_aggregate, gcn_aggregate_plain, lambda c: gcn_cost(*c[1:5])),
-        ("gmh_attention", "ccsd_tpu_torch/csrc/gmh_attention.cu",
-         "ccsd_tpu/ops/pallas/gmh_attention.py:62", gmh_cases, gmh_inputs,
-         gmh_attention, gmh_attention_plain, lambda c: gmh_cost(*c[1:])),
-    ):
+    for kname, src, replaces, key, mk, variants, library, cost in timing_specs():
         per = []
         with torch.no_grad():
-            for case in cases:
+            for case in shapes[key]:
                 args = mk(case, gen, dev)
-                ms, host_ms = call_ms(lambda: kern(*args))
-                plain_ms, plain_host_ms = call_ms(lambda: plain(*args))
                 b_ms, by = bound_ms(*cost(case))
-                per.append({"case": case[0], "ms": ms, "plain_ms": plain_ms,
-                            "host_loop_ms": host_ms, "plain_host_loop_ms": plain_host_ms,
-                            "bound_ms": b_ms, "bound_by": by})
-                say("timing", kernel=kname, case=case[0], ms=f"{ms:.5f}",
-                    plain_ms=f"{plain_ms:.5f}", host_loop_ms=f"{host_ms:.5f}",
-                    plain_host_loop_ms=f"{plain_host_ms:.5f}", bound_ms=f"{b_ms:.6f}",
-                    bound_by=by, library_ms="null")
-        on_path = [p for p in per if p["case"] != "improved"]
+                lib_ms = call_ms(lambda: library(*args))[0] if library else None
+                for variant, (kern, plain) in variants.items():
+                    ms, host_ms = call_ms(lambda: kern(*args))
+                    plain_ms, plain_host_ms = call_ms(lambda: plain(*args))
+                    per.append({"case": case[0], "variant": variant, "ms": ms,
+                                "plain_ms": plain_ms, "host_loop_ms": host_ms,
+                                "plain_host_loop_ms": plain_host_ms,
+                                "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms})
+                    say("timing", kernel=kname, variant=variant, case=case[0],
+                        ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+                        host_loop_ms=f"{host_ms:.5f}",
+                        plain_host_loop_ms=f"{plain_host_ms:.5f}", bound_ms=f"{b_ms:.6f}",
+                        bound_by=by, library_ms="null" if lib_ms is None else f"{lib_ms:.5f}")
+        path_variant = next(iter(variants))
+        on_path = [p for p in per if p["case"] != "improved" and p["variant"] == path_variant]
         mean = lambda k: sum(p[k] for p in on_path) / len(on_path)  # noqa: E731
-        b_ms = mean("bound_ms")
         rows.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": errs[kname],
-            # per launch, averaged over the path's layer shapes
-            "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": b_ms,
+            # per launch, averaged over the path's layer shapes, in the
+            # variant the path runs (bf16 for gmh_scores)
+            "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
             "bound_by": max(on_path, key=lambda p: p["bound_ms"])["bound_by"],
-            "library_ms": None, "shapes": per,
+            "library_ms": mean("library_ms") if library else None, "shapes": per,
         })
     return rows
 
 
 def phase_profile(train_adjs, out_dir):
-    """torch.profiler over a 20-step sampler run: device time by kernel and
-    the device's busy share of the wall time."""
+    """torch.profiler over a 20-step sampler run of each path: device time
+    by kernel and the device's busy share of the wall time.  The default
+    path's trace goes to DIR/sampler_trace.json."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     steps = 20
-    sampler = smoke_sampler(sample_config(steps=steps), train_adjs)
-    sampler.sample(128)  # warm-up
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sampler.sample(128)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "sampler_trace.json"))
-    events = prof.key_averages()
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = {e.key: getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0)) for e in device}
-    total = sum(dev_us.values())
-    check(total > 0, "the profiler saw no device time")
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
-    host = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA),
-                  key=lambda e: -e.self_cpu_time_total)[:12]
-    say("profile", steps=steps, wall_s=f"{wall:.4f}", device_busy_s=f"{total / 1e6:.4f}",
-        busy_share=f"{total / 1e6 / wall:.4f}",
-        device_kernels_per_step=f"{sum(e.count for e in device) / steps:.1f}",
-        top_device_us=json.dumps([(k[:60], round(v, 1)) for k, v in top]),
-        top_host_self_us=json.dumps([(e.key[:40], e.count, round(e.self_cpu_time_total, 1))
-                                     for e in host]))
+    for fused in (True, False):
+        sampler = smoke_sampler(sample_config(steps=steps, fused=fused), train_adjs)
+        sampler.sample(128)  # warm-up
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sampler.sample(128)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if fused:
+            os.makedirs(out_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(out_dir, "sampler_trace.json"))
+        events = prof.key_averages()
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_us = {e.key: getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0)) for e in device}
+        total = sum(dev_us.values())
+        check(total > 0, "the profiler saw no device time")
+        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
+        host = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA),
+                      key=lambda e: -e.self_cpu_time_total)[:12]
+        say("profile", path="default" if fused else "sample.fused: false", steps=steps,
+            wall_s=f"{wall:.4f}", device_busy_s=f"{total / 1e6:.4f}",
+            busy_share=f"{total / 1e6 / wall:.4f}",
+            device_kernels_per_step=f"{sum(e.count for e in device) / steps:.1f}",
+            top_device_us=json.dumps([(k[:60], round(v, 1)) for k, v in top]),
+            top_host_self_us=json.dumps([(e.key[:40], e.count,
+                                          round(e.self_cpu_time_total, 1)) for e in host]))
 
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also profile 20 sampler steps; trace into DIR")
+                    help="also profile 20 sampler steps of each path; trace into DIR")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     phase = "import"
@@ -496,7 +680,7 @@ def main(argv) -> int:
         phase = "import"
         import_port()
         from ccsd_tpu_torch.data.loader import community_small_adjs
-        from ccsd_tpu_torch.models.registry import load_model, load_model_params
+        from ccsd_tpu_torch.models.registry import load_model, load_model_params, with_fused
 
         dev = torch.device("cuda")
         phase = "build"
@@ -505,19 +689,33 @@ def main(argv) -> int:
         config = sample_config()
         defs = dict(zip(("x", "adj"), load_model_params(config)))
         g = torch.Generator().manual_seed(0)
-        models = {n: load_model(defs[n], generator=g).to(dev).eval() for n in defs}
-        gcn_cases, gmh_cases = path_shapes(models)
+        x_net, adj_net = (load_model(defs[n], generator=g).to(dev).eval() for n in defs)
+
+        def fused(fast):  # the same weights on the fused path
+            m = load_model(with_fused(defs, fast=fast)["adj"]).to(dev).eval()
+            m.load_state_dict(adj_net.state_dict())
+            return m
+
+        L = int(config.model.num_layers)
+        per_layer = {"channel_agg": L, "gmh_scores": L}
+        models = {
+            "x": (x_net, {"gcn_aggregate": int(config.model.depth)}, MODEL_TOL),
+            "adj": (adj_net, {"gmh_attention": L}, MODEL_TOL),
+            "adj_fused_f32": (fused(False), per_layer, MODEL_TOL),
+            "adj_fused_fast": (fused(True), per_layer, BF16_MODEL_TOL),
+        }
+        shapes = path_shapes({"x": x_net, "adj": adj_net})
         train_adjs = community_small_adjs(100, np.random.default_rng(0),
                                           int(config.data.max_node_num))
 
         phase = "kernels"
-        errs = phase_kernels(gcn_cases, gmh_cases, dev)
+        errs = phase_kernels(shapes, dev)
         phase = "models"
         phase_models(models, train_adjs, dev)
         phase = "sample"
         launches = phase_sample(train_adjs)
         phase = "timing"
-        rows = phase_timing(gcn_cases, gmh_cases, dev, launches, errs)
+        rows = phase_timing(shapes, dev, launches, errs)
         if args.profile:
             phase = "profile"
             phase_profile(train_adjs, args.profile)

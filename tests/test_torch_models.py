@@ -212,12 +212,14 @@ def test_state_dict_names_round_trip_through_torch_convert(which):
 
 def test_fused_definition_loads_onto_the_one_implementation():
     """A checkpoint trained with model.fused names the switch in its
-    definition; the port builds the same module from it."""
+    definition; the port builds the fused path from it, with the same
+    parameters under the same names."""
     jcfg = jget_config("community_small", 0)
     jcfg.model.fused = True
     jdef = jload_model_params(jcfg)[1]
     assert jdef["fused"] is True
     m = load_model(jdef)
+    assert all(layer.fused for layer in m.layers)
     ref = load_model(_nets()[1][1])
     assert [(k, v.shape) for k, v in m.state_dict().items()] == [
         (k, v.shape) for k, v in ref.state_dict().items()]

@@ -22,6 +22,7 @@ from ccsd_tpu.data.loader import init_flags as jinit_flags
 from ccsd_tpu.diffusion import sde as jsde
 from ccsd_tpu.diffusion.losses import get_score_fn as jget_score_fn
 from ccsd_tpu.models.registry import load_model as jload_model
+from ccsd_tpu.models.registry import with_fused as jwith_fused
 from ccsd_tpu.utils.config import AttrDict as JAttrDict
 
 import ccsd_tpu_torch.diffusion.solvers as psolvers
@@ -145,14 +146,23 @@ def _noise_feed(seq, wrap):
     return raw
 
 
-@pytest.mark.parametrize("predictor,corrector",
-                         [("Euler", "Langevin"), ("Reverse", "None")])
-def test_sampler_end_to_end_matches_jax(monkeypatch, predictor, corrector):
-    """10-step sampler, shared weights and noise.  Tolerance rtol = atol =
-    1e-4: the f32 rounding differences of the 40 score evaluations feed
-    back through the iteration (measured on the CPU: max |diff| 7.4e-6 for
-    Euler + Langevin)."""
-    steps = 10
+class _Compiled:
+    """A JAX model whose apply runs compiled even inside
+    ``jax.disable_jit()``, as it runs in the JAX samplers: XLA then rounds
+    a bf16 expression where the port does (tests/test_torch_fused_models.py)."""
+
+    def __init__(self, model):
+        self._fn = jax.jit(lambda p, x, a, f: model.apply(p, x, a, flags=f))
+
+    def apply(self, params, x, adj, flags=None):
+        with jax.disable_jit(False):
+            return self._fn(params, x, adj, flags)
+
+
+def _sampler_outputs(monkeypatch, predictor, corrector, defs, steps, compiled=False,
+                     adj_head_scale=1.0):
+    """(JAX, port) sampler outputs for shared weights and noise.  The
+    adjacency network's last layer is scaled by ``adj_head_scale`` in both."""
     rng = np.random.default_rng(11)
     shapes = [(B, N, F), (B, N, N)] + [(B, N, F), (B, N, N)] * (
         steps * (2 if corrector == "Langevin" else 1))
@@ -161,8 +171,9 @@ def test_sampler_end_to_end_matches_jax(monkeypatch, predictor, corrector):
     flags[0, 6:] = 0
     flags[2, 5:] = 0
 
-    jx, ja = jload_model(DEF_X), jload_model(DEF_A)
+    jx, ja = jload_model(defs[0]), jload_model(defs[1])
     px_, pa_ = jx.init(jax.random.PRNGKey(1)), ja.init(jax.random.PRNGKey(2))
+    pa_["final"]["linears"][-1]["w"] = pa_["final"]["linears"][-1]["w"] * adj_head_scale
     js = jsde.VPSDE(N=steps, beta_min=0.1, beta_max=1.0)
     ps = psde.VPSDE(N=steps, beta_min=0.1, beta_max=1.0)
     kw = dict(predictor=predictor, corrector=corrector, snr=0.05, scale_eps=0.7,
@@ -186,8 +197,10 @@ def test_sampler_end_to_end_matches_jax(monkeypatch, predictor, corrector):
                             lambda z: z + jnp.swapaxes(z, -1, -2))(
                                 jnp.triu(jraw(shape), 1)))
     jsampler = jsolvers.get_pc_sampler(js, js, (B, N, F), (B, N, N), **kw)
+    wrap = _Compiled if compiled else (lambda m: m)
     with jax.disable_jit():
-        jout = jsampler(jget_score_fn(js, jx, px_), jget_score_fn(js, ja, pa_),
+        jout = jsampler(jget_score_fn(js, wrap(jx), px_),
+                        jget_score_fn(js, wrap(ja), pa_),
                         jnp.asarray(flags), jax.random.PRNGKey(0))
 
     praw = _noise_feed(seq, torch.from_numpy)
@@ -206,13 +219,45 @@ def test_sampler_end_to_end_matches_jax(monkeypatch, predictor, corrector):
                         lambda self, shape, generator=None, device=None: (
                             lambda z: z + z.transpose(-1, -2))(
                                 torch.triu(praw(shape), 1)))
-    mx = load_jax_params(load_model(DEF_X), px_)
-    ma = load_jax_params(load_model(DEF_A), pa_)
+    mx = load_jax_params(load_model(defs[0]), px_)
+    ma = load_jax_params(load_model(defs[1]), pa_)
     psampler = psolvers.get_pc_sampler(ps, ps, (B, N, F), (B, N, N), **kw)
     pout = psampler(get_score_fn(ps, mx), get_score_fn(ps, ma),
                     torch.from_numpy(flags), None)
-
     assert pout.n_model_evals == jout.n_model_evals
+    return jout, pout
+
+
+@pytest.mark.parametrize("predictor,corrector",
+                         [("Euler", "Langevin"), ("Reverse", "None")])
+def test_sampler_end_to_end_matches_jax(monkeypatch, predictor, corrector):
+    """10-step sampler, shared weights and noise.  Tolerance rtol = atol =
+    1e-4: the f32 rounding differences of the 40 score evaluations feed
+    back through the iteration (measured on the CPU: max |diff| 7.4e-6 for
+    Euler + Langevin)."""
+    jout, pout = _sampler_outputs(monkeypatch, predictor, corrector,
+                                  (DEF_X, DEF_A), steps=10)
+    for name in ("x", "adj"):
+        np.testing.assert_allclose(getattr(pout, name).numpy(),
+                                   np.asarray(getattr(jout, name)),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["fused_f32", "fused_fast"])
+def test_fused_sampler_end_to_end_matches_jax(monkeypatch, fast):
+    """The sampler on the defs both packages' samplers build by default
+    (``with_fused``: fused, and with fast bf16 scores and the blocksum
+    final layer), 10 Euler + Langevin steps, shared weights and noise, the
+    JAX models compiled.  The adjacency network's last layer is scaled by
+    0.01 in both, as chip_smoke.py does for seeded weights: at full scale
+    these untrained weights grow the adjacency to ~1e5 within 5 steps, where
+    one head sum rounding to the other bf16 neighbour moves the output by
+    more than any tolerance.  rtol = atol = 1e-4, as above (measured: max
+    |diff| 6.7e-5 fast, 4.3e-6 f32)."""
+    defs = (DEF_X, jwith_fused({"adj": DEF_A}, True, fast=fast)["adj"])
+    assert defs[1]["fused"] and ("scores_impl" in defs[1]) == fast
+    jout, pout = _sampler_outputs(monkeypatch, "Euler", "Langevin", defs, steps=10,
+                                  compiled=True, adj_head_scale=0.01)
     for name in ("x", "adj"):
         np.testing.assert_allclose(getattr(pout, name).numpy(),
                                    np.asarray(getattr(jout, name)),
@@ -276,6 +321,25 @@ def test_cli_samples_from_a_config_file(tmp_path, capsys):
     assert report["samples"] == 5 and report["device"] == "cpu" and report["finite"]
     got = np.load(out)
     assert got["adj"].shape == (5, N, N) and got["x"].shape == (5, N, F)
+
+
+@pytest.mark.parametrize("sample,expect", [
+    ({}, (True, "mulreduce_h_bf16", "blocksum")),
+    ({"fast": False}, (True, "mulreduce", "concat")),
+    ({"fused": False}, (False, "mulreduce", "concat")),
+], ids=["default", "fast_false", "fused_false"])
+def test_sampler_builds_the_network_the_jax_sampler_builds(sample, expect):
+    """sample.fused / sample.fast, both on by default, as in
+    ccsd_tpu/sampling/sampler.py:220-223; fused: false is the unfused f32
+    network."""
+    cfg = _tiny_config()
+    for k, v in sample.items():
+        cfg.sample[k] = v
+    _, models, _ = Sampler(cfg, np.zeros((2, N, N)), device="cpu").load_models()
+    net = models["adj"]
+    assert {(l.fused, l.scores_impl, l.agg_impl) for l in net.layers} == {
+        (*expect[:2], "mulreduce")}
+    assert net.final_impl == expect[2]
 
 
 def test_sampler_on_cpu_returns_valid_graphs():

@@ -2,9 +2,12 @@
 
 * A ``.ckpt.pkl`` written by ccsd_tpu's ``save_ckpt`` with the Trainer's
   payload (parameters, optax state, EMA state) is read by the port in a
-  subprocess where jax, optax and ccsd_tpu cannot be imported; the port's
-  score networks built from it must give the JAX scores (rtol = atol =
-  1e-4, whole networks: see tests/test_torch_models.py).
+  subprocess where jax, optax and ccsd_tpu cannot be imported; the score
+  networks the port's ``Sampler`` builds from it must give the scores of
+  the networks the JAX ``Sampler`` builds (``with_fused``), with
+  ``sample.fast: false`` so that both are the f32 fused path (rtol = atol =
+  1e-4, whole networks: see tests/test_torch_models.py; the bf16 scores of
+  the fast path are held to JAX in tests/test_torch_fused_models.py).
 * The port's YAML loader must equal ``yaml.safe_load`` on every config.
 """
 
@@ -21,7 +24,7 @@ import yaml
 import jax
 import jax.numpy as jnp
 
-from ccsd_tpu.models.registry import load_model, load_model_params
+from ccsd_tpu.models.registry import load_model, load_model_params, with_fused
 from ccsd_tpu.training.checkpoint import ckpt_path, save_ckpt
 from ccsd_tpu.training.ema import ema_init, ema_update
 from ccsd_tpu.training.optim import make_optimizer
@@ -43,7 +46,7 @@ from ccsd_tpu_torch.utils.config import AttrDict
 args = json.loads(sys.argv[1])
 cfg = AttrDict({"ckpt": "jax_run", "folder": args["folder"],
                 "data": {"data": "community_small"},
-                "sample": {"use_ema": args["use_ema"]}})
+                "sample": {"use_ema": args["use_ema"], "fast": False}})
 _, models, _ = Sampler(cfg, np.zeros((1, 20, 20)), device="cpu").load_models()
 inp = np.load(args["inputs"])
 x, adj, flags = (torch.from_numpy(inp[k]) for k in ("x", "adj", "flags"))
@@ -99,10 +102,11 @@ def test_jax_checkpoint_loads_without_jax(jax_checkpoint, tmp_path, use_ema):
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
     got = np.load(out)
-    for n in ("x", "adj"):
+    for n, d in with_fused(defs, fast=False).items():
         p = params[n]["ema" if use_ema else "raw"]
-        ref = load_model(defs[n]).apply(p, jnp.asarray(x), jnp.asarray(adj),
-                                        flags=jnp.asarray(flags))
+        model = load_model(d)
+        ref = jax.jit(lambda p, x, a, f: model.apply(p, x, a, flags=f))(
+            p, jnp.asarray(x), jnp.asarray(adj), jnp.asarray(flags))
         np.testing.assert_allclose(got[n], np.asarray(ref), rtol=1e-4, atol=1e-4,
                                    err_msg=n)
 
