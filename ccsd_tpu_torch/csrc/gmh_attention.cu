@@ -3,137 +3,237 @@
 //
 // Replaces: gmh_attention_pallas, ccsd_tpu/ops/pallas/gmh_attention.py:62-114
 // (body _gmh_kernel :30-59).  The Pallas grid (B,) ran one channel per call;
-// here the grid is (B, C), so one launch covers a whole AttentionLayer.
+// here one launch covers a whole AttentionLayer.
 //
 //   norm    = D^-1/2 A'_c D^-1/2            (A'_c: diagonal set to `loop`)
-//   Q, K, V = norm (X W_{q,k,v}[c]) + b_{q,k,v}[c]
+//   Q, K, V = (norm X) W_{q,k,v}[c] + b_{q,k,v}[c]
 //   S_h     = Q_h K_h^T / sqrt(F_out)       (head h = columns [h*ds,(h+1)*ds))
 //   A       = mean_h tanh(S_h)
 //   outputs   V into v_out[b, n, c*F_out + o]   (the channel concat)
 //             (A + A^T)/2 into a_out[b, n, m, c] (channels last)
 //
+// norm (X W) is taken as (norm X) W, as the fused layer takes it: the same
+// function in fewer FMAs when F_in < 2 attn + F_out, rounded in another
+// order.  The adjacency is read through its four strides (b, c, n, m): the
+// first layer's is (B, C, N, N)-contiguous, a later layer's the
+// channels-last view the previous layer's MLP leaves.
+//
 // What bounds it on H100: at the sampler's widest layer (B=128, C=8, N=20,
-// F_in = attn = F_out = 32) one launch moves ~6 MB and does ~230 MFLOP of
-// f32 FMA work (projection, aggregation, scores) plus ~1.6 M tanh: 1.9 us
-// of bytes at 3.35 TB/s against 3.4 us of operations at 67 TFLOP/s, so
-// operations bound it.  Each block is small (N=20), so the block's serial
-// phases (load, project, aggregate, score, symmetrise) and the launch are
-// what it waits on in practice.
-// What the design does about it: one launch per layer instead of one per
-// channel; the normalised adjacency is built once and used for Q, K and V;
-// X, XW, Q, K and the N x N score accumulator stay in shared memory, and
-// the map is symmetrised only once the whole accumulator is there.  Plain
-// f32 FMAs and tanhf; tensor cores are left for later.
+// F_in = attn = F_out = 32) one launch moves ~6 MB and does ~89 M FMAs
+// (norm X, the projection, the head sums) plus ~1.6 M tanh: 1.9 us of bytes
+// at 3.35 TB/s against 2.7 us of operations at 67 TFLOP/s, so operations
+// bound it.  The first design (one block per (graph, channel), one output
+// per thread) was bound by its load/store pipe instead: a 20-way bank
+// conflict in the score loop (K rows 32 floats apart), two loads per FMA in
+// the projection (W re-read through L1 on every FMA), three shared loads and
+// a multiply per FMA in the aggregation, and a global load of the bias for
+// every output.  What is left is the block's chain of short phases between
+// barriers, the instructions around the FMAs, and the strided accesses of
+// the channels-last layouts: the maps leave one float per (n, m) at stride
+// C, and a later layer's adjacency arrives the same way (PERF.md,
+// scripts/gmh_stage_times.py).
+// What this design does about it:
+//  * a block takes one (graph, channel), B x C blocks of 256 threads, up to
+//    four resident an SM: at the sampler's B = 128 and C = 8 the 1,024
+//    blocks fill the 132 SMs about twice.  A block that walked several
+//    channels of a graph would make the map store contiguous, but leaves
+//    fewer blocks to hide one another's latencies, and no batch the port
+//    runs gives enough graphs for that (PERF.md);
+//  * [Wq | Wk | Wv], its bias, the adjacency and X arrive by cp.async, in
+//    16-byte copies where the rows allow (the weights, X as one run, a
+//    contiguous adjacency), behind one barrier; the bias is read from
+//    shared memory;
+//  * every warp computes the degrees for itself (16-byte row loads), then
+//    d_r A'_rj d_j is built once per channel in shared memory, so the
+//    product norm X reads one value per FMA;
+//  * norm X and (norm X) [Wq | Wk | Wv] are register-tiled: 2 x 2 outputs
+//    a thread for norm X, and for the projection 2 rows x 4 columns with
+//    16-byte loads (4 k of an A row, 4 columns of a W row: 6 loads per 32
+//    FMAs); the scores are the f32 stage of gmh_common.cuh (2 x 2 head sums
+//    a thread, 16-byte loads along the head, then one thread a pair n <= m
+//    for the tanh and the symmetrised store); rows are padded so that no
+//    loop has a bank conflict;
+//  * V leaves as coalesced rows of F_out floats, the maps from the pairs'
+//    threads, one float at stride C each.
+// Plain f32 FMAs and tanhf throughout; no TF32.
 
-#include <cuda_runtime.h>
+#include "gmh_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxSmem = 232448;
+using namespace gmh;
 
-__global__ void __launch_bounds__(kThreads)
+// register patches of the three f32 products
+constexpr int kAggTM = 2, kAggTN = 2;    // norm X        (N x F_in)
+constexpr int kProjTM = 2, kProjTN = 4;  // (norm X) W    (N x P; 16-byte loads: TM x 4)
+constexpr int kSumTM = 2, kSumTN = 2;    // head sums   (N x N)
+
+// Shared-memory layout of one block, in floats.
+struct AttnLayout {
+  int P;         // projected width 2A + O: [q | k | v]
+  int bias;      // [Wq | Wk | Wv] (F_in x P) at 0, then its bias (P)
+  int adj, lda;  // the adjacency (ld4: 16-byte copies and rows)
+  int x;         // X, dense (F_in a row): one 16-byte copy run
+  int ldn, norm;
+  int ldnx, nx;  // norm X (ld4: 16-byte rows)
+  int ldq, q, k; // Q, K (ld4: 16-byte rows)
+  int raw;       // raw head sums, H * raw_plane(N)
+  int total;
+  __host__ __device__ AttnLayout(int N, int Fi, int A, int O, int H) {
+    P = 2 * A + O;
+    bias = round4(Fi * P);
+    adj = round4(bias + P);
+    lda = ld4(N);
+    x = round4(adj + N * lda);
+    ldn = odd(N);
+    norm = x + round4(N * Fi);
+    ldnx = ld4(Fi);
+    nx = norm + round4(N * ldn);
+    ldq = ld4(A);
+    q = nx + N * ldnx;
+    k = q + N * ldq;
+    raw = k + N * ldq;
+    total = raw + H * raw_plane(N);
+  }
+};
+
+// at most 64 registers a thread, so that four blocks fit an SM's registers
+__global__ void __launch_bounds__(kThreads, 4)
 gmh_attention_kernel(const float* __restrict__ x, const float* __restrict__ adj,
                      const float* __restrict__ wq, const float* __restrict__ bq,
                      const float* __restrict__ wk, const float* __restrict__ bk,
                      const float* __restrict__ wv, const float* __restrict__ bv,
                      float* __restrict__ v_out, float* __restrict__ a_out,
                      int C, int N, int Fi, int A, int O, int H, int ds,
+                     long long as_b, long long as_c, long long as_n, long long as_m,
                      float score_div, int add_loop, float loop) {
-  extern __shared__ float smem[];
-  const int P = 2 * A + O;           // projected width: [q | k | v]
-  float* sA = smem;                  // N*N   A' with the diagonal set
-  float* sD = sA + N * N;            // N     d
-  float* sX = sD + N;                // N*Fi  X
-  float* sT = sX + N * Fi;           // N*P   X [Wq | Wk | Wv]
-  float* sQ = sT + N * P;            // N*A
-  float* sK = sQ + N * A;            // N*A
-  float* sS = sK + N * A;            // N*N   mean_h tanh(S_h)
-
+  extern __shared__ __align__(16) float smem[];
+  const AttnLayout L(N, Fi, A, O, H);
+  const int P = L.P;
+  const float* sW = smem;
+  const float* sBias = smem + L.bias;
+  const float* sA = smem + L.adj;
+  float* sX = smem + L.x;
+  float* sNorm = smem + L.norm;
+  float* sNX = smem + L.nx;
+  float* sQ = smem + L.q;
+  float* sK = smem + L.k;
+  float* sR = smem + L.raw;
   const int b = blockIdx.x, c = blockIdx.y;
-  const float* ab = adj + ((size_t)b * C + c) * N * N;
-  const float* xb = x + (size_t)b * N * Fi;
-  const float* wqc = wq + (size_t)c * Fi * A;
-  const float* wkc = wk + (size_t)c * Fi * A;
-  const float* wvc = wv + (size_t)c * Fi * O;
-
-  for (int i = threadIdx.x; i < N * N; i += blockDim.x) {
-    const int r = i / N, col = i - r * N;
-    sA[i] = (add_loop && r == col) ? loop : ab[i];
-  }
-  for (int i = threadIdx.x; i < N * Fi; i += blockDim.x) sX[i] = xb[i];
-  __syncthreads();
-
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
+
+  // [Wq | Wk | Wv] of channel c and its bias, the adjacency of (b, c), and X
+  // of the graph (one dense run of N F_in floats)
+  const float* w[3] = {wq + static_cast<size_t>(c) * Fi * A,
+                       wk + static_cast<size_t>(c) * Fi * A,
+                       wv + static_cast<size_t>(c) * Fi * O};
+  const float* bias[3] = {bq ? bq + c * A : nullptr, bk ? bk + c * A : nullptr,
+                          bv ? bv + c * O : nullptr};
+  for (int m = 0; m < 3; ++m) {
+    const int off = m * A, width = m < 2 ? A : O;
+    copy_tile_async(smem + off, P, w[m], width, 1, Fi, width);
+    if (bias[m])
+      copy_tile_async(smem + L.bias + off, width, bias[m], width, 1, 1, width);
+    else
+      zero_fill(smem + L.bias + off, width);
+  }
+  copy_tile_async(smem + L.adj, L.lda, adj + b * as_b + c * as_c, as_n, as_m, N, N);
+  copy_tile_async(sX, N * Fi, x + static_cast<size_t>(b) * N * Fi, N * Fi, 1, 1, N * Fi);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // d = max(rowsum A', 1)^-1/2 (diagonal assigned `loop` when add_loop),
+  // every warp for itself: lane r holds the rows r and r + 32; then
+  // norm = d_r A'_rj d_j, one warp a row
+  float d0 = 1.f, d1 = 1.f;  // rows lane and lane + 32
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = lane + 32 * h;
+    if (r >= N) continue;
+    const float* row = sA + r * L.lda;
+    float s = 0.f;
+    int j = 0;
+    if ((N & 3) == 0)  // 16-byte rows; eight lanes' rows in distinct banks
+      for (; j < N; j += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(row + j);
+        s += (add_loop && j == r) ? loop : a.x;
+        s += (add_loop && j + 1 == r) ? loop : a.y;
+        s += (add_loop && j + 2 == r) ? loop : a.z;
+        s += (add_loop && j + 3 == r) ? loop : a.w;
+      }
+    for (; j < N; ++j) s += (add_loop && j == r) ? loop : row[j];
+    (h ? d1 : d0) = 1.0f / sqrtf(fmaxf(s, 1.0f));
+  }
   for (int r = warp; r < N; r += nwarps) {
-    float s = 0.f;
-    for (int col = lane; col < N; col += 32) s += sA[r * N + col];
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) sD[r] = 1.0f / sqrtf(fmaxf(s, 1.0f));
-  }
-  for (int i = threadIdx.x; i < N * P; i += blockDim.x) {
-    const int r = i / P, p = i - r * P;
-    const float* wcol;
-    int stride;
-    if (p < A) { wcol = wqc + p; stride = A; }
-    else if (p < 2 * A) { wcol = wkc + (p - A); stride = A; }
-    else { wcol = wvc + (p - 2 * A); stride = O; }
-    float s = 0.f;
-    for (int k = 0; k < Fi; ++k) s = fmaf(sX[r * Fi + k], __ldg(wcol + k * stride), s);
-    sT[i] = s;
+    const float dr = __shfl_sync(0xffffffffu, r < 32 ? d0 : d1, r & 31);
+    for (int j = lane; j < N; j += 32) {
+      const float a = (add_loop && r == j) ? loop : sA[r * L.lda + j];
+      sNorm[r * L.ldn + j] = dr * a * (j < 32 ? d0 : d1);
+    }
   }
   __syncthreads();
 
-  // Q, K into shared memory; V straight to its slot of the channel concat
-  for (int i = threadIdx.x; i < N * P; i += blockDim.x) {
-    const int r = i / P, p = i - r * P;
-    float s = 0.f;
-    for (int j = 0; j < N; ++j) s = fmaf(sA[r * N + j] * sD[j], sT[j * P + p], s);
-    s *= sD[r];
+  if (ablated(kNormX))
+    zero_fill(sNX, N * L.ldnx);
+  else
+    tiled_product<kAggTM, kAggTN>(sNorm, L.ldn, sX, Fi, N, Fi, N,
+                                  [&](int r, int f, float v) { sNX[r * L.ldnx + f] = v; });
+  __syncthreads();
+
+  // Q, K = (norm X) W + bias into shared memory; V straight to its slot of
+  // the channel concat
+  float* vo = v_out + static_cast<size_t>(b) * N * C * O + static_cast<size_t>(c) * O;
+  auto qkv = [&](int r, int p, float v) {
+    v += sBias[p];
     if (p < A) {
-      sQ[r * A + p] = s + (bq ? __ldg(bq + c * A + p) : 0.f);
+      sQ[r * L.ldq + p] = v;
     } else if (p < 2 * A) {
-      sK[r * A + (p - A)] = s + (bk ? __ldg(bk + c * A + (p - A)) : 0.f);
+      sK[r * L.ldq + (p - A)] = v;
     } else {
-      const int o = p - 2 * A;
-      v_out[((size_t)b * N + r) * C * O + (size_t)c * O + o] =
-          s + (bv ? __ldg(bv + c * O + o) : 0.f);
+      vo[static_cast<size_t>(r) * C * O + (p - 2 * A)] = v;
     }
-  }
+  };
+  if (ablated(kProjection))
+    zero_fill(sQ, 2 * N * L.ldq);  // Q and K; V is not written
+  else if ((P & 3) == 0)  // 16-byte rows of W (smem and P are 16-byte aligned)
+    tiled_product4<kProjTM>(sNX, L.ldnx, sW, P, N, P, Fi, qkv);
+  else
+    tiled_product<kProjTM, kProjTN>(sNX, L.ldnx, sW, P, N, P, Fi, qkv);
   __syncthreads();
 
-  for (int i = threadIdx.x; i < N * N; i += blockDim.x) {
-    const int n = i / N, m = i - n * N;
-    float acc = 0.f;
-    for (int h = 0; h < H; ++h) {
-      const float* q = sQ + n * A + h * ds;
-      const float* k = sK + m * A + h * ds;
-      float s = 0.f;
-      for (int d = 0; d < ds; ++d) s = fmaf(q[d], k[d], s);
-      acc += tanhf(s / score_div);
-    }
-    sS[i] = acc / (float)H;
+  if (ablated(kHeadSums)) {
+    zero_fill(sR, H * raw_plane(N));
+  } else {
+    const int per = sum_patches<kSumTM, kSumTN>(N);  // items: (head, patch)
+    for (int i = threadIdx.x; i < H * per; i += blockDim.x)
+      sum_patch_f32<kSumTM, kSumTN>(i % per, i / per, sQ, sK, L.ldq, sR, N, ds);
   }
   __syncthreads();
-
-  for (int i = threadIdx.x; i < N * N; i += blockDim.x) {
-    const int n = i / N, m = i - n * N;
-    a_out[(((size_t)b * N + n) * N + m) * C + c] = (sS[i] + sS[m * N + n]) * 0.5f;
-  }
+  if (!ablated(kStore))
+    store_pairs(a_out + (static_cast<size_t>(b) * N * N) * C + c, sR, 0, N, C, 1, H,
+                score_div);
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success).
+// Shared memory (bytes) of one block: the kernel's layout, for the wrapper.
+extern "C" int gmh_attention_smem(int N, int Fi, int A, int O, int H) {
+  return static_cast<int>(sizeof(float)) * AttnLayout(N, Fi, A, O, H).total;
+}
+
+// as_*: strides of adj in elements.  Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int gmh_attention_f32(const float* x, const float* adj,
                                  const float* wq, const float* bq,
                                  const float* wk, const float* bk,
                                  const float* wv, const float* bv,
                                  float* v_out, float* a_out, int B, int C, int N,
                                  int Fi, int A, int O, int H, int ds,
-                                 float score_div, int add_loop, float loop,
-                                 void* stream) {
+                                 long long as_b, long long as_c, long long as_n,
+                                 long long as_m, float score_div, int add_loop,
+                                 float loop, void* stream) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -141,11 +241,11 @@ extern "C" int gmh_attention_f32(const float* x, const float* adj,
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  const size_t smem = sizeof(float) *
-      (2 * (size_t)N * N + N + (size_t)N * Fi + (size_t)N * (2 * A + O) + 2 * (size_t)N * A);
+  const int smem = gmh_attention_smem(N, Fi, A, O, H);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   dim3 grid(B, C);
   gmh_attention_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       x, adj, wq, bq, wk, bk, wv, bv, v_out, a_out, C, N, Fi, A, O, H, ds,
-      score_div, add_loop, loop);
+      as_b, as_c, as_n, as_m, score_div, add_loop, loop);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// Head scores of the fused AttentionLayer, one block per (graph, channel).
+// Head scores of the fused AttentionLayer, one block per graph and group of
+// channels.
 //
 // Replaces: make_pallas_reg(dtype, nc), tools/pallas_scores_probe.py:85-104
 // (body _scores_reg_kernel :66-82), and make_pallas(dtype),
@@ -15,124 +16,155 @@
 // symmetrisation and the channels-last layout of the JAX layer
 // (ccsd_tpu/models/attention.py:327, :332) into the write.
 //
-// Product type T:
-//   float          everything in f32 (scores_impl mulreduce / mulreduce_h /
-//                  dot).
-//   __nv_bfloat16  the rounding points of scores_impl="mulreduce_h_bf16"
-//                  (attention.py:310-318) as XLA compiles it: Q and K are
-//                  rounded to bf16 (round to nearest even), their products
-//                  are exact in f32 and summed in f32, s_h is rounded to bf16
-//                  once, and tanh and the head mean are f32.  The Pallas
-//                  probes' bf16 variants round at every add instead; this
-//                  kernel follows the model path.
+// Product type:
+//   f32   everything in f32 (scores_impl mulreduce / mulreduce_h / dot):
+//         register-tiled FMAs, 4 x 4 head sums a thread (gmh_common.cuh).
+//   bf16  the rounding points of scores_impl="mulreduce_h_bf16"
+//         (attention.py:310-318) as XLA compiles it: Q and K are rounded to
+//         bf16 (round to nearest even), their products are exact in f32 and
+//         summed in f32, s_h is rounded to bf16 once, and tanh and the head
+//         mean are f32.  Here the head products run on the tensor cores:
+//         mma.sync m16n8k8 bf16 tiles with f32 accumulators, one warp a
+//         strip of 16 rows of one head, its operands rounded to bf16 as they
+//         are packed into registers from the f32 rows in shared memory (a
+//         separate pass writing bf16 tiles for ldmatrix, and its barrier,
+//         cost more than the products at these sizes).  The tensor core's
+//         f32 accumulation order may move a head sum by a few f32 ulps,
+//         which at a bf16 rounding boundary moves the rounded sum by one
+//         bf16 ulp.
 //
 // Q and K may be strided views (the Q and K column blocks of one projected
 // tensor): strides of b, c and n are given, the feature stride is 1.
 //
 // What bounds it on H100: at the sampler's widest layer (B=128, C=8, N=20,
 // attn=32) one launch reads 5.2 MB of Q and K and writes 1.6 MB, ~2.1 us at
-// 3.35 TB/s, against ~32 MFLOP and 51 K tanh per graph-channel (0.5 us at
-// 67 TFLOP/s of f32): bytes bound it.  At N=20 the launch and the block's
-// serial phases are what it waits on in practice.
-// What the design does about it: Q and K of a (graph, channel) are read once
-// into shared memory (rows padded to attn+1 floats, so the 32 threads of a
-// warp reading 32 K rows hit 32 banks), one thread per (n, m) keeps the
-// head loop in registers, and the N x N map is symmetrised from shared
-// memory before the one store.  Plain f32 FMAs and tanhf.
+// 3.35 TB/s, against ~32 MFLOP and 51 K tanh per graph-channel: bytes bound
+// it.  In practice a launch of this size waits on the launch itself, each
+// block's chain of load, barrier, products, barrier and store, and the
+// instructions of the tanh stage (PERF.md, scripts/gmh_stage_times.py).
+// What this design does about it: a block takes one graph and a group of G
+// channels (the wrapper picks G: all C while the grid keeps a block on
+// every SM, fewer otherwise).  It issues the cp.async copies of every
+// channel's Q and K at once (16-byte copies into rows padded for
+// conflict-free reads) and, past one barrier, works on all of them
+// together: the head sums of all channels go to shared memory, and one pass
+// takes the tanh, head mean and symmetrisation of each pair n <= m once and
+// writes (n, m) and (m, n) for the group's channels as runs of G floats in
+// 16-byte stores (with G = C, C consecutive floats).  The tanh of the
+// padding of a tensor-core tile is never taken.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "gmh_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxSmem = 232448;
+using namespace gmh;
 
-// A value as the product type T holds it, back in f32.
-template <typename T>
-__device__ __forceinline__ float as_product_type(float v);
+constexpr int kSumTM = 4, kSumTN = 4;  // register patch of the f32 head sums
 
-template <>
-__device__ __forceinline__ float as_product_type<float>(float v) { return v; }
+// Shared-memory layout of one block over G channels, in floats.
+struct ScoresLayout {
+  int ld;     // row stride of Q and K: 16-byte copies, and conflict-free
+              // reads by the products (ld8 for bf16 fragments, ld4 for f32)
+  int plane;  // one channel's Q (or K)
+  int k;      // offset of the K planes (Q planes at 0)
+  int raw;    // each channel's raw head sums, H * raw_plane(N)
+  int total;
+  __host__ __device__ ScoresLayout(int N, int A, int H, int G, bool bf16) {
+    ld = bf16 ? ld8(A) : ld4(A);
+    plane = round4(N * ld);
+    k = G * plane;
+    raw = 2 * G * plane;
+    total = raw + G * H * raw_plane(N);
+  }
+};
 
-template <>
-__device__ __forceinline__ float as_product_type<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <typename T>
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 gmh_scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  float* __restrict__ out, int C, int N, int A, int H, int ds,
+                  float* __restrict__ out, int C, int N, int A, int H, int ds, int G,
                   long long qsb, long long qsc, long long qsn,
                   long long ksb, long long ksc, long long ksn, float score_div) {
-  extern __shared__ float smem[];
-  const int ld = A + 1;          // padded row stride of sQ and sK
-  float* sQ = smem;              // N*ld
-  float* sK = sQ + N * ld;       // N*ld
-  float* sS = sK + N * ld;       // N*N  att before symmetrisation
+  extern __shared__ __align__(16) float smem[];
+  const ScoresLayout L(N, A, H, G, kBf16);
+  float* sQ = smem;
+  float* sK = smem + L.k;
+  float* sR = smem + L.raw;
+  const int rstride = H * raw_plane(N);
+  const int b = blockIdx.x, c0 = blockIdx.y * G;
+  const int nch = min(G, C - c0);
 
-  const int b = blockIdx.x, c = blockIdx.y;
-  const float* qb = q + b * qsb + c * qsc;
-  const float* kb = k + b * ksb + c * ksc;
-  for (int i = threadIdx.x; i < N * A; i += blockDim.x) {
-    const int n = i / A, a = i - n * A;
-    sQ[n * ld + a] = as_product_type<T>(qb[n * qsn + a]);
-    sK[n * ld + a] = as_product_type<T>(kb[n * ksn + a]);
+  for (int g = 0; g < nch; ++g) {
+    const int c = c0 + g;
+    copy_tile_async(sQ + g * L.plane, L.ld, q + b * qsb + c * qsc, qsn, 1, N, A);
+    copy_tile_async(sK + g * L.plane, L.ld, k + b * ksb + c * ksc, ksn, 1, N, A);
   }
-  __syncthreads();
+  cp_async_commit();
 
-  for (int i = threadIdx.x; i < N * N; i += blockDim.x) {
-    const int n = i / N, m = i - n * N;
-    const float* qr = sQ + n * ld;
-    const float* kr = sK + m * ld;
-    float acc = 0.f;
-    for (int h = 0; h < H; ++h) {
-      float s = 0.f;
-      for (int d = h * ds; d < (h + 1) * ds; ++d) s = fmaf(qr[d], kr[d], s);
-      acc += tanhf(as_product_type<T>(s) / score_div);
+  cp_async_wait<0>();
+  __syncthreads();
+  if (ablated(kHeadSums)) {
+    zero_fill(sR, nch * rstride);
+  } else if constexpr (kBf16) {
+    // items: (channel, head, strip of 16 rows), one warp each
+    const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+    const int per = cdiv(N, 16);
+    for (int w = warp; w < nch * H * per; w += nwarps) {
+      const int gh = w / per, g = gh / H;
+      sum_strip_bf16(w - gh * per, gh - g * H, sQ + g * L.plane, sK + g * L.plane, L.ld,
+                     sR + g * rstride, N, ds);
     }
-    sS[i] = acc / (float)H;
+  } else {
+    const int per = sum_patches<kSumTM, kSumTN>(N);  // items: (channel, head, patch)
+    for (int i = threadIdx.x; i < nch * H * per; i += blockDim.x) {
+      const int gh = i / per, g = gh / H;
+      sum_patch_f32<kSumTM, kSumTN>(i - gh * per, gh - g * H, sQ + g * L.plane,
+                                    sK + g * L.plane, L.ld, sR + g * rstride, N, ds);
+    }
   }
   __syncthreads();
-
-  for (int i = threadIdx.x; i < N * N; i += blockDim.x) {
-    const int n = i / N, m = i - n * N;
-    out[(((size_t)b * N + n) * N + m) * C + c] = (sS[i] + sS[m * N + n]) * 0.5f;
-  }
+  if (!ablated(kStore))
+    store_pairs(out + (static_cast<size_t>(b) * N * N) * C + c0, sR, rstride, N, C, nch, H,
+                score_div);
 }
 
-template <typename T>
-int launch(const float* q, const float* k, float* out, int B, int C, int N,
-           int A, int H, int ds, long long qsb, long long qsc, long long qsn,
+template <bool kBf16>
+int launch(const float* q, const float* k, float* out, int B, int C, int N, int A,
+           int H, int ds, int G, long long qsb, long long qsc, long long qsn,
            long long ksb, long long ksc, long long ksn, float score_div,
            cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        gmh_scores_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        gmh_scores_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  const size_t smem = sizeof(float) * (2 * (size_t)N * (A + 1) + (size_t)N * N);
-  dim3 grid(B, C);
-  gmh_scores_kernel<T><<<grid, kThreads, smem, stream>>>(
-      q, k, out, C, N, A, H, ds, qsb, qsc, qsn, ksb, ksc, ksn, score_div);
+  const int smem = static_cast<int>(sizeof(float)) * ScoresLayout(N, A, H, G, kBf16).total;
+  if (G < 1 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  dim3 grid(B, cdiv(C, G));
+  gmh_scores_kernel<kBf16><<<grid, kThreads, smem, stream>>>(
+      q, k, out, C, N, A, H, ds, G, qsb, qsc, qsn, ksb, ksc, ksn, score_div);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 != 0 selects the bf16 product type.  Returns the cudaError_t of the
-// launch (0 on success).
+// Shared memory (bytes) of one block over G channels: the kernel's layout,
+// for the wrapper's choice of G.
+extern "C" int gmh_scores_smem(int N, int A, int H, int G, int bf16) {
+  return static_cast<int>(sizeof(float)) * ScoresLayout(N, A, H, G, bf16 != 0).total;
+}
+
+// G: channels per block.  bf16 != 0 selects the bf16 product type.  Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int gmh_scores_run(const float* q, const float* k, float* out,
-                              int B, int C, int N, int A, int H, int ds,
+                              int B, int C, int N, int A, int H, int ds, int G,
                               long long qsb, long long qsc, long long qsn,
                               long long ksb, long long ksc, long long ksn,
                               float score_div, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? launch<__nv_bfloat16>(q, k, out, B, C, N, A, H, ds, qsb, qsc, qsn,
-                                      ksb, ksc, ksn, score_div, s)
-              : launch<float>(q, k, out, B, C, N, A, H, ds, qsb, qsc, qsn,
+  return bf16 ? launch<true>(q, k, out, B, C, N, A, H, ds, G, qsb, qsc, qsn,
+                             ksb, ksc, ksn, score_div, s)
+              : launch<false>(q, k, out, B, C, N, A, H, ds, G, qsb, qsc, qsn,
                               ksb, ksc, ksn, score_div, s);
 }

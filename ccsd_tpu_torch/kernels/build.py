@@ -3,10 +3,11 @@
 Each source in ``ccsd_tpu_torch/csrc`` exposes a plain C function, so it
 compiles in seconds without PyTorch's headers.  Libraries go to
 ``build/kernels/`` at the repo root (listed in .gitignore), named by a hash
-of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing is built at import time: the first launch
-builds, or :func:`build_all` builds every kernel at once, one nvcc process
-per source, all started together.  A failed build raises.
+of the source, the headers it includes (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.  Nothing
+is built at import time: the first launch builds, or :func:`build_all`
+builds every kernel at once, one nvcc process per source, all started
+together.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,31 +28,32 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C signature of each kernel's entry point: (symbol, argtypes)
-SIGNATURES: Dict[str, Tuple[str, list]] = {
-    "gcn_aggregate": (
-        "gcn_aggregate_f32",
+# C entry points of each kernel's library, {symbol: argtypes}, the launcher
+# first; every entry point returns an int
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "gcn_aggregate": {
         # x, adj, w, b, out, B, N, F_in, F_out, add_loop, loop, stream
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    ),
-    "gmh_attention": (
-        "gmh_attention_f32",
+        "gcn_aggregate_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    },
+    "gmh_attention": {
         # x, adj, wq, bq, wk, bk, wv, bv, v_out, a_out,
         # B, C, N, F_in, attn_dim, F_out, heads, head_dim,
-        # score_div, add_loop, loop, stream
-        [_P] * 10 + [_I] * 8 + [_F, _I, _F, _P],
-    ),
-    "channel_agg": (
-        "channel_agg_f32",
+        # adj strides (b, c, n, m), score_div, add_loop, loop, stream
+        "gmh_attention_f32": [_P] * 10 + [_I] * 8 + [_L] * 4 + [_F, _I, _F, _P],
+        # N, F_in, attn_dim, F_out, heads -> shared bytes of a block
+        "gmh_attention_smem": [_I] * 5,
+    },
+    "channel_agg": {
         # norm, x, out, B, rows (C * N), N, F, stream
-        [_P, _P, _P, _I, _I, _I, _I, _P],
-    ),
-    "gmh_scores": (
-        "gmh_scores_run",
-        # q, k, out, B, C, N, attn_dim, heads, head_dim,
+        "channel_agg_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "gmh_scores": {
+        # q, k, out, B, C, N, attn_dim, heads, head_dim, channels per block,
         # q strides (b, c, n), k strides (b, c, n), score_div, bf16, stream
-        [_P, _P, _P] + [_I] * 6 + [_L] * 6 + [_F, _I, _P],
-    ),
+        "gmh_scores_run": [_P, _P, _P] + [_I] * 7 + [_L] * 6 + [_F, _I, _P],
+        # N, attn_dim, heads, channels per block, bf16 -> shared bytes of a block
+        "gmh_scores_smem": [_I] * 5,
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -64,21 +67,43 @@ def nvcc_path() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(src: str) -> List[str]:
+    """``src`` and every file it includes with quotes, transitively,
+    resolved beside the including file as nvcc resolves them."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in seen or not os.path.exists(path):
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            todo += [os.path.join(os.path.dirname(path), m.decode())
+                     for m in _INCLUDE.findall(f.read())]
+    return seen
+
+
 def _target(name: str) -> Tuple[str, str]:
+    """(source, library path): the name hashes the source, the headers it
+    includes and the flags, so editing any of them rebuilds."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     h = hashlib.sha1()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in _sources(src):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
-def _bind(name: str, lib_path: str) -> ctypes.CDLL:
+def bind(name: str, lib_path: str) -> ctypes.CDLL:
+    """Load a kernel's library and type its entry points."""
     lib = ctypes.CDLL(lib_path)
-    sym, argtypes = SIGNATURES[name]
-    fn = getattr(lib, sym)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for sym, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -93,7 +118,7 @@ def build_all(names: List[str] | None = None) -> float:
             continue
         src, out = _target(name)
         if os.path.exists(out):
-            _LIBS[name] = _bind(name, out)
+            _LIBS[name] = bind(name, out)
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
@@ -108,17 +133,18 @@ def build_all(names: List[str] | None = None) -> float:
             errors.append(f"nvcc failed for {name} (rc {p.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
-        _LIBS[name] = _bind(name, out)
+        _LIBS[name] = bind(name, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
 
 
-def kernel_fn(name: str):
-    """The bound C entry point of a kernel, built on first use."""
+def kernel_fn(name: str, symbol: str | None = None):
+    """A bound C entry point of a kernel's library (its launcher unless
+    ``symbol`` names another), built on first use."""
     if name not in _LIBS:
         build_all([name])
-    return getattr(_LIBS[name], SIGNATURES[name][0])
+    return getattr(_LIBS[name], symbol or next(iter(SIGNATURES[name])))
 
 
 def check_status(name: str, status: int) -> None:

@@ -10,10 +10,12 @@ Replaces ``gmh_attention_pallas`` (ccsd_tpu/ops/pallas/gmh_attention.py:
     A       = mean_h tanh(S_h);  returns (V, (A + A^T) / 2)
 
 One launch covers the C channels of an AttentionLayer: weights come
-stacked as (C, F_in, .) and the adjacency as (B, C, N, N).  The outputs are
-written in the layouts AttentionLayer consumes next, and the plain version
-returns the same: V concatenated over channels as (B, N, C * F_out), and the
-maps channels-last as (B, N, N, C).
+stacked as (C, F_in, .) and the adjacency as (B, C, N, N), in any strides
+(the kernel takes all four, so the channels-last view a previous layer
+leaves needs no copy).  A block takes one (graph, channel).  The outputs
+are written in the layouts AttentionLayer consumes next, and the plain
+version returns the same: V concatenated over channels as (B, N, C * F_out),
+and the maps channels-last as (B, N, N, C).
 
 With ``add_loop=False`` the diagonal is kept as given, following
 ``gcn_norm`` (ccsd_tpu/models/gcn.py:31-33); the Pallas body writes 0 there
@@ -22,8 +24,9 @@ instead, which no model path reaches.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -68,9 +71,27 @@ def gmh_attention_plain(x, adj, wq, bq, wk, bk, wv, bv, num_heads: int,
     return v, att.permute(0, 2, 3, 1).contiguous()
 
 
-def smem_bytes(N: int, Fi: int, A: int, O: int) -> int:
-    """Dynamic shared memory of one block of csrc/gmh_attention.cu."""
-    return 4 * (2 * N * N + N + N * Fi + N * (2 * A + O) + 2 * N * A)
+def fit_graph(name: str, N: int, smem: Callable[[], int]) -> int:
+    """Shared bytes of one block over a graph of N nodes, ``smem()`` being
+    the kernel's own count (a query of its library, called only for
+    N <= MAX_N).  Raises a ``ValueError`` naming N where one block cannot
+    hold the graph."""
+    if N > MAX_N:
+        raise ValueError(f"{name}: N={N} exceeds the one-block graph of the kernel "
+                         f"(N <= {MAX_N}); larger graphs need a tiled design")
+    nbytes = smem()
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{name}: N={N} needs {nbytes} B of shared memory for one "
+                         f"channel (limit {SMEM_LIMIT})")
+    return nbytes
+
+
+@functools.lru_cache(maxsize=None)
+def attention_smem(N: int, Fi: int, A: int, O: int, H: int) -> int:
+    """Shared bytes of one block of csrc/gmh_attention.cu, one (graph,
+    channel); raises as :func:`fit_graph`."""
+    return fit_graph("gmh_attention", N,
+                     lambda: kernel_fn("gmh_attention", "gmh_attention_smem")(N, Fi, A, O, H))
 
 
 def gmh_attention(x: torch.Tensor, adj: torch.Tensor, wq, bq, wk, bk, wv, bv,
@@ -81,8 +102,12 @@ def gmh_attention(x: torch.Tensor, adj: torch.Tensor, wq, bq, wk, bk, wv, bv,
     if x.device.type == "cpu":
         return gmh_attention_plain(x, adj, wq, bq, wk, bk, wv, bv, num_heads,
                                    out_dim, loop, add_loop)
-    check_cuda_f32("gmh_attention", x=x, adj=adj, wq=wq, bq=bq, wk=wk, bk=bk,
-                   wv=wv, bv=bv)
+    check_cuda_f32("gmh_attention", x=x, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv)
+    if adj.device != x.device or adj.dtype != torch.float32:
+        raise ValueError(f"gmh_attention: adj is {adj.dtype} on {adj.device}, "
+                         f"expected float32 on {x.device}")
+    if torch.is_grad_enabled() and adj.requires_grad:
+        raise NotImplementedError("gmh_attention: the kernel has no backward yet")
     B, N, Fi = x.shape
     C, _, A = wq.shape
     O = wv.shape[-1]
@@ -94,12 +119,7 @@ def gmh_attention(x: torch.Tensor, adj: torch.Tensor, wq, bq, wk, bk, wv, bv,
         if got[k] is not None and tuple(got[k].shape) != shape:
             raise ValueError(f"gmh_attention: {k} has shape "
                              f"{tuple(got[k].shape)}, expected {shape}")
-    smem = smem_bytes(N, Fi, A, O)
-    if N > MAX_N or smem > SMEM_LIMIT:
-        raise ValueError(
-            f"gmh_attention: N={N}, F_in={Fi}, attn={A}, F_out={O} need "
-            f"{smem} B of shared memory (limit {SMEM_LIMIT}, N <= {MAX_N})"
-        )
+    attention_smem(N, Fi, A, O, H)
     v_out = torch.empty((B, N, C * O), dtype=torch.float32, device=x.device)
     a_out = torch.empty((B, N, N, C), dtype=torch.float32, device=x.device)
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
@@ -107,8 +127,8 @@ def gmh_attention(x: torch.Tensor, adj: torch.Tensor, wq, bq, wk, bk, wv, bv,
     status = kernel_fn("gmh_attention")(
         x.data_ptr(), adj.data_ptr(), wq.data_ptr(), ptr(bq), wk.data_ptr(),
         ptr(bk), wv.data_ptr(), ptr(bv), v_out.data_ptr(), a_out.data_ptr(),
-        B, C, N, Fi, A, O, H, ds, math.sqrt(out_dim), int(add_loop),
-        float(loop), stream,
+        B, C, N, Fi, A, O, H, ds, *adj.stride(), math.sqrt(out_dim),
+        int(add_loop), float(loop), stream,
     )
     check_status("gmh_attention", status)
     LAUNCHES["gmh_attention"] += 1

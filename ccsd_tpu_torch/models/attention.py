@@ -184,8 +184,9 @@ class AttentionLayer(nn.Module):
         if self.fused:
             v, att = self._fused_attention(x, adj)
         elif self.conv == "GCN":
-            # the previous layer's channels-last MLP leaves adj strided
-            v, att = gmh_attention(x.contiguous(), adj.contiguous(),
+            # the kernel reads adj through its strides: the channels-last
+            # view the previous layer's MLP leaves needs no copy
+            v, att = gmh_attention(x.contiguous(), adj,
                                    *self._stacked(), self.num_heads,
                                    self.conv_output_dim)
         else:

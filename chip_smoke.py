@@ -17,7 +17,11 @@ Phases, each printing one line of its own results:
 3. kernels -- each kernel against its plain PyTorch version on the card,
               at every shape the community_small paths give it
               (``gmh_scores`` in f32 and in bf16, with a tolerance derived
-              from one bf16 ulp of the head sums, printed).
+              from one bf16 ulp of the head sums, printed;
+              ``gmh_attention`` with a contiguous and a channels-last
+              adjacency), and the two attention kernels also at the layer
+              shapes of grid_small (B = 8, N = 49, head width 8) and
+              grid_small_CC_two_stage (head width 6).
 4. models  -- ScoreNetworkX and ScoreNetworkA (unfused; fused f32; fused
               fast, the sampler's default) at B = 128 on the card (kernel
               path) against a float64 CPU copy of the same weights (plain
@@ -30,10 +34,11 @@ Phases, each printing one line of its own results:
               expected counts exactly, the graphs must be valid, and each
               run prints its steps/s.
 6. timing  -- CUDA-event times of each kernel and its plain version at the
-              path's shapes (device time from a CUDA-graph replay, and the
-              time of an eager host loop), beside the card's bound for the
-              same work and, where one PyTorch call computes the same
-              function, that call's time.
+              path's shapes and layouts (device time from a CUDA-graph
+              replay, and the time of an eager host loop), beside the
+              card's bound for the same work and, where one PyTorch call
+              computes the same function, that call's time;
+              ``gmh_attention`` also with every adjacency contiguous.
 
 Then one JSON line of per-kernel results (``ms``, ``plain_ms`` and
 ``bound_ms`` per launch, averaged over the path's layer shapes; each shape
@@ -131,13 +136,14 @@ def gcn_cost(B, N, Fi, Fo):
 
 
 def gmh_cost(B, C, N, Fi, A, O, H):
-    """(bytes, flops) of one gmh_attention launch over C channels."""
+    """(bytes, flops) of one gmh_attention launch over C channels, taking
+    norm (X W) in the cheaper of its two orders, as the kernel does."""
     P = 2 * A + O
     nbytes = 4 * (B * N * Fi + B * C * N * N + C * Fi * P + C * P
                   + B * N * C * O + B * N * N * C)
     flops = B * C * (3 * N * N + N       # degree, rsqrt, d A' d^T
-                     + 2 * N * Fi * P    # X [Wq | Wk | Wv]
-                     + 2 * N * N * P     # aggregation
+                     + 2 * N * Fi * P    # (norm X) [Wq | Wk | Wv] or X [Wq | Wk | Wv]
+                     + 2 * N * N * min(Fi, P)  # norm X or norm (X W)
                      + N * P             # bias
                      + 2 * N * N * A     # Q_h K_h^T over all heads
                      + 3 * H * N * N     # scale, tanh, head sum
@@ -242,7 +248,32 @@ def path_shapes(models):
         gmh.append((name, B, C, N, a.in_dim, a.attn_dim, a.out_dim, H))
         agg.append((name, B, C, N, a.in_dim))
         scores.append((name, B, C, N, a.attn_dim, H, a.out_dim))
-    return {"gcn": gcn, "gmh": gmh, "agg": agg, "scores": scores}
+    return {"gcn": gcn, "gmh": gmh, "agg": agg, "scores": scores, **more_shapes()}
+
+
+# kernel-check cases off the community_small path (phase 3 only): grid_small
+# (N = 49, head width 8) and the graph widths of grid_small_CC_two_stage
+# (N = 49, adim 24: head width 6), each config's first and later layer
+EXTRA_CONFIGS = ("grid_small", "grid_small_CC_two_stage")
+
+
+def more_shapes():
+    """``gmh_more`` and ``scores_more`` cases from EXTRA_CONFIGS, as the
+    ScoreNetworkA layers of each config give them (models/score_a.py)."""
+    from ccsd_tpu_torch.kernels.gmh_attention import head_split
+    from ccsd_tpu_torch.utils.config import get_config
+
+    gmh, scores = [], []
+    for name in EXTRA_CONFIGS:
+        c = get_config(name, seed=0, folder=HERE)
+        m, B, N = c.model, int(c.data.batch_size), int(c.data.max_node_num)
+        for k, (Fi, A, C) in enumerate(((c.data.max_feat_num, m.nhid, m.c_init),
+                                        (m.nhid, m.adim, m.c_hid))):
+            H = head_split(A, m.num_heads)[0]
+            case = f"{name}.layers.{k}"
+            gmh.append((case, B, C, N, Fi, A, m.nhid, H))
+            scores.append((case, B, C, N, A, H, m.nhid))
+    return {"gmh_more": gmh, "scores_more": scores}
 
 
 def sym(t):
@@ -280,6 +311,25 @@ def gmh_inputs(case, gen, dev):
     w = [glorot((C, Fi, A), gen, dev), r(C, A), glorot((C, Fi, A), gen, dev),
          r(C, A), glorot((C, Fi, O), gen, dev), r(C, O)]
     return (x, adj, *w, H, O)
+
+
+def gmh_inputs_channels_last(case, gen, dev):
+    """As gmh_inputs, the adjacency a channels-last view, as the previous
+    layer's MLP leaves it for the next AttentionLayer."""
+    x, adj, *rest = gmh_inputs(case, gen, dev)
+    return (x, adj.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2), *rest)
+
+
+def gmh_path_inputs(case, gen, dev):
+    """As gmh_inputs, the adjacency in the layout the unfused path gives the
+    layer: the first layer's (B, C, N, N)-contiguous (``pow_tensor``'s), a
+    later layer's the channels-last view the previous layer's MLP leaves."""
+    first = case[0].rsplit(".", 1)[-1] == "0"
+    return (gmh_inputs if first else gmh_inputs_channels_last)(case, gen, dev)
+
+
+def contiguous_adj(x, adj, *rest):
+    return (x, adj.contiguous(), *rest)
 
 
 def agg_inputs(case, gen, dev):
@@ -369,6 +419,8 @@ def kernel_specs():
     return [
         ("gcn_aggregate", "f32", "gcn", gcn_inputs, gcn_aggregate, gcn_aggregate_plain, f32),
         ("gmh_attention", "f32", "gmh", gmh_inputs, gmh_attention, gmh_attention_plain, f32),
+        ("gmh_attention", "f32 channels-last adj", "gmh", gmh_inputs_channels_last,
+         gmh_attention, gmh_attention_plain, f32),
         ("channel_agg", "4d", "agg", agg_inputs, channel_agg, channel_agg_plain, f32),
         ("channel_agg", "folded", "agg", agg_inputs, folded(channel_agg),
          folded(channel_agg_plain), f32),
@@ -385,7 +437,7 @@ def phase_kernels(shapes, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {}
     for kname, variant, key, mk, kern, plain, tol_of in kernel_specs():
-        for case in shapes[key]:
+        for case in shapes[key] + shapes.get(f"{key}_more", []):
             args = mk(case, gen, dev)
             got = kern(*args)
             torch.cuda.synchronize()
@@ -553,8 +605,9 @@ def phase_sample(train_adjs):
 
 def timing_specs():
     """(kernel, source, the TPU kernels it replaces, shape key, inputs,
-    {variant: (kernel fn, plain fn)} with the path's variant first, the
-    PyTorch call of the same function or None, cost of a case)."""
+    {variant: (kernel fn, plain fn[, a change of the inputs])} with the
+    path's variant first, the PyTorch call of the same function or None,
+    cost of a case)."""
     import functools
 
     import torch
@@ -569,8 +622,10 @@ def timing_specs():
          {"f32": (gcn_aggregate, gcn_aggregate_plain)}, None,
          lambda c: gcn_cost(*c[1:5])),
         ("gmh_attention", "ccsd_tpu_torch/csrc/gmh_attention.cu",
-         "ccsd_tpu/ops/pallas/gmh_attention.py:62", "gmh", gmh_inputs,
-         {"f32": (gmh_attention, gmh_attention_plain)}, None,
+         "ccsd_tpu/ops/pallas/gmh_attention.py:62", "gmh", gmh_path_inputs,
+         {"f32": (gmh_attention, gmh_attention_plain),
+          "f32 contiguous adj": (gmh_attention, gmh_attention_plain, contiguous_adj)},
+         None,
          lambda c: gmh_cost(*c[1:])),
         ("channel_agg", "ccsd_tpu_torch/csrc/channel_agg.cu",
          "tools/probe_pallas_agg.py:43 (agg_pallas), tools/probe_pallas_agg.py:64 "
@@ -600,9 +655,10 @@ def phase_timing(shapes, dev, launches, errs):
                 args = mk(case, gen, dev)
                 b_ms, by = bound_ms(*cost(case))
                 lib_ms = call_ms(lambda: library(*args))[0] if library else None
-                for variant, (kern, plain) in variants.items():
-                    ms, host_ms = call_ms(lambda: kern(*args))
-                    plain_ms, plain_host_ms = call_ms(lambda: plain(*args))
+                for variant, (kern, plain, *change) in variants.items():
+                    a = change[0](*args) if change else args
+                    ms, host_ms = call_ms(lambda: kern(*a))
+                    plain_ms, plain_host_ms = call_ms(lambda: plain(*a))
                     per.append({"case": case[0], "variant": variant, "ms": ms,
                                 "plain_ms": plain_ms, "host_loop_ms": host_ms,
                                 "plain_host_loop_ms": plain_host_ms,

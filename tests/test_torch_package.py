@@ -225,3 +225,205 @@ def test_fused_attention_layer_on_card_matches_cpu(cuda, conv):
     assert LAUNCHES["channel_agg"] == 1 and LAUNCHES["gmh_scores"] == 1
     for o, r in zip(got, ref):
         torch.testing.assert_close(o.cpu().double(), r, rtol=1e-5, atol=1e-5)
+
+
+def _sym(t):
+    t = torch.triu(t, 1)
+    return t + t.transpose(-1, -2)
+
+
+# the shapes of the redesigned attention kernels: N of enzymes_small (12),
+# ego_small (18), community_small (20) and grid_small (49); head widths 8
+# (adim 32), 6 (adim 24) and 3 (adim 12) at 4 heads; C of a first (2) and a
+# later (8) AttentionLayer; B of grid_small (8), of the sampler (128) and of
+# qm9 (1024), so that gmh_scores runs with one channel a block and with
+# several
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8, 128, 1024])
+@pytest.mark.parametrize("C", [2, 8])
+@pytest.mark.parametrize("ds", [8, 6, 3])
+@pytest.mark.parametrize("N", [12, 18, 20, 49])
+def test_gmh_kernel_matches_plain_on_card_at_every_shape(cuda, N, ds, C, B):
+    """Contiguous and channels-last (a later layer's) adjacency."""
+    from ccsd_tpu_torch.kernels.gmh_attention import gmh_attention, gmh_attention_plain
+
+    H = 4
+    A = O = H * ds
+    Fi = 11 if C == 2 else A
+    g = torch.Generator(device=cuda).manual_seed(N * 100 + ds * 10 + C)
+    r = lambda *s: torch.randn(*s, device=cuda, generator=g)  # noqa: E731
+    x = r(B, N, Fi)
+    adj = _sym(torch.rand(B, C, N, N, device=cuda, generator=g))
+    w = [r(C, Fi, A) * 0.3, r(C, A), r(C, Fi, A) * 0.3, r(C, A), r(C, Fi, O), r(C, O)]
+    ref = gmh_attention_plain(x, adj, *w, H, O)
+    channels_last = adj.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    for a in (adj, channels_last):
+        out = gmh_attention(x, a, *w, H, O)
+        torch.cuda.synchronize()
+        for o, rr in zip(out, ref):
+            torch.testing.assert_close(o, rr, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("B", [8, 128, 1024])
+@pytest.mark.parametrize("C", [2, 8])
+@pytest.mark.parametrize("ds", [8, 6, 3])
+@pytest.mark.parametrize("N", [12, 18, 20, 49])
+def test_gmh_scores_kernel_matches_plain_on_card_at_every_shape(cuda, N, ds, C, B, bf16):
+    """Q and K as strided column blocks of one projection.  bf16: one bf16
+    ulp of each head sum over sqrt(O), element by element (the tensor
+    core's f32 sums may round to the other bf16 neighbour)."""
+    from ccsd_tpu_torch.kernels.gmh_scores import gmh_scores, gmh_scores_plain
+
+    H = 4
+    A = O = H * ds
+    g = torch.Generator(device=cuda).manual_seed(N * 100 + ds * 10 + C)
+    qkv = torch.randn(C, B, N, 2 * A + O, device=cuda, generator=g).transpose(0, 1)
+    q, k = qkv[..., :A], qkv[..., A:2 * A]
+    out = gmh_scores(q, k, H, O, bf16=bf16)
+    torch.cuda.synchronize()
+    ref = gmh_scores_plain(q, k, H, O, bf16=bf16)
+    tol = torch.full_like(ref, 1e-5)
+    if bf16:
+        s = torch.einsum("bcnhd,bcmhd->bchnm", q.reshape(B, C, N, H, ds),
+                         k.reshape(B, C, N, H, ds))
+        ulp = torch.exp2(torch.floor(torch.log2(s.abs().clamp_min(1e-30))) - 7)
+        b = ulp.mean(dim=2) / math.sqrt(O)
+        tol += ((b + b.transpose(-1, -2)) / 2).permute(0, 2, 3, 1)
+    assert out.shape == ref.shape
+    err = (out - ref).abs()
+    assert bool((err <= tol).all()), f"max error {err.max().item():.3e}"
+
+
+def _graph_configs():
+    """(name, data, model) of every config/*.yaml with graph model widths."""
+    from ccsd_tpu_torch.utils.config import load_yaml
+
+    out = []
+    for name in sorted(os.listdir(os.path.join(ROOT, "config"))):
+        with open(os.path.join(ROOT, "config", name)) as f:
+            cfg = load_yaml(f.read())
+        if cfg.get("model", {}).get("adim") and cfg.get("data", {}).get("max_node_num"):
+            out.append((name[: -len(".yaml")], cfg["data"], cfg["model"]))
+    return out
+
+
+def _layer_shapes(data, model):
+    """(C, F_in, attn, F_out, heads) of a config's AttentionLayers (first
+    and later, as models/score_a.py builds them)."""
+    from ccsd_tpu_torch.kernels.gmh_attention import head_split
+
+    out = []
+    for C, Fi, A in ((model["c_init"], data["max_feat_num"], model["nhid"]),
+                     (model["c_hid"], model["nhid"], model["adim"])):
+        out.append((C, Fi, A, model["nhid"], head_split(A, model["num_heads"])[0]))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [n for n, d, _ in _graph_configs() if d["max_node_num"] <= 64])
+def test_launch_geometry_fits_every_graph_config(cuda, name):
+    """Both attention kernels fit one block's shared memory for every layer
+    of every config with N <= 64 (the graph widths of the CC configs
+    included), at the config's batch and at 1.  The shared-memory layouts
+    live only in the CUDA sources, so their libraries are asked."""
+    from ccsd_tpu_torch.kernels.build import kernel_fn
+    from ccsd_tpu_torch.kernels.gmh_attention import SMEM_LIMIT, attention_smem
+    from ccsd_tpu_torch.kernels.gmh_scores import scores_group
+
+    _, data, model = next(c for c in _graph_configs() if c[0] == name)
+    N = data["max_node_num"]
+    smem = kernel_fn("gmh_scores", "gmh_scores_smem")
+    for C, Fi, A, O, H in _layer_shapes(data, model):
+        assert 0 < attention_smem(N, Fi, A, O, H) <= SMEM_LIMIT, (C, N, Fi, A)
+        for B in (data["batch_size"], 1):
+            for bf16 in (False, True):
+                G = scores_group(B, C, N, A, H, bf16)
+                assert 1 <= G <= C and 0 < smem(N, A, H, G, int(bf16)) <= SMEM_LIMIT, (
+                    B, C, N, A, bf16, G)
+
+
+def test_launch_geometry_raises_for_grid_naming_n():
+    """grid (N = 361) needs a tiled design: both wrappers' geometry raises,
+    on the host, before any kernel is built."""
+    from ccsd_tpu_torch.kernels.gmh_attention import attention_smem
+    from ccsd_tpu_torch.kernels.gmh_scores import scores_group
+
+    _, data, model = next(c for c in _graph_configs() if c[0] == "grid")
+    N = data["max_node_num"]
+    assert N == 361
+    C, Fi, A, O, H = _layer_shapes(data, model)[1]
+    with pytest.raises(ValueError, match="N=361"):
+        attention_smem(N, Fi, A, O, H)
+    for bf16 in (False, True):
+        with pytest.raises(ValueError, match="N=361"):
+            scores_group(data["batch_size"], C, N, A, H, bf16)
+
+
+@pytest.mark.parametrize("B,C,scores", [(128, 8, 4), (128, 2, 1), (8, 8, 1), (1024, 8, 8)])
+def test_channel_groups_of_the_sampler_layers(B, C, scores):
+    """gmh_scores' channels per block on the H100's 132 SMs, where a block
+    of any G fits (as at community_small's N = 20): community_small's
+    layers (B = 128), grid_small's (B = 8) and a large batch.  One block an
+    SM at least; with enough graphs a block takes all C channels."""
+    from ccsd_tpu_torch.kernels.gmh_scores import channel_group
+
+    assert channel_group(B, C, 132, lambda g: True) == scores
+    # a block that does not fit halves G further
+    assert channel_group(B, C, 132, lambda g: g <= 1) == 1
+
+
+@pytest.mark.cuda
+def test_channel_groups_of_the_sampler_layers_on_card(cuda):
+    """The same choice with the kernel's own shared-memory count at
+    community_small's widths (N = 20, attn 32, 4 heads)."""
+    from ccsd_tpu_torch.kernels.gmh_scores import scores_group
+
+    for B, C, G in [(128, 8, 4), (128, 2, 1), (8, 8, 1), (1024, 8, 8)]:
+        for bf16 in (False, True):
+            assert scores_group(B, C, 20, 32, 4, bf16, 132) == G
+
+
+def test_gmh_plain_takes_a_channels_last_adjacency():
+    """The wrapper's plain version gives the same result for the
+    channels-last view a later layer passes as for its contiguous copy (the
+    kernel reads adj through its strides; models/attention.py no longer
+    copies it)."""
+    from ccsd_tpu_torch.kernels.gmh_attention import gmh_attention, gmh_attention_plain
+
+    B, N, Fi, A, O, H, C = 3, 12, 6, 24, 24, 4, 5
+    rng = np.random.default_rng(11)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    x = t(B, N, Fi)
+    cl = t(B, N, N, C)
+    cl = cl + cl.transpose(1, 2)
+    adj = cl.permute(0, 3, 1, 2)  # (B, C, N, N) view of channels-last storage
+    assert not adj.is_contiguous()
+    w = [t(C, Fi, A), t(C, A), t(C, Fi, A), t(C, A), t(C, Fi, O), t(C, O)]
+    # the CPU's matmul may sum in another order for other strides: f32
+    # rounding only, at the port's kernel tolerance
+    for got, ref in zip(gmh_attention(x, adj, *w, H, O),
+                        gmh_attention_plain(x, adj.contiguous(), *w, H, O)):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_library_name_follows_included_headers(tmp_path, monkeypatch):
+    """The built library's name hashes the source and every header it
+    includes, transitively: editing a header changes it, editing an
+    unrelated file does not."""
+    from ccsd_tpu_torch.kernels import build
+
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "other.cuh").write_text("// other\n")
+    monkeypatch.setattr(build, "CSRC_DIR", str(tmp_path))
+    name = build._target("k")[1]
+    (tmp_path / "other.cuh").write_text("// other, edited\n")
+    assert build._target("k")[1] == name
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    edited = build._target("k")[1]
+    assert edited != name
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// a, edited\n')
+    assert build._target("k")[1] not in (name, edited)
