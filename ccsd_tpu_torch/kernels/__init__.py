@@ -8,7 +8,7 @@ that its path went through the kernels.
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"gcn_aggregate": 0, "gmh_attention": 0,
-                             "channel_agg": 0, "gmh_scores": 0}
+                             "channel_agg": 0, "gmh_scores": 0, "gcn_degrees": 0}
 
 
 def reset_launches() -> None:

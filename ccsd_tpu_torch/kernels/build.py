@@ -24,6 +24,7 @@ from typing import Dict, List, Tuple
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -32,8 +33,15 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # first; every entry point returns an int
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "gcn_aggregate": {
-        # x, adj, w, b, out, B, N, F_in, F_out, add_loop, loop, stream
-        "gcn_aggregate_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        # x, adj, degrees, w, b, out, B, N, F_in, F_out, rows per block,
+        # add_loop, loop, stream
+        "gcn_aggregate_run": [_P] * 6 + [_I] * 6 + [_F, _P],
+        # N, F_in, F_out, rows per block -> shared bytes of a block
+        "gcn_aggregate_smem": [_I] * 4,
+    },
+    "gcn_degrees": {
+        # adj, degrees, B, C, N, adj strides (b, c, n, m), add_loop, loop, stream
+        "gcn_degrees_run": [_P, _P, _I, _I, _I] + [_L] * 4 + [_I, _F, _P],
     },
     "gmh_attention": {
         # x, adj, wq, bq, wk, bk, wv, bv, v_out, a_out,
@@ -44,8 +52,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gmh_attention_smem": [_I] * 5,
     },
     "channel_agg": {
-        # norm, x, out, B, rows (C * N), N, F, stream
-        "channel_agg_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+        # adj, x, degrees, out, B, C, N, F, adj strides (b, c, n, m),
+        # rows per block, bf16, stream
+        "channel_agg_run": [_P] * 4 + [_I] * 4 + [_L] * 4 + [_I, _I, _P],
+        # N, F, rows per block -> shared bytes of a block
+        "channel_agg_smem": [_I] * 3,
     },
     "gmh_scores": {
         # q, k, out, B, C, N, attn_dim, heads, head_dim, channels per block,
@@ -107,35 +118,43 @@ def bind(name: str, lib_path: str) -> ctypes.CDLL:
     return lib
 
 
+def nvcc_parallel(jobs: Dict[object, Tuple[str, str, List[str]]]) -> Dict[object, str]:
+    """Compile every job, {key: (source, library, extra flags)}, with
+    NVCC_FLAGS, one nvcc process each, all started together; returns
+    {key: nvcc output (the ptxas -v report)} and raises naming each job
+    that failed."""
+    procs = {key: subprocess.Popen([nvcc_path(), *NVCC_FLAGS, *flags, "-o", lib, src],
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for key, (src, lib, flags) in jobs.items()}
+    logs, errors = {}, []
+    for key, p in procs.items():
+        logs[key], _ = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"nvcc failed for {key} (rc {p.returncode}):\n{logs[key]}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return logs
+
+
 def build_all(names: List[str] | None = None) -> float:
     """Build (or reuse) the named kernels in parallel; returns the seconds."""
     names = list(SIGNATURES) if names is None else names
     t0 = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
+    jobs = {}
     for name in names:
         if name in _LIBS:
             continue
         src, out = _target(name)
         if os.path.exists(out):
             _LIBS[name] = bind(name, out)
-            continue
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ), tmp, out)
-    errors = []
-    for name, (p, tmp, out) in procs.items():
-        log, _ = p.communicate()
-        BUILD_LOG[name] = log
-        if p.returncode != 0:
-            errors.append(f"nvcc failed for {name} (rc {p.returncode}):\n{log}")
-            continue
+        else:
+            jobs[name] = (src, f"{out}.{os.getpid()}.tmp", [])
+    BUILD_LOG.update(nvcc_parallel(jobs))
+    for name, (_, tmp, _) in jobs.items():
+        out = _target(name)[1]
         os.replace(tmp, out)
         _LIBS[name] = bind(name, out)
-    if errors:
-        raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
 
 

@@ -1,57 +1,91 @@
-"""Channel-folded GCN aggregation of the fused AttentionLayer: CUDA kernel,
-plain version, wrapper.
+"""Channel-folded GCN aggregation of the fused AttentionLayer, with the
+normalisation inside: CUDA kernel, plain version, wrapper.
 
 Replaces ``agg_pallas`` (tools/probe_pallas_agg.py:43-51, body ``_agg_kernel``
 :34-40) and ``agg_pallas_2d`` (:64-73, body ``_agg_kernel_2d`` :54-61), the
 Pallas kernels of the ``agg`` contraction of the fused AttentionLayer
-(ccsd_tpu/models/attention.py:226-234):
+(ccsd_tpu/models/attention.py:226-234), together with the ``gcn_norm`` the
+layer applies before it (:244):
 
-    nx[b, c, n, f] = sum_m norm[b, c, n, m] * x[b, m, f]
+    nx[b, c, n, f] = sum_m norm[b, c, n, m] * x[b, m, f],  norm = gcn_norm(adj)
 
-norm (B, C, N, N) and x (B, N, F) give (B, C, N, F), all f32.  The probes'
-folded form, norm (B, C*N, N) -> (B, C*N, F), is the same call.  The probes
-keep the batch last (in lanes); the port keeps it first.  The kernel is
-``csrc/channel_agg.cu``.
+adj (B, C, N, N) in any strides (the channels-last view a previous layer
+leaves needs no copy) and x (B, N, F) give (B, C, N, F), all f32.  The
+probes' folded form, adj (B, C*N, N) -> (B, C*N, F), is the same call: the
+degree of column m of channel c is the sum of row c*N + m.  The probes keep
+the batch last (in lanes); the port keeps it first.  ``bf16=True`` is
+``agg_impl="dot_bf16"``: norm and x rounded to bf16, products summed in f32
+(the layer rounds the output).  The kernel is ``csrc/channel_agg.cu``; for
+N > 64 it reads the degrees of a ``gcn_degrees`` launch
+(``kernels/gcn.py``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ccsd_tpu_torch.kernels import LAUNCHES
 from ccsd_tpu_torch.kernels.build import check_status, kernel_fn
-from ccsd_tpu_torch.kernels.gcn import check_cuda_f32
-from ccsd_tpu_torch.kernels.gmh_attention import SMEM_LIMIT
+from ccsd_tpu_torch.kernels.gcn import (
+    check_cuda_f32,
+    check_smem,
+    check_strided_f32,
+    gcn_degrees,
+    gcn_norm,
+    rows_per_block,
+)
+from ccsd_tpu_torch.kernels.gmh_scores import round_bf16
 
-ROWS_PER_BLOCK = 16  # kRows of csrc/channel_agg.cu
+
+def _channels(adj: torch.Tensor, N: int) -> torch.Tensor:
+    """adj as (B, C, N, N): the folded (B, C*N, N) form unflattened."""
+    return adj if adj.dim() == 4 else adj.unflatten(1, (-1, N))
 
 
-def channel_agg_plain(norm: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """norm (B, C, N, N) or (B, C*N, N), x (B, N, F) -> (B, C, N, F) or
+def channel_agg_plain(adj: torch.Tensor, x: torch.Tensor,
+                      bf16: bool = False) -> torch.Tensor:
+    """adj (B, C, N, N) or (B, C*N, N), x (B, N, F) -> (B, C, N, F) or
     (B, C*N, F)."""
-    return norm @ (x if norm.dim() == 3 else x[:, None])
+    norm = gcn_norm(_channels(adj, x.shape[1]))
+    if bf16:
+        norm, x = round_bf16(norm), round_bf16(x)
+    return (norm @ x[:, None]).reshape(*adj.shape[:-1], x.shape[-1])
 
 
-def channel_agg(norm: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Channel-folded aggregation: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+@functools.lru_cache(maxsize=None)
+def agg_smem(N: int, F: int) -> int:
+    """Shared bytes of a block of csrc/channel_agg.cu (the library's own
+    count); raises where it exceeds the card's limit."""
+    nbytes = kernel_fn("channel_agg", "channel_agg_smem")(N, F, rows_per_block(N))
+    check_smem("channel_agg", nbytes, N=N, F=F)
+    return nbytes
+
+
+def channel_agg(adj: torch.Tensor, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """Normalised channel-folded aggregation: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if x.device.type == "cpu":
-        return channel_agg_plain(norm, x)
-    check_cuda_f32("channel_agg", norm=norm, x=x)
+        return channel_agg_plain(adj, x, bf16)
+    check_cuda_f32("channel_agg", x=x)
+    check_strided_f32("channel_agg", "adj", adj, x.device)
     B, N, F = x.shape
-    if norm.dim() not in (3, 4) or norm.shape[0] != B or norm.shape[-1] != N \
-            or (norm.dim() == 4 and norm.shape[2] != N):
-        raise ValueError(f"channel_agg: norm {tuple(norm.shape)} does not fit "
+    fits = adj.shape[0] == B and adj.shape[-1] == N and (
+        (adj.dim() == 4 and adj.shape[2] == N) or (adj.dim() == 3 and adj.shape[1] % N == 0))
+    if not fits:
+        raise ValueError(f"channel_agg: adj {tuple(adj.shape)} does not fit "
                          f"x {tuple(x.shape)}")
-    R = norm[0].numel() // N  # rows: C * N
-    smem = 4 * (ROWS_PER_BLOCK * N + N * F)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"channel_agg: N={N}, F={F} need {smem} B of shared "
-                         f"memory (limit {SMEM_LIMIT})")
-    out = torch.empty((*norm.shape[:-1], F), dtype=torch.float32, device=x.device)
+    a4 = _channels(adj, N)
+    C = a4.shape[1]
+    agg_smem(N, F)
+    rows = rows_per_block(N)
+    deg = gcn_degrees(a4) if rows < N else None
+    out = torch.empty((*adj.shape[:-1], F), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = kernel_fn("channel_agg")(norm.data_ptr(), x.data_ptr(), out.data_ptr(),
-                                      B, R, N, F, stream)
+    status = kernel_fn("channel_agg")(
+        a4.data_ptr(), x.data_ptr(), 0 if deg is None else deg.data_ptr(), out.data_ptr(),
+        B, C, N, F, *a4.stride(), rows, int(bf16), stream)
     check_status("channel_agg", status)
     LAUNCHES["channel_agg"] += 1
     return out

@@ -32,9 +32,11 @@ import torch
 
 from ccsd_tpu_torch.kernels import LAUNCHES
 from ccsd_tpu_torch.kernels.build import check_status, kernel_fn
-from ccsd_tpu_torch.kernels.gcn import MAX_N, check_cuda_f32, gcn_norm
+from ccsd_tpu_torch.kernels.gcn import check_cuda_f32, check_smem, check_strided_f32, gcn_norm
 
-SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
+# one block of the attention kernels holds a whole graph's channel
+# (gmh_attention) or a graph's Q, K and N x N head sums (gmh_scores)
+MAX_N = 64
 
 
 def head_split(attn_dim: int, num_heads: int) -> Tuple[int, int]:
@@ -80,9 +82,7 @@ def fit_graph(name: str, N: int, smem: Callable[[], int]) -> int:
         raise ValueError(f"{name}: N={N} exceeds the one-block graph of the kernel "
                          f"(N <= {MAX_N}); larger graphs need a tiled design")
     nbytes = smem()
-    if nbytes > SMEM_LIMIT:
-        raise ValueError(f"{name}: N={N} needs {nbytes} B of shared memory for one "
-                         f"channel (limit {SMEM_LIMIT})")
+    check_smem(name, nbytes, N=N)
     return nbytes
 
 
@@ -103,11 +103,7 @@ def gmh_attention(x: torch.Tensor, adj: torch.Tensor, wq, bq, wk, bk, wv, bv,
         return gmh_attention_plain(x, adj, wq, bq, wk, bk, wv, bv, num_heads,
                                    out_dim, loop, add_loop)
     check_cuda_f32("gmh_attention", x=x, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv)
-    if adj.device != x.device or adj.dtype != torch.float32:
-        raise ValueError(f"gmh_attention: adj is {adj.dtype} on {adj.device}, "
-                         f"expected float32 on {x.device}")
-    if torch.is_grad_enabled() and adj.requires_grad:
-        raise NotImplementedError("gmh_attention: the kernel has no backward yet")
+    check_strided_f32("gmh_attention", "adj", adj, x.device)
     B, N, Fi = x.shape
     C, _, A = wq.shape
     O = wv.shape[-1]

@@ -32,9 +32,9 @@ from typing import Callable
 import torch
 
 from ccsd_tpu_torch.kernels import LAUNCHES
-from ccsd_tpu_torch.kernels.build import check_status, kernel_fn
+from ccsd_tpu_torch.kernels.build import SMEM_LIMIT, check_status, kernel_fn
 from ccsd_tpu_torch.kernels.gcn import check_cuda_f32
-from ccsd_tpu_torch.kernels.gmh_attention import SMEM_LIMIT, fit_graph, head_split
+from ccsd_tpu_torch.kernels.gmh_attention import fit_graph, head_split
 
 H100_SMS = 132
 

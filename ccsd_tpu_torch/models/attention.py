@@ -20,7 +20,6 @@ import torch
 from torch import nn
 
 from ccsd_tpu_torch.kernels.channel_agg import channel_agg
-from ccsd_tpu_torch.kernels.gcn import gcn_norm
 from ccsd_tpu_torch.kernels.gmh_attention import gmh_attention, head_split
 from ccsd_tpu_torch.kernels.gmh_scores import gmh_scores, round_bf16
 from ccsd_tpu_torch.models.gcn import DenseGCNConv
@@ -150,16 +149,17 @@ class AttentionLayer(nn.Module):
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         """All C_i attentions as stacked contractions (attention.py:205-332):
         x (B, N, F_i), adj (B, C_i, N, N) -> (V (B, N, C_i * O), maps
-        (B, N, N, C_i)).  The aggregation is ``(norm @ x) @ W``."""
+        (B, N, N, C_i)).  The aggregation is ``(norm @ x) @ W``, norm formed
+        inside ``channel_agg``."""
         B, N, _ = x.shape
         C, A, O = self.input_dim, self.attn[0].attn_dim, self.conv_output_dim
-        # the previous layer's channels-last MLP leaves adj strided
-        norm = gcn_norm(adj.contiguous())
+        # the kernel normalises adj itself and reads it through its strides:
+        # the channels-last view the previous layer's MLP leaves needs no copy
         x = x.contiguous()
         if self.agg_impl == "dot_bf16":
-            nx = round_bf16(channel_agg(round_bf16(norm), round_bf16(x)))
+            nx = round_bf16(channel_agg(adj, x, bf16=True))
         else:
-            nx = channel_agg(norm, x)  # (B, C, N, F_i)
+            nx = channel_agg(adj, x)  # (B, C, N, F_i)
         if self.conv == "GCN":
             w, b = self._stacked()
             # per-channel (norm @ x) @ [Wq | Wk | Wv] + bias, one batched

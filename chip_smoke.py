@@ -13,19 +13,26 @@ Phases, each printing one line of its own results:
 
 1. device  -- require CUDA; print the card's name and power limit; switch
               TF32 off for matmuls and cuDNN so f32 means f32.
-2. build   -- nvcc the four kernels (ccsd_tpu_torch/csrc), in parallel.
+2. build   -- nvcc the five kernels (ccsd_tpu_torch/csrc), in parallel.
 3. kernels -- each kernel against its plain PyTorch version on the card,
               at every shape the community_small paths give it
               (``gmh_scores`` in f32 and in bf16, with a tolerance derived
               from one bf16 ulp of the head sums, printed;
-              ``gmh_attention`` with a contiguous and a channels-last
-              adjacency), and the two attention kernels also at the layer
-              shapes of grid_small (B = 8, N = 49, head width 8) and
-              grid_small_CC_two_stage (head width 6).
+              ``gmh_attention`` and ``channel_agg`` with a contiguous and a
+              channels-last adjacency, ``channel_agg`` also folded and in
+              bf16 with a tolerance of one bf16 ulp of each norm element);
+              the two attention kernels also at the layer shapes of
+              grid_small (B = 8, N = 49, head width 8) and
+              grid_small_CC_two_stage (head width 6); ``gcn_aggregate``,
+              ``channel_agg`` and their degree pass ``gcn_degrees`` also at
+              grid's (B = 8, N = 361).
 4. models  -- ScoreNetworkX and ScoreNetworkA (unfused; fused f32; fused
               fast, the sampler's default) at B = 128 on the card (kernel
               path) against a float64 CPU copy of the same weights (plain
               path).
+   grid    -- ScoreNetworkX of grid (B = 8, N = 361) the same way, with
+              exact launch counts (``gcn_aggregate`` and ``gcn_degrees``
+              once a layer).
 5. sample  -- the full community_small graph sampler: B = 128, N = 20,
               1000 Euler + Langevin steps through ``Sampler``, first with
               its defaults (``sample.fused`` and ``sample.fast`` on: the
@@ -38,11 +45,16 @@ Phases, each printing one line of its own results:
               replay, and the time of an eager host loop), beside the
               card's bound for the same work and, where one PyTorch call
               computes the same function, that call's time;
-              ``gmh_attention`` also with every adjacency contiguous.
+              ``gmh_attention`` and ``channel_agg`` also with every
+              adjacency contiguous, ``channel_agg`` also beside the
+              ``gcn_norm`` + ``torch.matmul`` pair; grid's shapes of
+              ``gcn_aggregate`` and ``channel_agg`` timed and kept out of
+              the means.
 
 Then one JSON line of per-kernel results (``ms``, ``plain_ms`` and
 ``bound_ms`` per launch, averaged over the path's layer shapes; each shape
-under ``shapes``; ``launches`` from the run of the path the kernel is on),
+under ``shapes``; ``launches`` from the run of the path the kernel is on:
+the sampler's, or for ``gcn_degrees`` grid's ScoreNetworkX),
 the ``nvidia-smi`` name and power limit, and the result line.  Any failed
 phase exits non-zero without the result line.  Imports only torch, numpy
 and ccsd_tpu_torch.
@@ -126,11 +138,14 @@ def import_port():
 
 def gcn_cost(B, N, Fi, Fo):
     """(bytes, flops) of one gcn_aggregate: inputs read once, output
-    written once; FMA = 2 operations."""
+    written once; FMA = 2 operations; norm (X W) in the cheaper of its two
+    orders, d applied to the narrower side (the kernel takes (norm X) W)."""
+    K = min(Fi, Fo)
     nbytes = 4 * (B * N * Fi + B * N * N + Fi * Fo + Fo + B * N * Fo)
-    flops = B * (2 * N * Fi * Fo          # X W
-                 + 3 * N * N + N          # degree, rsqrt, d A' d^T
-                 + 2 * N * N * Fo         # aggregation
+    flops = B * (N * N + 2 * N            # degree sums, clamp, rsqrt
+                 + 2 * N * K              # d_m and d_n applied
+                 + 2 * N * N * K          # aggregation
+                 + 2 * N * Fi * Fo        # projection
                  + N * Fo)                # bias
     return nbytes, flops
 
@@ -152,8 +167,19 @@ def gmh_cost(B, C, N, Fi, A, O, H):
 
 
 def agg_cost(B, C, N, F):
-    """(bytes, flops) of one channel_agg launch."""
-    return 4 * (B * C * N * N + B * N * F + B * C * N * F), 2 * B * C * N * N * F
+    """(bytes, flops) of one channel_agg call: the adjacency and x read
+    once, the output written once; the normalisation's operations (degree
+    sums, clamp and rsqrt, d_m on x and d_n on the sums) beside the
+    product's FMAs."""
+    nbytes = 4 * (B * C * N * N + B * N * F + B * C * N * F)
+    flops = B * C * (N * N + 2 * N + 2 * N * F + 2 * N * N * F)
+    return nbytes, flops
+
+
+def degrees_cost(B, C, N):
+    """(bytes, flops) of one gcn_degrees launch: one read of the
+    adjacency, one write of the degrees; a sum, clamp and rsqrt a row."""
+    return 4 * (B * C * N * N + B * C * N), B * C * (N * N + 2 * N)
 
 
 def scores_cost(B, C, N, A, H, O):
@@ -248,13 +274,36 @@ def path_shapes(models):
         gmh.append((name, B, C, N, a.in_dim, a.attn_dim, a.out_dim, H))
         agg.append((name, B, C, N, a.in_dim))
         scores.append((name, B, C, N, a.attn_dim, H, a.out_dim))
-    return {"gcn": gcn, "gmh": gmh, "agg": agg, "scores": scores, **more_shapes()}
+    return {"gcn": gcn, "gmh": gmh, "agg": agg, "scores": scores, **more_shapes(),
+            **grid_shapes()}
 
 
 # kernel-check cases off the community_small path (phase 3 only): grid_small
 # (N = 49, head width 8) and the graph widths of grid_small_CC_two_stage
 # (N = 49, adim 24: head width 6), each config's first and later layer
 EXTRA_CONFIGS = ("grid_small", "grid_small_CC_two_stage")
+# grid (N = 361): the two normalising kernels and their degree pass (the
+# attention kernels stop at N = 64); checked in phase 3, timed in phase 6
+# beside the path's shapes and kept out of the kernels line's means
+GRID_CONFIG = "grid"
+
+
+def grid_shapes():
+    """``gcn_more`` and ``agg_more`` cases of GRID_CONFIG's first and later
+    ScoreNetworkX / AttentionLayer, and the ``degrees`` cases they launch
+    (each adjacency in the layout its layer passes)."""
+    from ccsd_tpu_torch.utils.config import get_config
+
+    c = get_config(GRID_CONFIG, seed=0, folder=HERE)
+    m, B, N, F = c.model, int(c.data.batch_size), int(c.data.max_node_num), int(c.data.max_feat_num)
+    gcn = [(f"{GRID_CONFIG}.x.layers.{k}", B, N, Fi, m.nhid, 1.0)
+           for k, Fi in enumerate((F, m.nhid))]
+    agg = [(f"{GRID_CONFIG}.adj.layers.{k}", B, C, N, Fi)
+           for k, (C, Fi) in enumerate(((m.c_init, F), (m.c_hid, m.nhid)))]
+    degrees = [(f"{GRID_CONFIG}.x.layers", B, 1, N, "contiguous")]
+    degrees += [(name, B, C, N, "contiguous" if name.endswith(".0") else "channels-last")
+                for name, B, C, N, _ in agg]
+    return {"gcn_more": gcn, "agg_more": agg, "degrees": degrees}
 
 
 def more_shapes():
@@ -291,11 +340,19 @@ def glorot(shape, gen, dev):
 
 
 def gcn_inputs(case, gen, dev):
+    """A standard-normal adjacency (a noisy one, as the sampler passes) at
+    the path's N; at grid's N = 361 a 0/1 adjacency of mean degree 4, as
+    grid's graphs have: a standard-normal row of 361 entries sums to near
+    zero as often as not, and two f32 orders of the same sum then differ by
+    up to 5e-5 (the kernel's (norm X) W against cuBLAS's norm (X W))."""
     import torch
 
     _, B, N, Fi, Fo, loop = case
     x = torch.randn(B, N, Fi, generator=gen, device=dev)
-    adj = sym(torch.randn(B, N, N, generator=gen, device=dev))
+    if N > 64:
+        adj = sym((torch.rand(B, N, N, generator=gen, device=dev) < 4 / N).float())
+    else:
+        adj = sym(torch.randn(B, N, N, generator=gen, device=dev))
     w = glorot((Fi, Fo), gen, dev)
     b = 0.1 * torch.randn(Fo, generator=gen, device=dev)
     return (x, adj, w, b, loop)
@@ -317,28 +374,73 @@ def gmh_inputs_channels_last(case, gen, dev):
     """As gmh_inputs, the adjacency a channels-last view, as the previous
     layer's MLP leaves it for the next AttentionLayer."""
     x, adj, *rest = gmh_inputs(case, gen, dev)
-    return (x, adj.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2), *rest)
+    return (x, channels_last(adj), *rest)
+
+
+def first_layer(case):
+    return case[0].rsplit(".", 1)[-1] == "0"
 
 
 def gmh_path_inputs(case, gen, dev):
     """As gmh_inputs, the adjacency in the layout the unfused path gives the
     layer: the first layer's (B, C, N, N)-contiguous (``pow_tensor``'s), a
     later layer's the channels-last view the previous layer's MLP leaves."""
-    first = case[0].rsplit(".", 1)[-1] == "0"
-    return (gmh_inputs if first else gmh_inputs_channels_last)(case, gen, dev)
+    return (gmh_inputs if first_layer(case) else gmh_inputs_channels_last)(case, gen, dev)
 
 
 def contiguous_adj(x, adj, *rest):
     return (x, adj.contiguous(), *rest)
 
 
+def channels_last(adj):
+    """The (B, C, N, N) view of channels-last storage that a previous
+    layer's MLP leaves."""
+    return adj.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+
+
 def agg_inputs(case, gen, dev):
+    """The fused layer's adjacency (contiguous) and x."""
     import torch
-    from ccsd_tpu_torch.kernels.gcn import gcn_norm
 
     _, B, C, N, F = case
     adj = sym(torch.rand(B, C, N, N, generator=gen, device=dev))
-    return (gcn_norm(adj), torch.randn(B, N, F, generator=gen, device=dev))
+    return (adj, torch.randn(B, N, F, generator=gen, device=dev))
+
+
+def agg_inputs_channels_last(case, gen, dev):
+    adj, x = agg_inputs(case, gen, dev)
+    return (channels_last(adj), x)
+
+
+def agg_path_inputs(case, gen, dev):
+    """The adjacency in the layout the fused path gives the layer, as
+    gmh_path_inputs."""
+    return (agg_inputs if first_layer(case) else agg_inputs_channels_last)(case, gen, dev)
+
+
+def degrees_inputs(case, gen, dev):
+    import torch
+
+    _, B, C, N, layout = case
+    adj = sym(torch.rand(B, C, N, N, generator=gen, device=dev))
+    return (adj if layout == "contiguous" else channels_last(adj),)
+
+
+def bf16_agg_tol(adj, x):
+    """channel_agg in bf16, kernel vs plain, element by element: both round
+    x and each norm element to bf16 once, but their f32 norm elements
+    (degrees summed in another order) may round to the two bf16 neighbours
+    of a value, one bf16 ulp of |norm| apart; that summed against |x| over
+    m, plus the f32 tolerance."""
+    import torch
+    from ccsd_tpu_torch.kernels.gcn import gcn_norm
+    from ccsd_tpu_torch.kernels.gmh_scores import round_bf16
+
+    a = adj if adj.dim() == 4 else adj.unflatten(1, (-1, x.shape[1]))
+    norm = gcn_norm(a).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(norm.clamp_min(1e-30))) - 7)
+    bound = (ulp @ round_bf16(x).abs()[:, None]).reshape(*adj.shape[:-1], x.shape[-1])
+    return dict(rtol=0.0, atol=KERNEL_TOL["atol"] + bound)
 
 
 def scores_inputs(case, gen, dev):
@@ -405,25 +507,38 @@ def kernel_specs():
     import functools
 
     from ccsd_tpu_torch.kernels.channel_agg import channel_agg, channel_agg_plain
-    from ccsd_tpu_torch.kernels.gcn import gcn_aggregate, gcn_aggregate_plain
+    from ccsd_tpu_torch.kernels.gcn import (
+        gcn_aggregate,
+        gcn_aggregate_plain,
+        gcn_degrees,
+        gcn_degrees_plain,
+    )
     from ccsd_tpu_torch.kernels.gmh_attention import gmh_attention, gmh_attention_plain
     from ccsd_tpu_torch.kernels.gmh_scores import gmh_scores, gmh_scores_plain
 
     def folded(fn):  # the probes' (B, C*N, N) form of the same sum
-        def run(norm, x):
-            B, C, N, _ = norm.shape
-            return fn(norm.view(B, C * N, N), x).view(B, C, N, -1)
+        def run(adj, x):
+            B, C, N, _ = adj.shape
+            return fn(adj.view(B, C * N, N), x).view(B, C, N, -1)
         return run
 
     f32 = lambda *args: KERNEL_TOL  # noqa: E731
+    agg_bf16 = functools.partial(channel_agg, bf16=True)
+    agg_bf16_plain = functools.partial(channel_agg_plain, bf16=True)
     return [
         ("gcn_aggregate", "f32", "gcn", gcn_inputs, gcn_aggregate, gcn_aggregate_plain, f32),
+        ("gcn_degrees", "f32", "degrees", degrees_inputs, gcn_degrees, gcn_degrees_plain, f32),
         ("gmh_attention", "f32", "gmh", gmh_inputs, gmh_attention, gmh_attention_plain, f32),
         ("gmh_attention", "f32 channels-last adj", "gmh", gmh_inputs_channels_last,
          gmh_attention, gmh_attention_plain, f32),
-        ("channel_agg", "4d", "agg", agg_inputs, channel_agg, channel_agg_plain, f32),
-        ("channel_agg", "folded", "agg", agg_inputs, folded(channel_agg),
+        ("channel_agg", "f32", "agg", agg_inputs, channel_agg, channel_agg_plain, f32),
+        ("channel_agg", "f32 channels-last adj", "agg", agg_inputs_channels_last,
+         channel_agg, channel_agg_plain, f32),
+        ("channel_agg", "f32 folded", "agg", agg_inputs, folded(channel_agg),
          folded(channel_agg_plain), f32),
+        ("channel_agg", "bf16", "agg", agg_inputs, agg_bf16, agg_bf16_plain, bf16_agg_tol),
+        ("channel_agg", "bf16 channels-last adj", "agg", agg_inputs_channels_last,
+         agg_bf16, agg_bf16_plain, bf16_agg_tol),
         ("gmh_scores", "f32", "scores", scores_inputs, gmh_scores, gmh_scores_plain, f32),
         ("gmh_scores", "bf16", "scores", scores_inputs,
          functools.partial(gmh_scores, bf16=True),
@@ -507,6 +622,48 @@ def phase_models(models, train_adjs, dev):
         fast_tol=json.dumps(BF16_MODEL_TOL))
     check(sep > BF16_MODEL_TOL["atol"],
           "the fast network's tolerance cannot tell bf16 from f32 scores")
+
+
+def phase_grid_x(dev):
+    """ScoreNetworkX of GRID_CONFIG (B = 8, N = 361, depth 5, nhid 32,
+    seeded weights) on the card against a float64 CPU copy: each GCN layer
+    cuts its graphs into row tiles after a ``gcn_degrees`` pass.  The
+    launch counts are set to 0 just before and read just after; returns
+    them."""
+    import copy
+
+    import numpy as np
+    import torch
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.models.registry import load_model, load_model_params
+    from ccsd_tpu_torch.ops.masks import mask_adjs, mask_x
+    from ccsd_tpu_torch.utils.config import get_config
+
+    c = get_config(GRID_CONFIG, seed=0, folder=HERE)
+    model = load_model(load_model_params(c)[0], generator=torch.Generator().manual_seed(3))
+    model = model.to(dev).eval()
+    B, N, F = int(c.data.batch_size), int(c.data.max_node_num), int(c.data.max_feat_num)
+    rng = np.random.default_rng(4)
+    flags = torch.from_numpy(
+        (np.arange(N)[None] < rng.integers(N - 60, N + 1, (B, 1))).astype(np.float32))
+    x = mask_x(torch.from_numpy(rng.standard_normal((B, N, F)).astype(np.float32)), flags)
+    adj = mask_adjs(sym(torch.from_numpy((rng.random((B, N, N)) < 4 / N).astype(np.float32))),
+                    flags)
+    depth = int(c.model.depth)
+    expect = {"gcn_aggregate": depth, "gcn_degrees": depth}
+    reset_launches()
+    with torch.no_grad():
+        got = model(x.to(dev), adj.to(dev), flags.to(dev))
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in LAUNCHES.items() if v}
+        ref = copy.deepcopy(model).cpu().double()(x.double(), adj.double(), flags.double())
+    check(launched == expect, f"grid ScoreNetworkX: launches {launched}, expected {expect}")
+    abs_err, rel_err, ok = compare(got.cpu().double(), ref, MODEL_TOL)
+    say("grid", model=f"{GRID_CONFIG} ScoreNetworkX", shape="x".join(map(str, got.shape)),
+        launches=json.dumps(launched), max_abs_err=f"{abs_err:.3e}",
+        max_rel_err=f"{rel_err:.3e}", tol=json.dumps(MODEL_TOL), ok=ok)
+    check(ok, "grid ScoreNetworkX on the card disagrees with the CPU copy")
+    return launched
 
 
 def sample_config(steps=None, fused=True):
@@ -606,39 +763,63 @@ def phase_sample(train_adjs):
 def timing_specs():
     """(kernel, source, the TPU kernels it replaces, shape key, inputs,
     {variant: (kernel fn, plain fn[, a change of the inputs])} with the
-    path's variant first, the PyTorch call of the same function or None,
-    cost of a case)."""
+    path's variant first, a maker of the PyTorch call of the same function
+    or None, makers of further calls timed beside it, cost of a case).
+    The cases of ``<key>_more`` are timed too and kept out of the means."""
     import functools
 
     import torch
     from ccsd_tpu_torch.kernels.channel_agg import channel_agg, channel_agg_plain
-    from ccsd_tpu_torch.kernels.gcn import gcn_aggregate, gcn_aggregate_plain
+    from ccsd_tpu_torch.kernels.gcn import (
+        gcn_aggregate,
+        gcn_aggregate_plain,
+        gcn_degrees,
+        gcn_degrees_plain,
+        gcn_norm,
+    )
     from ccsd_tpu_torch.kernels.gmh_attention import gmh_attention, gmh_attention_plain
     from ccsd_tpu_torch.kernels.gmh_scores import gmh_scores, gmh_scores_plain
+
+    def matmul_of_norm(adj, x):  # the product alone, norm formed before
+        norm = gcn_norm(adj.contiguous())
+        return lambda: torch.matmul(norm, x[:, None])
+
+    # the pair the fused layer ran when the kernel took norm, not adj
+    def norm_then_matmul(adj, x):
+        return lambda: torch.matmul(gcn_norm(adj.contiguous()), x[:, None])
+
+    def contiguous_first(adj, x):
+        return (adj.contiguous(), x)
 
     return [
         ("gcn_aggregate", "ccsd_tpu_torch/csrc/gcn_aggregate.cu",
          "ccsd_tpu/ops/pallas/gcn.py:45", "gcn", gcn_inputs,
-         {"f32": (gcn_aggregate, gcn_aggregate_plain)}, None,
+         {"f32": (gcn_aggregate, gcn_aggregate_plain)}, None, {},
          lambda c: gcn_cost(*c[1:5])),
+        ("gcn_degrees", "ccsd_tpu_torch/csrc/gcn_degrees.cu",
+         "ccsd_tpu/ops/pallas/gcn.py:37 (the degree stage of _gcn_kernel, for graphs "
+         "cut into row tiles)", "degrees", degrees_inputs,
+         {"f32": (gcn_degrees, gcn_degrees_plain)}, None, {},
+         lambda c: degrees_cost(*c[1:4])),
         ("gmh_attention", "ccsd_tpu_torch/csrc/gmh_attention.cu",
          "ccsd_tpu/ops/pallas/gmh_attention.py:62", "gmh", gmh_path_inputs,
          {"f32": (gmh_attention, gmh_attention_plain),
           "f32 contiguous adj": (gmh_attention, gmh_attention_plain, contiguous_adj)},
-         None,
+         None, {},
          lambda c: gmh_cost(*c[1:])),
         ("channel_agg", "ccsd_tpu_torch/csrc/channel_agg.cu",
          "tools/probe_pallas_agg.py:43 (agg_pallas), tools/probe_pallas_agg.py:64 "
-         "(agg_pallas_2d)", "agg", agg_inputs,
-         {"f32": (channel_agg, channel_agg_plain)},
-         lambda norm, x: torch.matmul(norm, x[:, None]),
+         "(agg_pallas_2d)", "agg", agg_path_inputs,
+         {"f32": (channel_agg, channel_agg_plain),
+          "f32 contiguous adj": (channel_agg, channel_agg_plain, contiguous_first)},
+         matmul_of_norm, {"gcn_norm_then_matmul": norm_then_matmul},
          lambda c: agg_cost(*c[1:])),
         ("gmh_scores", "ccsd_tpu_torch/csrc/gmh_scores.cu",
          "tools/pallas_scores_probe.py:85 (make_pallas_reg), "
          "tools/pallas_scores_probe.py:127 (make_pallas)", "scores", scores_inputs,
          {"bf16": (functools.partial(gmh_scores, bf16=True),
                    functools.partial(gmh_scores_plain, bf16=True)),
-          "f32": (gmh_scores, gmh_scores_plain)}, None,
+          "f32": (gmh_scores, gmh_scores_plain)}, None, {},
          lambda c: scores_cost(*c[1:])),
     ]
 
@@ -648,13 +829,15 @@ def phase_timing(shapes, dev, launches, errs):
 
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = []
-    for kname, src, replaces, key, mk, variants, library, cost in timing_specs():
+    for kname, src, replaces, key, mk, variants, library, also, cost in timing_specs():
         per = []
+        extra = shapes.get(f"{key}_more", [])
         with torch.no_grad():
-            for case in shapes[key]:
+            for case in shapes[key] + extra:
                 args = mk(case, gen, dev)
                 b_ms, by = bound_ms(*cost(case))
-                lib_ms = call_ms(lambda: library(*args))[0] if library else None
+                lib_ms = call_ms(library(*args))[0] if library else None
+                more = {f"{k}_ms": call_ms(f(*args))[0] for k, f in also.items()}
                 for variant, (kern, plain, *change) in variants.items():
                     a = change[0](*args) if change else args
                     ms, host_ms = call_ms(lambda: kern(*a))
@@ -662,14 +845,17 @@ def phase_timing(shapes, dev, launches, errs):
                     per.append({"case": case[0], "variant": variant, "ms": ms,
                                 "plain_ms": plain_ms, "host_loop_ms": host_ms,
                                 "plain_host_loop_ms": plain_host_ms,
-                                "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms})
+                                "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+                                "off_path": case in extra, **more})
                     say("timing", kernel=kname, variant=variant, case=case[0],
                         ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
                         host_loop_ms=f"{host_ms:.5f}",
                         plain_host_loop_ms=f"{plain_host_ms:.5f}", bound_ms=f"{b_ms:.6f}",
-                        bound_by=by, library_ms="null" if lib_ms is None else f"{lib_ms:.5f}")
+                        bound_by=by, library_ms="null" if lib_ms is None else f"{lib_ms:.5f}",
+                        **{k: f"{v:.5f}" for k, v in more.items()})
         path_variant = next(iter(variants))
-        on_path = [p for p in per if p["case"] != "improved" and p["variant"] == path_variant]
+        on_path = [p for p in per if p["case"] != "improved" and not p["off_path"]
+                   and p["variant"] == path_variant]
         mean = lambda k: sum(p[k] for p in on_path) / len(on_path)  # noqa: E731
         rows.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
@@ -768,8 +954,12 @@ def main(argv) -> int:
         errs = phase_kernels(shapes, dev)
         phase = "models"
         phase_models(models, train_adjs, dev)
+        phase = "grid"
+        grid_launches = phase_grid_x(dev)
         phase = "sample"
         launches = phase_sample(train_adjs)
+        # the degree pass runs only on graphs cut into row tiles (N > 64)
+        launches["gcn_degrees"] = grid_launches["gcn_degrees"]
         phase = "timing"
         rows = phase_timing(shapes, dev, launches, errs)
         if args.profile:

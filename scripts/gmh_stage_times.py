@@ -32,7 +32,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -58,21 +57,13 @@ VARIANTS = {
 def build_variants():
     """{(kernel, variant): bound launcher}, all built in parallel."""
     os.makedirs(OUT_DIR, exist_ok=True)
-    procs = []
-    for kname, variants in VARIANTS.items():
-        src = os.path.join(build.CSRC_DIR, f"{kname}.cu")
-        for variant, mask in variants.items():
-            lib = os.path.join(OUT_DIR, f"lib{kname}_{variant}.so")
-            procs.append((kname, variant, lib, subprocess.Popen(
-                [build.nvcc_path(), *build.NVCC_FLAGS, f"-DGMH_ABLATE={mask}", "-o", lib, src],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    fns = {}
-    for kname, variant, lib, p in procs:
-        log, _ = p.communicate()
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed for {kname} {variant}:\n{log}")
-        fns[(kname, variant)] = getattr(build.bind(kname, lib), next(iter(build.SIGNATURES[kname])))
-    return fns
+    jobs = {(kname, variant): (os.path.join(build.CSRC_DIR, f"{kname}.cu"),
+                               os.path.join(OUT_DIR, f"lib{kname}_{variant}.so"),
+                               [f"-DGMH_ABLATE={mask}"])
+            for kname, variants in VARIANTS.items() for variant, mask in variants.items()}
+    build.nvcc_parallel(jobs)
+    return {(kname, variant): getattr(build.bind(kname, lib), next(iter(build.SIGNATURES[kname])))
+            for (kname, variant), (_, lib, _) in jobs.items()}
 
 
 def main() -> int:

@@ -45,6 +45,7 @@ from ccsd_tpu_torch.kernels.gmh_scores import (
     gmh_scores,
     gmh_scores_plain,
     head_scores,
+    round_bf16,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -78,28 +79,85 @@ def bf16_ulp(v):
 
 # (C, N, F, B): a small case, and community_small's first layer at B = 2
 AGG_SHAPES = [(3, 6, 5, 4), (2, 20, 11, 2)]
+# grid's first layer (N = 361) at B = 1: the probes unroll N, so the JAX
+# side there is gcn_norm followed by an einsum
+GRID_AGG_SHAPE = (2, 361, 5, 1)
 
 
-@pytest.mark.parametrize("shape", AGG_SHAPES)
+def _agg_adj(B, C, N, layout, seed=0):
+    """A symmetric (B, C, N, N) adjacency as numpy and as a tensor, the
+    tensor contiguous or the channels-last view a later fused layer
+    receives."""
+    rng = np.random.default_rng(seed)
+    adj = np.triu(rng.random((B, C, N, N)).astype(np.float32), 1)
+    adj = adj + np.swapaxes(adj, -1, -2)
+    t = _t(adj)
+    if layout == "channels-last":
+        t = t.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+        assert not t.is_contiguous()
+    return adj, t
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "channels-last"])
+@pytest.mark.parametrize("shape", AGG_SHAPES + [GRID_AGG_SHAPE])
 @pytest.mark.parametrize("probe", ["agg_pallas", "agg_pallas_2d"])
-def test_channel_agg_plain_matches_probe(shape, probe):
+def test_channel_agg_plain_matches_probe(shape, probe, layout):
+    """channel_agg_plain(adj, x) against ccsd_tpu.models.gcn.gcn_norm
+    followed by the probe in interpret mode (an einsum at N = 361)."""
+    from ccsd_tpu.models.gcn import gcn_norm as jgcn_norm
+
     C, N, F, B = shape
-    mod = _probe("probe_pallas_agg", C=C, N=N, F=F, B=B)
-    rng = np.random.default_rng(0)
-    norm = rng.random((B, C, N, N)).astype(np.float32)
-    x = rng.standard_normal((B, N, F)).astype(np.float32)
-    norm_l = np.ascontiguousarray(norm.transpose(1, 2, 3, 0))  # (C, N, N, B)
-    x_l = np.ascontiguousarray(x.transpose(1, 2, 0))           # (N, F, B)
-    if probe == "agg_pallas":
-        ref = np.asarray(mod.agg_pallas(norm_l, x_l))
+    adj, adj_t = _agg_adj(B, C, N, layout)
+    x = np.random.default_rng(1).standard_normal((B, N, F)).astype(np.float32)
+    norm = np.asarray(jgcn_norm(jnp.asarray(adj)))  # (B, C, N, N)
+    if shape == GRID_AGG_SHAPE:
+        ref = np.einsum("bcnm,bmf->bcnf", norm, x)
     else:
-        ref = np.asarray(mod.agg_pallas_2d(norm_l.reshape(C * N, N, B), x_l))
-        ref = ref.reshape(C, N, F, B)
-    out = channel_agg_plain(_t(norm), _t(x))
+        mod = _probe("probe_pallas_agg", C=C, N=N, F=F, B=B)
+        norm_l = np.ascontiguousarray(norm.transpose(1, 2, 3, 0))  # (C, N, N, B)
+        x_l = np.ascontiguousarray(x.transpose(1, 2, 0))           # (N, F, B)
+        if probe == "agg_pallas":
+            ref = np.asarray(mod.agg_pallas(norm_l, x_l))
+        else:
+            ref = np.asarray(mod.agg_pallas_2d(norm_l.reshape(C * N, N, B), x_l))
+            ref = ref.reshape(C, N, F, B)
+        ref = ref.transpose(3, 0, 1, 2)
+    out = channel_agg_plain(adj_t, _t(x))
     assert out.shape == (B, C, N, F)
-    np.testing.assert_allclose(out.numpy(), ref.transpose(3, 0, 1, 2), **TOL)
-    folded = channel_agg_plain(_t(norm).reshape(B, C * N, N), _t(x))
-    np.testing.assert_allclose(folded.reshape(B, C, N, F).numpy(), out.numpy(), **TOL)
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    if layout == "contiguous":  # the probes' folded (B, C*N, N) form
+        folded = channel_agg_plain(adj_t.reshape(B, C * N, N), _t(x))
+        assert folded.shape == (B, C * N, F)
+        np.testing.assert_allclose(folded.reshape(B, C, N, F).numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "channels-last"])
+@pytest.mark.parametrize("shape", AGG_SHAPES)
+def test_channel_agg_plain_bf16_matches_jax_dot_bf16(shape, layout):
+    """bf16=True against the JAX layer's agg_impl="dot_bf16" contraction
+    (ccsd_tpu/models/attention.py:230-234) under jit, after gcn_norm: both
+    round norm and x to bf16 and sum exact products in f32; the JAX einsum
+    returns bf16, so the port's output is rounded as the layer rounds it.
+    The two f32 sums may round to neighbouring bf16 values: one bf16 ulp of
+    the output, plus the f32 tolerance."""
+    from ccsd_tpu.models.gcn import gcn_norm as jgcn_norm
+
+    C, N, F, B = shape
+    adj, adj_t = _agg_adj(B, C, N, layout, seed=2)
+    x = np.random.default_rng(3).standard_normal((B, N, F)).astype(np.float32)
+
+    @jax.jit
+    def ref_fn(a, xx):
+        norm = jgcn_norm(a)
+        out = jnp.einsum("bcnm,bmf->bcnf", norm.astype(jnp.bfloat16), xx.astype(jnp.bfloat16))
+        return out.astype(jnp.float32)
+
+    ref = np.asarray(ref_fn(adj, x))
+    out = round_bf16(channel_agg_plain(adj_t, _t(x), bf16=True)).numpy()
+    np.testing.assert_array_less(np.abs(out - ref), bf16_ulp(ref) + 1e-5 * (1 + np.abs(ref)))
+    # and the bf16 rounding is what the comparison sees
+    f32 = channel_agg_plain(adj_t, _t(x)).numpy()
+    assert np.abs(f32 - ref).max() > 1e-4
 
 
 def _qk(B, C, N, A, scale=0.5, seed=1):

@@ -42,8 +42,10 @@ def _t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-# (B, N, F_in, F_out): test_pallas_kernels.py shapes + community_small layers
-GCN_SHAPES = [(3, 12, 5, 8), (2, 40, 8, 16), (4, 20, 11, 32), (4, 20, 32, 32)]
+# (B, N, F_in, F_out): test_pallas_kernels.py shapes + community_small
+# layers + grid's first layer (N = 361) at B = 1
+GCN_SHAPES = [(3, 12, 5, 8), (2, 40, 8, 16), (4, 20, 11, 32), (4, 20, 32, 32),
+              (1, 361, 5, 32)]
 
 
 @pytest.mark.parametrize("shape", GCN_SHAPES)

@@ -104,12 +104,17 @@ def cuda():
     return torch.device("cuda")
 
 
+# community_small's layers, a whole-graph block at N = 64 and F = 128, and
+# grid's layers (N = 361: row tiles reading the gcn_degrees pass)
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(128, 20, 11, 32), (128, 20, 32, 32), (3, 64, 128, 128)])
+@pytest.mark.parametrize("shape", [(128, 20, 11, 32), (128, 20, 32, 32), (3, 64, 128, 128),
+                                   (8, 361, 5, 32), (8, 361, 32, 32)])
 def test_gcn_kernel_matches_plain_on_card(cuda, shape):
+    from ccsd_tpu_torch.kernels import LAUNCHES
     from ccsd_tpu_torch.kernels.gcn import gcn_aggregate, gcn_aggregate_plain
 
     B, N, Fi, Fo = shape
+    before = dict(LAUNCHES)
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(B, N, Fi, device=cuda, generator=g)
     adj = (torch.rand(B, N, N, device=cuda, generator=g) > 0.7).float()
@@ -122,6 +127,9 @@ def test_gcn_kernel_matches_plain_on_card(cuda, shape):
         torch.cuda.synchronize()
         torch.testing.assert_close(out, gcn_aggregate_plain(x, adj, w, b, loop),
                                    rtol=1e-5, atol=1e-5)
+    # the degree pass runs only where a graph is cut into row tiles
+    assert LAUNCHES["gcn_aggregate"] == before["gcn_aggregate"] + 2
+    assert LAUNCHES["gcn_degrees"] == before["gcn_degrees"] + (2 if N > 64 else 0)
 
 
 @pytest.mark.cuda
@@ -149,24 +157,76 @@ def _bf16_ulp(v: float) -> float:
     return 2.0 ** (math.floor(math.log2(abs(v))) - 7)
 
 
+def _bf16_agg_tol(adj, x):
+    """channel_agg in bf16, kernel vs plain, element by element: both round
+    x and each norm element to bf16, but their f32 norm elements (degrees
+    summed in another order) may round to the two bf16 neighbours of a
+    value, one bf16 ulp of |norm| apart; summed against |x| over m, plus
+    the f32 tolerance."""
+    from ccsd_tpu_torch.kernels.gcn import gcn_norm
+    from ccsd_tpu_torch.kernels.gmh_scores import round_bf16
+
+    a = adj if adj.dim() == 4 else adj.unflatten(1, (-1, x.shape[1]))
+    norm = gcn_norm(a).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(norm.clamp_min(1e-30))) - 7)
+    bound = (ulp @ round_bf16(x).abs()[:, None]).reshape(*adj.shape[:-1], x.shape[-1])
+    return bound + 1e-5
+
+
+# (B, C, N, F): community_small's first and later fused layers and grid's
+# (N = 361: row tiles reading the gcn_degrees pass)
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,F", [(2, 11), (8, 32)])
-def test_channel_agg_kernel_matches_plain_on_card(cuda, C, F):
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("layout", ["contiguous", "channels-last", "folded"])
+@pytest.mark.parametrize("shape", [(128, 2, 20, 11), (128, 8, 20, 32),
+                                   (8, 2, 361, 5), (8, 8, 361, 32)])
+def test_channel_agg_kernel_matches_plain_on_card(cuda, shape, layout, bf16):
+    """The adjacency in the layouts the fused layer passes (a first layer's
+    contiguous, a later layer's channels-last view) and the probes' folded
+    (B, C*N, N) form; f32 within rtol = atol = 1e-5, bf16 within
+    _bf16_agg_tol."""
     from ccsd_tpu_torch.kernels import LAUNCHES
     from ccsd_tpu_torch.kernels.channel_agg import channel_agg, channel_agg_plain
 
-    B, N = 128, 20
-    g = torch.Generator(device=cuda).manual_seed(0)
-    norm = torch.rand(B, C, N, N, device=cuda, generator=g)
+    B, C, N, F = shape
+    g = torch.Generator(device=cuda).manual_seed(N + C)
+    adj = _sym(torch.rand(B, C, N, N, device=cuda, generator=g))
+    if layout == "channels-last":
+        adj = adj.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    elif layout == "folded":
+        adj = adj.view(B, C * N, N)
     x = torch.randn(B, N, F, device=cuda, generator=g)
-    before = LAUNCHES["channel_agg"]
-    out = channel_agg(norm, x)
-    folded = channel_agg(norm.view(B, C * N, N), x)  # the probes' folded form
+    before = dict(LAUNCHES)
+    out = channel_agg(adj, x, bf16=bf16)
     torch.cuda.synchronize()
-    assert LAUNCHES["channel_agg"] == before + 2
-    ref = channel_agg_plain(norm, x)
-    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(folded.view(B, C, N, F), ref, rtol=1e-5, atol=1e-5)
+    assert LAUNCHES["channel_agg"] == before["channel_agg"] + 1
+    assert LAUNCHES["gcn_degrees"] == before["gcn_degrees"] + (N > 64)
+    ref = channel_agg_plain(adj, x, bf16=bf16)
+    assert out.shape == ref.shape
+    if bf16:
+        err = (out - ref).abs()
+        assert bool((err <= _bf16_agg_tol(adj, x)).all()), f"max error {err.max().item():.3e}"
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "channels-last"])
+@pytest.mark.parametrize("add_loop,loop", [(True, 1.0), (True, 2.0), (False, 1.0)])
+@pytest.mark.parametrize("shape", [(8, 1, 361), (8, 8, 361), (2, 3, 70)])
+def test_gcn_degrees_kernel_matches_plain_on_card(cuda, shape, add_loop, loop, layout):
+    from ccsd_tpu_torch.kernels.gcn import gcn_degrees, gcn_degrees_plain
+
+    B, C, N = shape
+    g = torch.Generator(device=cuda).manual_seed(N)
+    adj = _sym(torch.rand(B, C, N, N, device=cuda, generator=g))
+    adj.diagonal(dim1=-2, dim2=-1).fill_(0.5)
+    if layout == "channels-last":
+        adj = adj.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    out = gcn_degrees(adj, add_loop, loop)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, gcn_degrees_plain(adj, add_loop, loop),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -322,20 +382,30 @@ def _layer_shapes(data, model):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", [n for n, d, _ in _graph_configs() if d["max_node_num"] <= 64])
+@pytest.mark.parametrize("name", [n for n, _, _ in _graph_configs()])
 def test_launch_geometry_fits_every_graph_config(cuda, name):
-    """Both attention kernels fit one block's shared memory for every layer
-    of every config with N <= 64 (the graph widths of the CC configs
-    included), at the config's batch and at 1.  The shared-memory layouts
-    live only in the CUDA sources, so their libraries are asked."""
-    from ccsd_tpu_torch.kernels.build import kernel_fn
-    from ccsd_tpu_torch.kernels.gmh_attention import SMEM_LIMIT, attention_smem
+    """Every kernel's block fits the card's shared memory for every layer
+    of every graph config (the graph widths of the CC configs included):
+    gcn_aggregate for each ScoreNetworkX layer and channel_agg for each
+    AttentionLayer at every N, grid's 361 included; the two attention
+    kernels where N <= 64, at the config's batch and at 1.  The
+    shared-memory layouts live only in the CUDA sources, so their libraries
+    are asked."""
+    from ccsd_tpu_torch.kernels.build import SMEM_LIMIT, kernel_fn
+    from ccsd_tpu_torch.kernels.channel_agg import agg_smem
+    from ccsd_tpu_torch.kernels.gcn import gcn_aggregate_smem
+    from ccsd_tpu_torch.kernels.gmh_attention import MAX_N, attention_smem
     from ccsd_tpu_torch.kernels.gmh_scores import scores_group
 
     _, data, model = next(c for c in _graph_configs() if c[0] == name)
-    N = data["max_node_num"]
+    N, F, nhid = data["max_node_num"], data["max_feat_num"], model["nhid"]
+    for Fi in (F, nhid):
+        assert 0 < gcn_aggregate_smem(N, Fi, nhid) <= SMEM_LIMIT, (N, Fi, nhid)
     smem = kernel_fn("gmh_scores", "gmh_scores_smem")
     for C, Fi, A, O, H in _layer_shapes(data, model):
+        assert 0 < agg_smem(N, Fi) <= SMEM_LIMIT, (C, N, Fi)
+        if N > MAX_N:
+            continue
         assert 0 < attention_smem(N, Fi, A, O, H) <= SMEM_LIMIT, (C, N, Fi, A)
         for B in (data["batch_size"], 1):
             for bf16 in (False, True):
@@ -345,8 +415,8 @@ def test_launch_geometry_fits_every_graph_config(cuda, name):
 
 
 def test_launch_geometry_raises_for_grid_naming_n():
-    """grid (N = 361) needs a tiled design: both wrappers' geometry raises,
-    on the host, before any kernel is built."""
+    """grid (N = 361) needs a tiled design of the attention kernels: both
+    wrappers' geometry raises, on the host, before any kernel is built."""
     from ccsd_tpu_torch.kernels.gmh_attention import attention_smem
     from ccsd_tpu_torch.kernels.gmh_scores import scores_group
 
@@ -359,6 +429,41 @@ def test_launch_geometry_raises_for_grid_naming_n():
     for bf16 in (False, True):
         with pytest.raises(ValueError, match="N=361"):
             scores_group(data["batch_size"], C, N, A, H, bf16)
+
+
+@pytest.mark.parametrize("N,rows", [(9, 9), (20, 20), (49, 49), (64, 64), (65, 32), (361, 32)])
+def test_row_tiles_only_above_a_whole_graph_block(N, rows):
+    """The normalising kernels take a whole graph a block up to N = 64, so
+    the degree pass never runs on the sampler's N = 20; grid's N = 361 is
+    cut into blocks of 32 rows, which read the degree pass."""
+    from ccsd_tpu_torch.kernels.gcn import rows_per_block
+
+    assert rows_per_block(N) == rows
+
+
+def test_degree_wrapper_routes_cpu_to_plain_at_grid_size():
+    """On the CPU every wrapper of the grid path takes its plain version
+    (no launch counted), whatever N: no wrapper raises at N = 361."""
+    from ccsd_tpu_torch.kernels import LAUNCHES
+    from ccsd_tpu_torch.kernels.channel_agg import channel_agg, channel_agg_plain
+    from ccsd_tpu_torch.kernels.gcn import (
+        gcn_aggregate,
+        gcn_aggregate_plain,
+        gcn_degrees,
+        gcn_degrees_plain,
+    )
+
+    rng = np.random.default_rng(5)
+    t = lambda *s: torch.from_numpy(rng.random(s).astype(np.float32))  # noqa: E731
+    adj, x, w = _sym(t(1, 2, 361, 361)), t(1, 361, 5), t(5, 8)
+    before = dict(LAUNCHES)
+    d = gcn_degrees(adj)
+    agg = channel_agg(adj, x)
+    out = gcn_aggregate(x, adj[:, 0], w)
+    assert LAUNCHES == before
+    torch.testing.assert_close(d, gcn_degrees_plain(adj), rtol=0, atol=0)
+    torch.testing.assert_close(agg, channel_agg_plain(adj, x), rtol=0, atol=0)
+    torch.testing.assert_close(out, gcn_aggregate_plain(x, adj[:, 0], w), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("B,C,scores", [(128, 8, 4), (128, 2, 1), (8, 8, 1), (1024, 8, 8)])
