@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of ccsd_tpu for NVIDIA Hopper (H100).
 
-The graph sampling path of ``config/community_small.yaml`` runs here, with
-both of the JAX package's Pallas kernels replaced by hand-written CUDA C++
-kernels for ``sm_90a`` (``ccsd_tpu_torch/csrc``).  The package imports
-``torch`` and ``numpy`` only; ``ccsd_tpu`` stays the numerical reference.
+The graph training and sampling paths of ``config/community_small.yaml``
+run here, with every Pallas kernel of the JAX package replaced by a
+hand-written CUDA C++ kernel for ``sm_90a`` (``ccsd_tpu_torch/csrc``), and
+the two on the training path given backward kernels of their own.  The
+package imports ``torch`` and ``numpy`` only; ``ccsd_tpu`` stays the
+numerical reference.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel wrapper takes its plain PyTorch version.

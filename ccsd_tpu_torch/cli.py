@@ -1,15 +1,22 @@
-"""Command-line entry point of the port (graph sampling).
+"""Command-line entry point of the port (graph training and sampling).
 
 Usage:
+    python -m ccsd_tpu_torch.cli --type train --config community_small \
+        [--seed 42] [--folder ./] [--device cuda|cpu] [--train-adjs adjs.npy] \
+        [--resume NAME]
     python -m ccsd_tpu_torch.cli --type sample --config community_small \
         [--seed 42] [--folder ./] [--device cuda|cpu] [--num-samples 128] \
         [--train-adjs adjs.npy] [--out samples.npz]
 
-The node counts come from ``--train-adjs`` (a (M, N, N) numpy array of
-padded training adjacencies); without it, community_small draws them from
-its generation recipe.  The config's ``sample.fused`` and ``sample.fast``
-(both on when absent) pick the network path, as in ``Sampler``.  Training
-is not ported yet.
+The dataset is ``--train-adjs`` (a (M, N, N) numpy array of padded
+adjacencies); without it, community_small generates 100 graphs by its
+recipe from the seed.  Training writes ``<folder>/checkpoints/<data>/
+<train.name>_<time>_final.pth`` (``--resume NAME`` continues the run saved
+as NAME) and prints one JSON line: epochs, the last epoch's train and test
+losses, train steps/s and the checkpoint.  Sampling takes the node counts
+from the dataset; the config's ``sample.fused`` and ``sample.fast`` (both
+on when absent) pick the network path, as in ``Sampler``, and ``ckpt`` the
+weights (a ``_final`` checkpoint of a port run, for one).
 """
 
 from __future__ import annotations
@@ -24,8 +31,8 @@ import numpy as np
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ccsd_tpu_torch",
-                                description="PyTorch/CUDA graph sampling")
-    p.add_argument("--type", required=True, choices=["sample"])
+                                description="PyTorch/CUDA graph training and sampling")
+    p.add_argument("--type", required=True, choices=["train", "sample"])
     p.add_argument("--config", required=True, help="config/<name>.yaml")
     p.add_argument("--folder", default="./", help="root of config/ and checkpoints/")
     p.add_argument("--seed", type=int, default=42)
@@ -33,24 +40,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-samples", type=int, default=None)
     p.add_argument("--train-adjs", default=None, help=".npy of (M, N, N) adjacencies")
     p.add_argument("--out", default=None, help="write adj/x/flags to this .npz")
+    p.add_argument("--resume", default=None, help="checkpoint name to resume training from")
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    from ccsd_tpu_torch.data.loader import community_small_adjs
     from ccsd_tpu_torch.sampling.sampler import Sampler
+    from ccsd_tpu_torch.training.trainer import Trainer, dataset_adjs
     from ccsd_tpu_torch.utils.config import get_config
 
     config = get_config(args.config, args.seed, args.folder)
-    if args.train_adjs:
-        train_adjs = np.load(args.train_adjs)
-    elif str(config.data.data) == "community_small":
-        train_adjs = community_small_adjs(100, np.random.default_rng(args.seed),
-                                          int(config.data.max_node_num))
-    else:
+    try:
+        adjs = dataset_adjs(config, np.load(args.train_adjs) if args.train_adjs else None)
+    except ValueError:
         raise SystemExit(f"--train-adjs is required for {config.data.data}")
-    res = Sampler(config, train_adjs, device=args.device).sample(args.num_samples)
+    if args.type == "train":
+        trainer = Trainer(config, device=args.device, adjs=adjs)
+        if args.resume:
+            trainer.load_checkpoint(args.resume)
+        name = trainer.train()
+        last = {k: h[-1] if h else [float("nan")] * 2 for k, h in trainer.history.items()}
+        print(json.dumps({
+            "epochs": trainer.epoch,
+            "steps": trainer.step,
+            "train_loss_x": last["train"][0], "train_loss_adj": last["train"][1],
+            "test_loss_x": last["test"][0], "test_loss_adj": last["test"][1],
+            "steps_per_s": trainer.steps_per_s,
+            "ckpt": f"{name}_final",
+            "ckpt_path": trainer.checkpoint_path(f"{name}_final"),
+            "device": str(trainer.device),
+        }))
+        return 0
+    res = Sampler(config, adjs, device=args.device).sample(args.num_samples)
     if args.out:
         np.savez(args.out, adj=res["adj"], x=res["x"], flags=res["flags"])
     print(json.dumps({

@@ -8,7 +8,8 @@ that its path went through the kernels.
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"gcn_aggregate": 0, "gmh_attention": 0,
-                             "channel_agg": 0, "gmh_scores": 0, "gcn_degrees": 0}
+                             "channel_agg": 0, "gmh_scores": 0, "gcn_degrees": 0,
+                             "gcn_aggregate_bwd": 0, "gmh_attention_bwd": 0}
 
 
 def reset_launches() -> None:

@@ -65,6 +65,22 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # N, attn_dim, heads, channels per block, bf16 -> shared bytes of a block
         "gmh_scores_smem": [_I] * 5,
     },
+    "gcn_aggregate_bwd": {
+        # x, adj, w, dL/dout, dx, dadj, partials, out_w (dW then dbias),
+        # B, N, F_in, F_out, add_loop, loop, stream
+        "gcn_aggregate_bwd_run": [_P] * 8 + [_I] * 5 + [_F, _P],
+        # N, F_in, F_out -> shared bytes of a block
+        "gcn_aggregate_bwd_smem": [_I] * 3,
+    },
+    "gmh_attention_bwd": {
+        # x, adj, wq, bq, wk, bk, wv, bv, dL/dV, dL/dA, dx, dadj, partials of
+        # dx, partials of the weights, out_w, B, C, N, F_in, attn_dim, F_out,
+        # heads, head_dim, strides of adj (b, c, n, m), of dL/dA (b, n, m, c)
+        # and of dadj (b, c, n, m), score_div, add_loop, loop, stream
+        "gmh_attention_bwd_run": [_P] * 15 + [_I] * 8 + [_L] * 12 + [_F, _I, _F, _P],
+        # N, F_in, attn_dim, F_out, heads -> shared bytes of a block
+        "gmh_attention_bwd_smem": [_I] * 5,
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

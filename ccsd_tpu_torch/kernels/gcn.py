@@ -1,4 +1,5 @@
-"""Degree-normalised GCN aggregation: CUDA kernel, plain version, wrapper.
+"""Degree-normalised GCN aggregation: CUDA kernels (forward and backward),
+plain versions, wrappers.
 
 Replaces ``gcn_aggregate_pallas`` (ccsd_tpu/ops/pallas/gcn.py:45-85, body
 ``_gcn_kernel`` :31-42).  Per graph b:
@@ -15,6 +16,16 @@ whole graph where N <= ``WHOLE_GRAPH_N`` and sums its degrees itself; a
 larger graph (grid: N = 361) is cut into blocks of ``ROW_TILE`` rows, and
 ``gcn_degrees`` (``csrc/gcn_degrees.cu``, one more launch with a count of
 its own) first computes d once per row for them to read.
+
+On a CUDA tensor that needs a gradient the wrapper runs the forward kernel
+inside a ``torch.autograd.Function`` whose backward is the kernel
+``csrc/gcn_aggregate_bwd.cu`` (one block a graph, N <= 64), with
+``gcn_aggregate_bwd_plain`` beside it: the gradients of x, adj, the weight
+and the bias written out by hand (``csrc/grad_common.cuh`` gives the
+formulas).  The degree clamp follows ``jnp.clip``: at a row sum of exactly
+1 (a node with only its loop) half the gradient passes, as ``jax.grad`` of
+the reference gives, in the kernel, in the plain backward and in autograd
+of the plain forward (``torch.maximum`` splits a tie the same way).
 """
 
 from __future__ import annotations
@@ -45,10 +56,12 @@ def _with_loop(adj: torch.Tensor, loop: float) -> torch.Tensor:
 
 def gcn_degrees_plain(adj: torch.Tensor, add_loop: bool = True,
                       loop: float = 1.0) -> torch.Tensor:
-    """(..., N, N) -> d (..., N) = max(rowsum A', 1)^-1/2."""
+    """(..., N, N) -> d (..., N) = max(rowsum A', 1)^-1/2.  ``torch.maximum``
+    passes half the gradient at a tie, as ``jnp.clip`` does (``clamp``
+    would pass all of it)."""
     if add_loop:
         adj = _with_loop(adj, loop)
-    return adj.sum(dim=-1).clamp(min=1.0).pow(-0.5)
+    return torch.maximum(adj.sum(dim=-1), adj.new_ones(())).pow(-0.5)
 
 
 def gcn_norm(adj: torch.Tensor, add_loop: bool = True,
@@ -71,11 +84,19 @@ def gcn_aggregate_plain(x, adj, weight, bias=None, loop: float = 1.0,
     return out if bias is None else out + bias
 
 
+# raised where a kernel's input needs a gradient that no backward kernel gives
+NO_BACKWARD = ("the kernel has no backward yet (gcn_aggregate and gmh_attention have "
+               "backward kernels; channel_agg, gmh_scores and gcn_degrees do not, so "
+               "model.fused cannot train)")
+
+
 def check_cuda_f32(name: str, dense_rows: bool = False,
                    **tensors: Optional[torch.Tensor]) -> None:
     """The checks every kernel wrapper makes before a launch.  With
     ``dense_rows`` a tensor need only have a unit stride in its last
-    dimension (the kernel takes the other strides)."""
+    dimension (the kernel takes the other strides).  A tensor that needs a
+    gradient raises: the wrappers with a backward kernel launch their
+    forward where autograd does not record."""
     dev = None
     for arg, t in tensors.items():
         if t is None:
@@ -91,7 +112,7 @@ def check_cuda_f32(name: str, dense_rows: bool = False,
             raise ValueError(f"{name}: {arg} is not "
                              + ("dense in its last dimension" if dense_rows else "contiguous"))
         if torch.is_grad_enabled() and t.requires_grad:
-            raise NotImplementedError(f"{name}: the kernel has no backward yet")
+            raise NotImplementedError(f"{name}: {arg} needs a gradient: {NO_BACKWARD}")
 
 
 def check_strided_f32(name: str, arg: str, t: torch.Tensor, device: torch.device) -> None:
@@ -100,7 +121,7 @@ def check_strided_f32(name: str, arg: str, t: torch.Tensor, device: torch.device
         raise ValueError(f"{name}: {arg} is {t.dtype} on {t.device}, "
                          f"expected float32 on {device}")
     if torch.is_grad_enabled() and t.requires_grad:
-        raise NotImplementedError(f"{name}: the kernel has no backward yet")
+        raise NotImplementedError(f"{name}: {arg} needs a gradient: {NO_BACKWARD}")
 
 
 def check_smem(name: str, nbytes: int, **dims: int) -> None:
@@ -137,13 +158,7 @@ def gcn_aggregate_smem(N: int, Fi: int, Fo: int) -> int:
     return nbytes
 
 
-def gcn_aggregate(x: torch.Tensor, adj: torch.Tensor, weight: torch.Tensor,
-                  bias: Optional[torch.Tensor] = None, loop: float = 1.0,
-                  add_loop: bool = True) -> torch.Tensor:
-    """GCN aggregation: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
-    if x.device.type == "cpu":
-        return gcn_aggregate_plain(x, adj, weight, bias, loop, add_loop)
+def _launch_gcn_aggregate(x, adj, weight, bias, loop, add_loop):
     check_cuda_f32("gcn_aggregate", x=x, adj=adj, weight=weight, bias=bias)
     B, N, Fi = x.shape
     Fo = weight.shape[1]
@@ -167,3 +182,115 @@ def gcn_aggregate(x: torch.Tensor, adj: torch.Tensor, weight: torch.Tensor,
     check_status("gcn_aggregate", status)
     LAUNCHES["gcn_aggregate"] += 1
     return out
+
+
+class _GCNAggregate(torch.autograd.Function):
+    """The forward kernel, with ``gcn_aggregate_bwd`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, adj, weight, bias, loop, add_loop):
+        ctx.save_for_backward(x, adj, weight)
+        ctx.loop, ctx.add_loop, ctx.has_bias = loop, add_loop, bias is not None
+        return _launch_gcn_aggregate(x, adj, weight, bias, loop, add_loop)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, adj, weight = ctx.saved_tensors
+        need_x, need_adj = ctx.needs_input_grad[:2]
+        dx, dadj, dw, db = gcn_aggregate_bwd(x, adj, weight, g.contiguous(), ctx.loop,
+                                             ctx.add_loop, need_x, need_adj)
+        return dx, dadj, dw, db if ctx.has_bias else None, None, None
+
+
+def gcn_aggregate(x: torch.Tensor, adj: torch.Tensor, weight: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, loop: float = 1.0,
+                  add_loop: bool = True) -> torch.Tensor:
+    """GCN aggregation: the CUDA kernel for CUDA tensors (its backward a
+    kernel too), the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return gcn_aggregate_plain(x, adj, weight, bias, loop, add_loop)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, adj, weight, bias)):
+        return _GCNAggregate.apply(x, adj, weight, bias, loop, add_loop)
+    return _launch_gcn_aggregate(x, adj, weight, bias, loop, add_loop)
+
+
+# ------------------------------------------------------------------ backward
+
+
+def degree_slope(r: torch.Tensor) -> torch.Tensor:
+    """d(max(r, 1)^-1/2)/dr with ``jnp.clip``'s rule at the tie: -r^-3/2 / 2
+    above 1, -1/4 at 1, 0 below."""
+    return torch.where(r > 1, -0.5 * r.clamp(min=1.0).pow(-1.5),
+                       torch.where(r == 1, -0.25, 0.0).to(r.dtype))
+
+
+def adj_grad_plain(gN: torch.Tensor, adj: torch.Tensor, add_loop: bool = True,
+                   loop: float = 1.0) -> torch.Tensor:
+    """dL/dadj from gN = dL/dnorm, norm = gcn_norm(adj), (..., N, N), by
+    hand: the direct term gN d_n d_m, and each row's degree term
+    slope_n sum_m (gN A' + (gN A')^T)[n, m] d_m; an assigned diagonal gets
+    nothing."""
+    a = _with_loop(adj, loop) if add_loop else adj
+    r = a.sum(dim=-1)
+    d = torch.maximum(r, r.new_ones(())).pow(-0.5)
+    ga = gN * a
+    dr = degree_slope(r) * ((ga + ga.transpose(-1, -2)) @ d[..., None])[..., 0]
+    out = gN * d[..., :, None] * d[..., None, :] + dr[..., :, None]
+    if add_loop:
+        out = out * (1.0 - torch.eye(a.shape[-1], dtype=a.dtype, device=a.device))
+    return out
+
+
+def gcn_aggregate_bwd_plain(x, adj, weight, g, loop: float = 1.0, add_loop: bool = True,
+                            need_x: bool = True, need_adj: bool = True):
+    """The gradients of ``gcn_aggregate_plain`` given g = dL/dout (B, N,
+    F_out), by hand: (dx or None, dadj or None, dweight, dbias)."""
+    norm = gcn_norm(adj, add_loop, loop)
+    dY = norm.transpose(-1, -2) @ g
+    dx = dY @ weight.T if need_x else None
+    dadj = adj_grad_plain(g @ (x @ weight).transpose(-1, -2), adj, add_loop,
+                          loop) if need_adj else None
+    return dx, dadj, torch.einsum("bnf,bno->fo", x, dY), g.sum(dim=(0, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def gcn_aggregate_bwd_smem(N: int, Fi: int, Fo: int) -> int:
+    """Shared bytes of a block of csrc/gcn_aggregate_bwd.cu, one graph;
+    raises a ``ValueError`` naming N where one block cannot hold it."""
+    if N > WHOLE_GRAPH_N:
+        raise ValueError(f"gcn_aggregate_bwd: N={N} exceeds the one-block graph of the "
+                         f"backward kernel (N <= {WHOLE_GRAPH_N})")
+    nbytes = kernel_fn("gcn_aggregate_bwd", "gcn_aggregate_bwd_smem")(N, Fi, Fo)
+    check_smem("gcn_aggregate_bwd", nbytes, N=N, F_in=Fi, F_out=Fo)
+    return nbytes
+
+
+def gcn_aggregate_bwd(x, adj, weight, g, loop: float = 1.0, add_loop: bool = True,
+                      need_x: bool = True, need_adj: bool = True):
+    """Backward of ``gcn_aggregate``: the CUDA kernel for CUDA tensors, the
+    plain backward for CPU tensors -> (dx or None, dadj or None, dweight,
+    dbias)."""
+    if x.device.type == "cpu":
+        return gcn_aggregate_bwd_plain(x, adj, weight, g, loop, add_loop, need_x, need_adj)
+    check_cuda_f32("gcn_aggregate_bwd", x=x, adj=adj, weight=weight, g=g)
+    B, N, Fi = x.shape
+    Fo = weight.shape[1]
+    if adj.shape != (B, N, N) or weight.shape != (Fi, Fo) or g.shape != (B, N, Fo):
+        raise ValueError(
+            f"gcn_aggregate_bwd: shapes x {tuple(x.shape)}, adj {tuple(adj.shape)}, "
+            f"weight {tuple(weight.shape)}, g {tuple(g.shape)} do not agree")
+    gcn_aggregate_bwd_smem(N, Fi, Fo)
+    new = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
+    dx = new((B, N, Fi)) if need_x else None
+    dadj = new((B, N, N)) if need_adj else None
+    part, out_w = new((B, Fi * Fo + Fo)), new(Fi * Fo + Fo)
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = kernel_fn("gcn_aggregate_bwd")(
+        x.data_ptr(), adj.data_ptr(), weight.data_ptr(), g.data_ptr(), ptr(dx), ptr(dadj),
+        part.data_ptr(), out_w.data_ptr(), B, N, Fi, Fo, int(add_loop), float(loop), stream)
+    check_status("gcn_aggregate_bwd", status)
+    LAUNCHES["gcn_aggregate_bwd"] += 1
+    return dx, dadj, out_w[:Fi * Fo].view(Fi, Fo), out_w[Fi * Fo:]

@@ -20,6 +20,14 @@ and the maps channels-last as (B, N, N, C).
 With ``add_loop=False`` the diagonal is kept as given, following
 ``gcn_norm`` (ccsd_tpu/models/gcn.py:31-33); the Pallas body writes 0 there
 instead, which no model path reaches.
+
+On a CUDA tensor that needs a gradient the wrapper runs the forward kernel
+inside a ``torch.autograd.Function`` whose backward is the kernel
+``csrc/gmh_attention_bwd.cu`` (a block per (graph, channel), N <= 64): the
+gradients of x, the adjacency (written in the adjacency's own layout, so a
+later layer's channels-last adjacency gets a channels-last gradient) and
+the six weights and biases.  ``gmh_attention_bwd_plain`` writes the same
+gradients out by hand.
 """
 
 from __future__ import annotations
@@ -32,7 +40,13 @@ import torch
 
 from ccsd_tpu_torch.kernels import LAUNCHES
 from ccsd_tpu_torch.kernels.build import check_status, kernel_fn
-from ccsd_tpu_torch.kernels.gcn import check_cuda_f32, check_smem, check_strided_f32, gcn_norm
+from ccsd_tpu_torch.kernels.gcn import (
+    adj_grad_plain,
+    check_cuda_f32,
+    check_smem,
+    check_strided_f32,
+    gcn_norm,
+)
 
 # one block of the attention kernels holds a whole graph's channel
 # (gmh_attention) or a graph's Q, K and N x N head sums (gmh_scores)
@@ -94,16 +108,9 @@ def attention_smem(N: int, Fi: int, A: int, O: int, H: int) -> int:
                      lambda: kernel_fn("gmh_attention", "gmh_attention_smem")(N, Fi, A, O, H))
 
 
-def gmh_attention(x: torch.Tensor, adj: torch.Tensor, wq, bq, wk, bk, wv, bv,
-                  num_heads: int, out_dim: int, loop: float = 1.0,
-                  add_loop: bool = True):
-    """GMH attention of all channels: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
-    if x.device.type == "cpu":
-        return gmh_attention_plain(x, adj, wq, bq, wk, bk, wv, bv, num_heads,
-                                   out_dim, loop, add_loop)
-    check_cuda_f32("gmh_attention", x=x, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv)
-    check_strided_f32("gmh_attention", "adj", adj, x.device)
+def _check_shapes(name, x, adj, wq, bq, wk, bk, wv, bv, num_heads):
+    """(B, C, N, F_in, attn, F_out, heads, head_dim), after checking every
+    shape against x's and the weights'."""
     B, N, Fi = x.shape
     C, _, A = wq.shape
     O = wv.shape[-1]
@@ -113,19 +120,159 @@ def gmh_attention(x: torch.Tensor, adj: torch.Tensor, wq, bq, wk, bk, wv, bv,
     got = {"adj": adj, "wq": wq, "wk": wk, "wv": wv, "bq": bq, "bk": bk, "bv": bv}
     for k, shape in want.items():
         if got[k] is not None and tuple(got[k].shape) != shape:
-            raise ValueError(f"gmh_attention: {k} has shape "
+            raise ValueError(f"{name}: {k} has shape "
                              f"{tuple(got[k].shape)}, expected {shape}")
+    return B, C, N, Fi, A, O, H, ds
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def _launch_gmh_attention(x, adj, wq, bq, wk, bk, wv, bv, num_heads, out_dim, loop,
+                          add_loop):
+    check_cuda_f32("gmh_attention", x=x, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv)
+    check_strided_f32("gmh_attention", "adj", adj, x.device)
+    B, C, N, Fi, A, O, H, ds = _check_shapes("gmh_attention", x, adj, wq, bq, wk, bk, wv,
+                                             bv, num_heads)
     attention_smem(N, Fi, A, O, H)
     v_out = torch.empty((B, N, C * O), dtype=torch.float32, device=x.device)
     a_out = torch.empty((B, N, N, C), dtype=torch.float32, device=x.device)
-    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = kernel_fn("gmh_attention")(
-        x.data_ptr(), adj.data_ptr(), wq.data_ptr(), ptr(bq), wk.data_ptr(),
-        ptr(bk), wv.data_ptr(), ptr(bv), v_out.data_ptr(), a_out.data_ptr(),
+        x.data_ptr(), adj.data_ptr(), wq.data_ptr(), _ptr(bq), wk.data_ptr(),
+        _ptr(bk), wv.data_ptr(), _ptr(bv), v_out.data_ptr(), a_out.data_ptr(),
         B, C, N, Fi, A, O, H, ds, *adj.stride(), math.sqrt(out_dim),
         int(add_loop), float(loop), stream,
     )
     check_status("gmh_attention", status)
     LAUNCHES["gmh_attention"] += 1
     return v_out, a_out
+
+
+class _GMHAttention(torch.autograd.Function):
+    """The forward kernel, with ``gmh_attention_bwd`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, adj, wq, bq, wk, bk, wv, bv, num_heads, out_dim, loop, add_loop):
+        ctx.save_for_backward(x, adj, wq, bq, wk, bk, wv, bv)
+        ctx.args = (num_heads, out_dim, loop, add_loop)
+        return _launch_gmh_attention(x, adj, wq, bq, wk, bk, wv, bv, num_heads, out_dim,
+                                     loop, add_loop)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gv, ga):
+        saved = ctx.saved_tensors
+        need_x, need_adj = ctx.needs_input_grad[:2]
+        grads = gmh_attention_bwd(*saved, gv, ga, *ctx.args, need_x=need_x,
+                                  need_adj=need_adj)
+        return (*grads, None, None, None, None)
+
+
+def gmh_attention(x: torch.Tensor, adj: torch.Tensor, wq, bq, wk, bk, wv, bv,
+                  num_heads: int, out_dim: int, loop: float = 1.0,
+                  add_loop: bool = True):
+    """GMH attention of all channels: the CUDA kernel for CUDA tensors (its
+    backward a kernel too), the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return gmh_attention_plain(x, adj, wq, bq, wk, bk, wv, bv, num_heads,
+                                   out_dim, loop, add_loop)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, adj, wq, bq, wk, bk, wv, bv)):
+        return _GMHAttention.apply(x, adj, wq, bq, wk, bk, wv, bv, num_heads, out_dim,
+                                   loop, add_loop)
+    return _launch_gmh_attention(x, adj, wq, bq, wk, bk, wv, bv, num_heads, out_dim, loop,
+                                 add_loop)
+
+
+# ------------------------------------------------------------------ backward
+
+
+def gmh_attention_bwd_plain(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, num_heads: int,
+                            out_dim: int, loop: float = 1.0, add_loop: bool = True,
+                            need_x: bool = True, need_adj: bool = True):
+    """The gradients of ``gmh_attention_plain`` given gv = dL/dV (B, N,
+    C * F_out) and ga = dL/dA (B, N, N, C), by hand: (dx or None, dadj or
+    None, dwq, dbq, dwk, dbk, dwv, dbv), a bias's gradient None where the
+    bias is."""
+    B, N, Fi = x.shape
+    C, _, A = wq.shape
+    O = wv.shape[-1]
+    H, ds = head_split(A, num_heads)
+    norm = gcn_norm(adj, add_loop, loop)  # (B, C, N, N)
+    nx = norm @ x[:, None]  # (B, C, N, F_in)
+
+    def proj(w, b):
+        out = nx @ w[None]
+        return out if b is None else out + b[None, :, None, :]
+
+    Qh = proj(wq, bq).reshape(B, C, N, H, ds)
+    Kh = proj(wk, bk).reshape(B, C, N, H, ds)
+    s = 1.0 / math.sqrt(out_dim)
+    t = torch.tanh(torch.einsum("bcnhd,bcmhd->bchnm", Qh, Kh) * s)
+    gA = ga.permute(0, 3, 1, 2)
+    gS = ((gA + gA.transpose(-1, -2)) / 2)[:, :, None] * (1 - t * t) * (s / H)
+    gQ = torch.einsum("bchnm,bcmhd->bcnhd", gS, Kh).reshape(B, C, N, A)
+    gK = torch.einsum("bchnm,bcnhd->bcmhd", gS, Qh).reshape(B, C, N, A)
+    gV = gv.reshape(B, N, C, O).permute(0, 2, 1, 3)
+    grads = []
+    for gp, w, b in ((gQ, wq, bq), (gK, wk, bk), (gV, wv, bv)):
+        grads += [torch.einsum("bcnf,bcnp->cfp", nx, gp),
+                  None if b is None else gp.sum(dim=(0, 2))]
+    gnx = gQ @ wq.transpose(1, 2) + gK @ wk.transpose(1, 2) + gV @ wv.transpose(1, 2)
+    dx = (norm.transpose(-1, -2) @ gnx).sum(dim=1) if need_x else None
+    dadj = adj_grad_plain(gnx @ x[:, None].transpose(-1, -2), adj, add_loop,
+                          loop) if need_adj else None
+    return (dx, dadj, *grads)
+
+
+@functools.lru_cache(maxsize=None)
+def attention_bwd_smem(N: int, Fi: int, A: int, O: int, H: int) -> int:
+    """Shared bytes of one block of csrc/gmh_attention_bwd.cu, one (graph,
+    channel); raises as :func:`fit_graph`."""
+    return fit_graph("gmh_attention_bwd", N,
+                     lambda: kernel_fn("gmh_attention_bwd", "gmh_attention_bwd_smem")(
+                         N, Fi, A, O, H))
+
+
+def gmh_attention_bwd(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, num_heads: int,
+                      out_dim: int, loop: float = 1.0, add_loop: bool = True,
+                      need_x: bool = True, need_adj: bool = True):
+    """Backward of ``gmh_attention``: the CUDA kernel for CUDA tensors, the
+    plain backward for CPU tensors; returns as
+    :func:`gmh_attention_bwd_plain`.  adj and ga are read through their
+    strides; dadj comes in adj's layout."""
+    if x.device.type == "cpu":
+        return gmh_attention_bwd_plain(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, num_heads,
+                                       out_dim, loop, add_loop, need_x, need_adj)
+    gv = gv.contiguous()
+    check_cuda_f32("gmh_attention_bwd", x=x, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv,
+                   gv=gv)
+    for arg, t in (("adj", adj), ("ga", ga)):
+        check_strided_f32("gmh_attention_bwd", arg, t, x.device)
+    B, C, N, Fi, A, O, H, ds = _check_shapes("gmh_attention_bwd", x, adj, wq, bq, wk, bk,
+                                             wv, bv, num_heads)
+    if gv.shape != (B, N, C * O) or ga.shape != (B, N, N, C):
+        raise ValueError(f"gmh_attention_bwd: gv {tuple(gv.shape)}, ga {tuple(ga.shape)} "
+                         f"do not match the outputs ({B}, {N}, {C * O}), ({B}, {N}, {N}, {C})")
+    attention_bwd_smem(N, Fi, A, O, H)
+    new = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
+    sizes = [C * Fi * A, C * Fi * A, C * Fi * O, C * A, C * A, C * O]
+    out_w, part_w = new(sum(sizes)), new((B, sum(sizes)))
+    dx, part_x = (new((B, N, Fi)), new((B, C, N, Fi))) if need_x else (None, None)
+    dadj = torch.empty_like(adj) if need_adj else None  # adj's strides
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = kernel_fn("gmh_attention_bwd")(
+        x.data_ptr(), adj.data_ptr(), wq.data_ptr(), _ptr(bq), wk.data_ptr(), _ptr(bk),
+        wv.data_ptr(), _ptr(bv), gv.data_ptr(), ga.data_ptr(), _ptr(dx), _ptr(dadj),
+        _ptr(part_x), part_w.data_ptr(), out_w.data_ptr(), B, C, N, Fi, A, O, H, ds,
+        *adj.stride(), *ga.stride(), *(dadj.stride() if need_adj else (0,) * 4),
+        math.sqrt(out_dim), int(add_loop), float(loop), stream,
+    )
+    check_status("gmh_attention_bwd", status)
+    LAUNCHES["gmh_attention_bwd"] += 1
+    dwq, dwk, dwv, dbq, dbk, dbv = out_w.split(sizes)
+    return (dx, dadj, dwq.view(C, Fi, A), None if bq is None else dbq.view(C, A),
+            dwk.view(C, Fi, A), None if bk is None else dbk.view(C, A),
+            dwv.view(C, Fi, O), None if bv is None else dbv.view(C, O))

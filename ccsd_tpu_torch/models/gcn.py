@@ -35,8 +35,11 @@ class DenseGCNConv(nn.Module):
     def forward(self, x: torch.Tensor, adj: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
                 add_loop: bool = True) -> torch.Tensor:
-        """x: (B, N, F_in), adj: (B, N, N) -> (B, N, F_out)."""
-        out = gcn_aggregate(x, adj, self.weight, self.bias, self.loop, add_loop)
+        """x: (B, N, F_in), adj: (B, N, N) -> (B, N, F_out).  The kernel takes
+        contiguous tensors: a channel of a layer's (B, C, N, N) adjacency (the
+        MLP-conv attention's value conv) is copied, a contiguous one is not."""
+        out = gcn_aggregate(x.contiguous(), adj.contiguous(), self.weight, self.bias,
+                            self.loop, add_loop)
         if mask is not None:
             out = out * mask[..., :, None].to(x.dtype)
         return out

@@ -5,15 +5,18 @@ MMD evaluation.  As in the JAX package (:220-223), the models are built by
 ``with_fused(defs, sample.fused, fast=sample.fast)``, both on by default:
 ScoreNetworkA takes the channel-folded path with bf16 head scores and the
 ``blocksum`` final layer; ``sample.fused: false`` gives the unfused f32
-network, ``sample.fast: false`` the fused one in f32.  Weights come from a
-JAX ``.ckpt.pkl`` when the config names one (``ckpt``), else from the
-port's own seeded initialisation.  Each round samples ``batch_size`` graphs;
+network, ``sample.fast: false`` the fused one in f32.  Weights come from the
+checkpoint the config names (``ckpt``): the port's own ``.pth``
+(``training/trainer.py``) where one has that name, else a JAX
+``.ckpt.pkl``; without a name, from the port's own seeded initialisation.
+``sample.use_ema`` picks the EMA weights of either.  Each round samples ``batch_size`` graphs;
 ``sample`` runs ``ceil(num_samples / batch_size)`` rounds and returns numpy.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -30,7 +33,10 @@ from ccsd_tpu_torch.ops.masks import quantize
 from ccsd_tpu_torch.training.checkpoint import (
     ckpt_path,
     load_ckpt_file,
+    load_port_ckpt,
     params_from_ckpt,
+    port_ckpt_path,
+    state_dict_from_ckpt,
 )
 from ccsd_tpu_torch.utils.config import AttrDict
 from ccsd_tpu_torch.utils.from_jax import load_jax_params
@@ -42,8 +48,9 @@ class Sampler:
     """Graph sampler.
 
     ``config`` holds the ``sampler`` and ``sample`` sections, plus either
-    ``ckpt`` (a JAX checkpoint under ``<folder>/checkpoints/<data>/``) or
-    the training sections (``data``, ``sde``, ``model``) for a seeded init.
+    ``ckpt`` (a port or JAX checkpoint under ``<folder>/checkpoints/<data>/``)
+    or the training sections (``data``, ``sde``, ``model``) for a seeded
+    init.
     ``train_adjs`` (M, N, N) is the training set the node counts are drawn
     from.  The device defaults to CUDA and raises when there is none.
     """
@@ -65,15 +72,25 @@ class Sampler:
                               fast=bool(cfg.sample.get("fast", True)))
 
         if name:
-            path = ckpt_path(cfg.get("folder", "./"), str(cfg.data.data), str(name))
-            ckpt = load_ckpt_file(path)
-            configt = AttrDict(ckpt["model_config"])
+            folder, data = cfg.get("folder", "./"), str(cfg.data.data)
             use_ema = bool(cfg.sample.get("use_ema", False))
+            path = port_ckpt_path(folder, data, str(name))
+            port = os.path.exists(path)
+            if port:
+                ckpt = load_port_ckpt(path, map_location="cpu")
+            else:
+                path = ckpt_path(folder, data, str(name))
+                ckpt = load_ckpt_file(path)
+            configt = AttrDict(ckpt["model_config"])
             defs = defs_of({n: ckpt[f"params_{n}"] for n in NAMES})
             models = {}
             for n in NAMES:
                 m = load_model(defs[n])
-                models[n] = load_jax_params(m, params_from_ckpt(ckpt, n, use_ema))
+                if port:
+                    m.load_state_dict(state_dict_from_ckpt(ckpt, n, m, use_ema))
+                    models[n] = m
+                else:
+                    models[n] = load_jax_params(m, params_from_ckpt(ckpt, n, use_ema))
             source = f"{path} ({'ema' if use_ema else 'raw'} params)"
         else:
             configt = cfg

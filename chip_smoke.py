@@ -5,17 +5,18 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py                 # the phases below
     python3 chip_smoke.py --profile DIR   # also a torch.profiler breakdown
-                                          # of 20 sampler steps of each path,
-                                          # the default path's trace written
-                                          # to DIR/sampler_trace.json
+                                          # of 20 sampler steps of each path
+                                          # and of 20 training epochs, traces
+                                          # written to DIR/sampler_trace.json
+                                          # and DIR/train_trace.json
 
 Phases, each printing one line of its own results:
 
 1. device  -- require CUDA; print the card's name and power limit; switch
               TF32 off for matmuls and cuDNN so f32 means f32.
-2. build   -- nvcc the five kernels (ccsd_tpu_torch/csrc), in parallel.
-3. kernels -- each kernel against its plain PyTorch version on the card,
-              at every shape the community_small paths give it
+2. build   -- nvcc the seven kernels (ccsd_tpu_torch/csrc), in parallel.
+3. kernels -- each forward kernel against its plain PyTorch version on the
+              card, at every shape the community_small paths give it
               (``gmh_scores`` in f32 and in bf16, with a tolerance derived
               from one bf16 ulp of the head sums, printed;
               ``gmh_attention`` and ``channel_agg`` with a contiguous and a
@@ -40,7 +41,20 @@ Phases, each printing one line of its own results:
               unfused path); the launch counters of each run must equal the
               expected counts exactly, the graphs must be valid, and each
               run prints its steps/s.
-6. timing  -- CUDA-event times of each kernel and its plain version at the
+6. train   -- community_small training at full width through ``Trainer``:
+              each backward kernel (``gcn_aggregate_bwd``,
+              ``gmh_attention_bwd``) against its plain backward at the
+              train batch's shapes and layouts (every gradient, within
+              BWD_REL_TOL of its magnitude); the gradients of the full loss
+              on the card against a float64 CPU copy; 200 epochs from
+              seeded weights on 100 generated graphs (one train batch of
+              80 and one test batch of 20 an epoch) with finite, falling
+              losses, exact launch counts per epoch and the train steps/s;
+              the final checkpoint loaded by ``Sampler``, whose networks
+              must give the trainer's EMA networks' outputs exactly; and a
+              run resumed from the checkpoint the run wrote at epoch 100,
+              which must end equal to it.
+7. timing  -- CUDA-event times of each kernel and its plain version at the
               path's shapes and layouts (device time from a CUDA-graph
               replay, and the time of an eager host loop), beside the
               card's bound for the same work and, where one PyTorch call
@@ -49,12 +63,13 @@ Phases, each printing one line of its own results:
               adjacency contiguous, ``channel_agg`` also beside the
               ``gcn_norm`` + ``torch.matmul`` pair; grid's shapes of
               ``gcn_aggregate`` and ``channel_agg`` timed and kept out of
-              the means.
+              the means; the backward kernels at the train batch's shapes.
 
 Then one JSON line of per-kernel results (``ms``, ``plain_ms`` and
 ``bound_ms`` per launch, averaged over the path's layer shapes; each shape
 under ``shapes``; ``launches`` from the run of the path the kernel is on:
-the sampler's, or for ``gcn_degrees`` grid's ScoreNetworkX),
+the sampler's, for ``gcn_degrees`` grid's ScoreNetworkX, for the backward
+kernels the 200-epoch training run),
 the ``nvidia-smi`` name and power limit, and the result line.  Any failed
 phase exits non-zero without the result line.  Imports only torch, numpy
 and ccsd_tpu_torch.
@@ -99,6 +114,20 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TIMING_ITERS = 200
 SEEDED_ADJ_HEAD_SCALE = 0.01  # see smoke_sampler
+# backward kernels against their plain backwards on the card: f32 on both
+# sides, only the summation order differs; a gradient's entries cancel in
+# its sums, so the bound scales with its largest entry (grad_compare)
+BWD_REL_TOL = 1e-5
+# the full loss's gradients, card (f32, the kernels forward and backward)
+# against a float64 CPU copy.  Seeded full-width networks amplify f32
+# rounding through five AttentionLayers and back (on the CPU an f32 copy
+# lies up to ~1e-3 of a gradient's largest entry from float64), so the
+# bound is set in each run by the CPU's own f32 copy of the same step: the
+# card may lie GRAD_F32_FACTOR times as far from float64 as it, and never
+# need be closer than GRAD_REL_TOL
+GRAD_REL_TOL = 1e-4
+GRAD_F32_FACTOR = 4.0
+TRAIN_EPOCHS = 200  # full-width training run of the train phase
 
 
 class PhaseError(RuntimeError):
@@ -189,6 +218,52 @@ def scores_cost(B, C, N, A, H, O):
     flops = B * C * (2 * N * N * A         # Q_h K_h^T over all heads
                      + 3 * H * N * N       # scale, tanh, head sum
                      + 3 * N * N)          # mean, symmetrise
+    return nbytes, flops
+
+
+def gcn_bwd_cost(B, N, Fi, Fo, need_x, need_adj):
+    """(bytes, flops) of one gcn_aggregate_bwd launch: x, adj, the weight
+    and dL/dout read once; dx and dadj (where the call asks for them), dW
+    and dbias written once; the weights' batch sum counted as the
+    product's own adds.  Operations as gcn_cost counts the forward: the
+    degrees and their slopes, d applied, the recomputed Y = X W, dY =
+    norm^T G, dW = X^T dY, dbias; then dX = dY W^T, and for dA the product
+    G Y^T with each row's degree term (two products and two adds an entry)
+    and the direct term (two products and an add)."""
+    nbytes = 4 * (B * N * Fi * (1 + need_x) + B * N * N * (1 + need_adj) + 2 * Fi * Fo
+                  + B * N * Fo + Fo)
+    flops = B * (N * N + 3 * N              # degree sums, clamp and rsqrt, slope
+                 + 2 * N * Fo               # d_m and d_n applied
+                 + 2 * N * Fi * Fo          # Y = X W
+                 + 2 * N * N * Fo           # dY = norm^T G
+                 + 2 * N * Fi * Fo          # dW
+                 + N * Fo                   # dbias
+                 + need_x * 2 * N * Fi * Fo                    # dX
+                 + need_adj * (2 * N * N * Fo + 8 * N * N))    # gN = G Y^T, dA
+    return nbytes, flops
+
+
+def gmh_bwd_cost(B, C, N, Fi, A, O, H, need_x, need_adj):
+    """(bytes, flops) of one gmh_attention_bwd launch over C channels: x,
+    the adjacency, the six weights, dL/dV and dL/dA read once; dx and dadj
+    (where asked for) and the weights' gradients written once.  Operations:
+    the forward's degrees, norm X, Q and K and head scores recomputed (as
+    gmh_cost counts them, V not); gM and gS; gQ = gS K and gK = gS^T Q;
+    dW = NX^T gP with the biases; gNX = gP W^T; then dX = norm^T gNX, and
+    for dA gN = gNX X^T with the degree and direct terms."""
+    P = 2 * A + O
+    nbytes = 4 * (B * N * Fi * (1 + need_x) + B * C * N * N * (1 + need_adj)
+                  + 2 * C * (Fi * P + P) + B * N * C * O + B * N * N * C)
+    flops = B * C * (3 * N * N + N             # degree, rsqrt, d A' d^T
+                     + 2 * N * N * Fi           # NX = norm X
+                     + 2 * N * Fi * 2 * A + 2 * N * A  # Q, K and their biases
+                     + 2 * N * N * A + 2 * H * N * N   # head sums, scale and tanh
+                     + 2 * N * N + 4 * H * N * N       # gM; gS
+                     + 4 * N * N * A            # gQ, gK
+                     + 2 * N * Fi * P + N * P   # dW, db
+                     + 2 * N * P * Fi           # gNX
+                     + need_x * 2 * N * N * Fi  # dX
+                     + need_adj * (2 * N * N * Fi + 8 * N * N))  # gN, dA
     return nbytes, flops
 
 
@@ -760,6 +835,279 @@ def phase_sample(train_adjs):
     return {k: max(fast[k], unfused[k]) for k in fast}
 
 
+# ----------------------------------------------------------------- train --
+
+NAMES = ("x", "adj")
+
+
+def train_shapes(models, B):
+    """The backward kernels' cases of the training path at batch B, as the
+    networks give them, with what each call asks for: ScoreNetworkX's first
+    layer takes the noisy input (no dx) and no layer's adjacency needs a
+    gradient; ScoreNetworkA's first layer takes the noisy input and its
+    powers, the later ones the previous layer's x and (channels-last)
+    maps, both with gradients.
+
+    gcn_bwd: (name, B, N, F_in, F_out, loop, need_x, need_adj); gmh_bwd:
+    (name, B, C, N, F_in, attn, F_out, H, need_x, need_adj).
+    """
+    from ccsd_tpu_torch.kernels.gmh_attention import head_split
+
+    N = models["adj"].max_node_num
+    gcn = [(f"x.layers.{k}", B, N, l.in_channels, l.out_channels, l.loop, k > 0, False)
+           for k, l in enumerate(models["x"].layers)]
+    gmh = []
+    for k, layer in enumerate(models["adj"].layers):
+        a = layer.attn[0]
+        H = head_split(a.attn_dim, a.num_heads)[0]
+        gmh.append((f"adj.layers.{k}", B, len(layer.attn), N, a.in_dim, a.attn_dim,
+                    a.out_dim, H, k > 0, k > 0))
+    return {"gcn_bwd": gcn, "gmh_bwd": gmh}
+
+
+def padded(adj, gen):
+    """adj (B, ..., N, N) with each graph's nodes from 12 to N present and
+    the rest zeroed, as the training batches' absent nodes are (their rows
+    sum to exactly 1 after the loop: the tie of the degree clamp)."""
+    import torch
+
+    B, N = adj.shape[0], adj.shape[-1]
+    n = torch.randint(12, N + 1, (B,), generator=gen, device=adj.device)
+    f = (torch.arange(N, device=adj.device)[None] < n[:, None]).to(adj.dtype)
+    f = f.reshape(B, *([1] * (adj.dim() - 3)), N)
+    return adj * f[..., :, None] * f[..., None, :]
+
+
+def gcn_bwd_inputs(case, gen, dev):
+    import torch
+
+    _, B, N, Fi, Fo, loop, need_x, need_adj = case
+    x = torch.randn(B, N, Fi, generator=gen, device=dev)
+    adj = padded(sym(torch.randn(B, N, N, generator=gen, device=dev)), gen)
+    g = torch.randn(B, N, Fo, generator=gen, device=dev)
+    return (x, adj, glorot((Fi, Fo), gen, dev), g, loop, True, need_x, need_adj)
+
+
+def gmh_bwd_inputs(case, gen, dev):
+    """The adjacency in the layer's layout (gmh_path_inputs), dL/dA as the
+    strided slice the layer's concat of [maps | adjacency] hands back."""
+    import torch
+
+    _, B, C, N, Fi, A, O, H, need_x, need_adj = case
+    x, adj, *w, _, _ = gmh_path_inputs((case[0], B, C, N, Fi, A, O, H), gen, dev)
+    adj = padded(adj, gen)
+    if not first_layer(case):
+        adj = channels_last(adj)
+    gv = torch.randn(B, N, C * O, generator=gen, device=dev)
+    ga = torch.randn(B, N, N, 2 * C, generator=gen, device=dev)[..., :C]
+    return (x, adj, *w, gv, ga, H, O, 1.0, True, need_x, need_adj)
+
+
+def grad_compare(got, ref, rel):
+    """(max abs err, max err over rel's scale, within) of a gradient:
+    |got - ref| <= rel (|ref| + max |ref|), elementwise; the max |ref|
+    term scales the bound by the gradient's magnitude, where entries
+    cancel."""
+    diff = (got - ref).abs()
+    scale = ref.abs() + ref.abs().max()
+    worst = (diff / scale.clamp_min(1e-30)).max().item()
+    return diff.max().item(), worst, bool((diff <= rel * scale).all() and got.isfinite().all())
+
+
+def phase_train_kernels(shapes, dev):
+    """Each backward kernel against its plain backward on the card, at the
+    training path's shapes and layouts, every gradient the call gives."""
+    import torch
+    from ccsd_tpu_torch.kernels.gcn import gcn_aggregate_bwd, gcn_aggregate_bwd_plain
+    from ccsd_tpu_torch.kernels.gmh_attention import gmh_attention_bwd, gmh_attention_bwd_plain
+
+    names = {"gcn_aggregate_bwd": ("dx", "dadj", "dweight", "dbias"),
+             "gmh_attention_bwd": ("dx", "dadj", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv")}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    errs = {}
+    for kname, key, mk, kern, plain in (
+            ("gcn_aggregate_bwd", "gcn_bwd", gcn_bwd_inputs, gcn_aggregate_bwd,
+             gcn_aggregate_bwd_plain),
+            ("gmh_attention_bwd", "gmh_bwd", gmh_bwd_inputs, gmh_attention_bwd,
+             gmh_attention_bwd_plain)):
+        for case in shapes[key]:
+            args = mk(case, gen, dev)
+            got = kern(*args)
+            torch.cuda.synchronize()
+            ref = plain(*args)
+            for out, g, r in zip(names[kname], got, ref):
+                check((g is None) == (r is None), f"{kname} {case[0]}: {out} given by one side")
+                if g is None:
+                    continue
+                check(g.shape == r.shape, f"{kname} {case[0]}: {out} {g.shape} vs {r.shape}")
+                abs_err, worst, ok = grad_compare(g, r, BWD_REL_TOL)
+                say("train_kernels", kernel=kname, case=case[0], grad=out,
+                    shape="x".join(map(str, g.shape)), max_abs_err=f"{abs_err:.3e}",
+                    max_scaled_err=f"{worst:.3e}", rel_tol=BWD_REL_TOL, ok=ok)
+                check(ok, f"{kname} {case[0]}: {out} disagrees with the plain backward")
+                errs[kname] = max(errs.get(kname, 0.0), abs_err)
+    return errs
+
+
+def train_config(folder, name, epochs):
+    """community_small's training config, the run's outputs under folder."""
+    from ccsd_tpu_torch.utils.config import AttrDict, get_config
+
+    config = AttrDict(get_config("community_small", seed=0, folder=HERE).to_dict())
+    config.folder = folder
+    config.train.name, config.train.num_epochs = name, epochs
+    config.train.save_interval, config.train.print_interval = epochs, 50
+    return config
+
+
+def phase_train_grads(config, train_adjs, dev):
+    """The gradients of the full loss (both networks, seeded weights) on the
+    card against a float64 CPU copy, on the first train batch (B = 80) and
+    the same draws, within the bound an f32 CPU copy of the same step sets
+    (GRAD_F32_FACTOR); returns the launches of the card's step."""
+    import copy
+
+    import numpy as np
+    import torch
+    from ccsd_tpu_torch.data.loader import init_features, split
+    from ccsd_tpu_torch.diffusion.losses import get_sde_loss_fn
+    from ccsd_tpu_torch.diffusion.sde import load_sde
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.models.registry import load_model, load_model_params
+    from ccsd_tpu_torch.ops.masks import mask_adjs, mask_x, node_flags
+
+    g = torch.Generator().manual_seed(5)
+    models = {n: load_model(d, generator=g) for n, d in zip(NAMES, load_model_params(config))}
+    f64 = {n: copy.deepcopy(m).double() for n, m in models.items()}
+    f32 = {n: copy.deepcopy(m) for n, m in models.items()}
+    card = {n: m.to(dev) for n, m in models.items()}
+    adj = train_adjs[split(len(train_adjs), float(config.data.test_split))[0]]
+    x = torch.from_numpy(init_features(config.data.init, adj, int(config.data.max_feat_num)))
+    adj = torch.from_numpy(adj)
+    flags = node_flags(adj)
+    rng = np.random.default_rng(6)
+    eps = float(config.train.eps)
+    t = torch.from_numpy(rng.uniform(eps, 1.0, adj.shape[0]).astype(np.float32))
+    z_x = mask_x(torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)), flags)
+    z_adj = mask_adjs(sym(torch.from_numpy(rng.standard_normal(adj.shape).astype(np.float32))),
+                      flags)
+    batch = (x, adj, t, z_x, z_adj)
+    loss = get_sde_loss_fn(*[load_sde(config.sde[n]) for n in NAMES],
+                           reduce_mean=config.train.reduce_mean, eps=eps)
+    reset_launches()
+    on_card = loss.losses(card["x"], card["adj"], *(v.to(dev) for v in batch))
+    sum(on_card).backward()
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    ref = loss.losses(f64["x"], f64["adj"], *(v.double() for v in batch))
+    sum(ref).backward()
+    sum(loss.losses(f32["x"], f32["adj"], *batch)).backward()
+    for n, c, r in zip(NAMES, on_card, ref):
+        say("train_grads", loss=n, card=f"{c.item():.6e}", cpu_float64=f"{r.item():.6e}")
+    def grad(p):  # a parameter outside the loss (the last layer's node head) has none
+        # on the plain path and a zero one from a backward kernel: zero, as under jax.grad
+        return (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu().double()
+
+    for n in NAMES:
+        params = [(name, grad(p), grad(q), grad(r)) for (name, p), q, r in
+                  zip(card[n].named_parameters(), f32[n].parameters(), f64[n].parameters())]
+        cpu32 = max(grad_compare(q, r, 0.0)[1] for _, _, q, r in params)
+        rel = max(GRAD_REL_TOL, GRAD_F32_FACTOR * cpu32)
+        worst = (0.0, 0.0, "")
+        for name, p, _, r in params:
+            abs_err, scaled, ok = grad_compare(p, r, rel)
+            check(ok, f"{n}.{name}: gradient on the card disagrees with the CPU copy "
+                      f"(max abs err {abs_err:.3e}, scaled {scaled:.3e}, bound {rel:.3e})")
+            worst = max(worst, (scaled, abs_err, name))
+        c, r = on_card[NAMES.index(n)].item(), ref[NAMES.index(n)].item()
+        check(abs(c - r) <= rel * abs(r), f"loss_{n} on the card disagrees with the CPU copy")
+        say("train_grads", network=n, params=len(params), worst_param=worst[2],
+            max_scaled_err=f"{worst[0]:.3e}", max_abs_err=f"{worst[1]:.3e}",
+            cpu_f32_max_scaled_err=f"{cpu32:.3e}", bound=f"{rel:.3e}",
+            launches=json.dumps(launched))
+    return launched
+
+
+def phase_train(config, train_adjs, dev):
+    """The full-width training run and its checks; returns the launch counts
+    of the 200-epoch run."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.sampling.sampler import Sampler
+    from ccsd_tpu_torch.training.trainer import Trainer
+
+    folder = os.path.join(HERE, "build", "smoke_train")
+    shutil.rmtree(folder, ignore_errors=True)
+    depth, L = int(config.model.depth), int(config.model.num_layers)
+    # an epoch: one train step (forward and backward) and one test loss
+    per_epoch = {"gcn_aggregate": 2 * depth, "gmh_attention": 2 * L,
+                 "gcn_aggregate_bwd": depth, "gmh_attention_bwd": L}
+
+    trainer = Trainer(train_config(folder, "smoke", TRAIN_EPOCHS), adjs=train_adjs)
+    check(trainer.device.type == "cuda", f"the trainer runs on {trainer.device}")
+    check([len(trainer.train_loader), len(trainer.test_loader)] == [1, 1],
+          "an epoch of community_small is not one train and one test batch")
+    # the run in two calls of train(): the first ends at the resume check's
+    # mid-run epoch with a checkpoint, kept aside; the state goes on in memory
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.config.train.num_epochs = TRAIN_EPOCHS // 2
+    name = trainer.train()
+    mid = trainer.checkpoint_path(f"{name}_mid")
+    shutil.copyfile(trainer.checkpoint_path(f"{name}_final"), mid)
+    trainer.config.train.num_epochs = TRAIN_EPOCHS
+    trainer.train()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    expect = {k: TRAIN_EPOCHS * per_epoch.get(k, 0) for k in LAUNCHES}
+    check(launches == expect, f"train: launches {launches}, expected exactly {expect}")
+    hist = np.asarray(trainer.history["train"])
+    test = np.asarray(trainer.history["test"])
+    first, end = hist[0], hist[-10:].mean(axis=0)
+    say("train", epochs=trainer.epoch, steps=trainer.step, seconds=f"{seconds:.3f}",
+        loss_x=f"{first[0]:.4f}->{hist[-1][0]:.4f}", loss_adj=f"{first[1]:.4f}->{hist[-1][1]:.4f}",
+        test_loss_x=f"{test[0][0]:.4f}->{test[-1][0]:.4f}",
+        test_loss_adj=f"{test[0][1]:.4f}->{test[-1][1]:.4f}",
+        launches_per_epoch=json.dumps({k: v // TRAIN_EPOCHS for k, v in launches.items() if v}))
+    say("train_steps_per_s", steps_per_s=f"{trainer.step / seconds:.2f}",
+        note="train steps over the wall time of the epoch loops, each epoch one step and "
+             "one test loss")
+    check(np.isfinite(hist).all() and np.isfinite(test).all(), "non-finite training losses")
+    check(bool((end < first).all()), f"losses did not fall: epoch 1 {first}, last ten {end}")
+
+    # the checkpoint through the Sampler: its networks are the trainer's EMA ones
+    cfg = train_config(folder, "smoke", TRAIN_EPOCHS)
+    cfg.ckpt, cfg.sample.use_ema, cfg.sample.fused = f"{name}_final", True, False
+    _, models, source = Sampler(cfg, train_adjs).load_models()
+    x, adj = (torch.from_numpy(a).to(trainer.device)
+              for a in next(iter(trainer.test_loader)))
+    flags = (adj.abs().sum(-1) > 1e-5).float()
+    with torch.no_grad():
+        for n in NAMES:
+            trainer.emas[n].copy_to(trainer.eval_models[n])
+            same = torch.equal(models[n](x, adj, flags), trainer.eval_models[n](x, adj, flags))
+            check(same, f"the Sampler's {n} network differs from the trainer's EMA network")
+    say("train_ckpt", sampler_weights=repr(source), sampler_equals_trainer_ema=True)
+
+    # resume: a new trainer from the mid-run checkpoint, to the end
+    resumed = Trainer(train_config(folder, "smoke_resumed", TRAIN_EPOCHS), adjs=train_adjs)
+    resumed.load_checkpoint(f"{name}_mid")
+    resumed.train()
+    for n in NAMES:
+        for (k, a), b in zip(trainer.models[n].state_dict().items(),
+                             resumed.models[n].state_dict().values()):
+            check(torch.equal(a, b), f"resumed {n}.{k} differs from the uninterrupted run")
+        for a, b in zip(trainer.emas[n].shadow_params, resumed.emas[n].shadow_params):
+            check(torch.equal(a, b), f"resumed EMA of {n} differs from the uninterrupted run")
+    check(resumed.history == trainer.history, "resumed losses differ from the uninterrupted run")
+    say("train_resume", resumed_from_epoch=TRAIN_EPOCHS // 2, to=resumed.epoch,
+        equals_uninterrupted=True)
+    return launches
+
+
 def timing_specs():
     """(kernel, source, the TPU kernels it replaces, shape key, inputs,
     {variant: (kernel fn, plain fn[, a change of the inputs])} with the
@@ -772,12 +1120,19 @@ def timing_specs():
     from ccsd_tpu_torch.kernels.channel_agg import channel_agg, channel_agg_plain
     from ccsd_tpu_torch.kernels.gcn import (
         gcn_aggregate,
+        gcn_aggregate_bwd,
+        gcn_aggregate_bwd_plain,
         gcn_aggregate_plain,
         gcn_degrees,
         gcn_degrees_plain,
         gcn_norm,
     )
-    from ccsd_tpu_torch.kernels.gmh_attention import gmh_attention, gmh_attention_plain
+    from ccsd_tpu_torch.kernels.gmh_attention import (
+        gmh_attention,
+        gmh_attention_bwd,
+        gmh_attention_bwd_plain,
+        gmh_attention_plain,
+    )
     from ccsd_tpu_torch.kernels.gmh_scores import gmh_scores, gmh_scores_plain
 
     def matmul_of_norm(adj, x):  # the product alone, norm formed before
@@ -821,6 +1176,16 @@ def timing_specs():
                    functools.partial(gmh_scores_plain, bf16=True)),
           "f32": (gmh_scores, gmh_scores_plain)}, None, {},
          lambda c: scores_cost(*c[1:])),
+        ("gcn_aggregate_bwd", "ccsd_tpu_torch/csrc/gcn_aggregate_bwd.cu",
+         "ccsd_tpu/ops/pallas/gcn.py:45 (the gradient of gcn_aggregate_pallas; the JAX "
+         "package differentiates the plain layer)", "gcn_bwd", gcn_bwd_inputs,
+         {"f32": (gcn_aggregate_bwd, gcn_aggregate_bwd_plain)}, None, {},
+         lambda c: gcn_bwd_cost(*c[1:5], *c[6:8])),
+        ("gmh_attention_bwd", "ccsd_tpu_torch/csrc/gmh_attention_bwd.cu",
+         "ccsd_tpu/ops/pallas/gmh_attention.py:62 (the gradient of gmh_attention_pallas; "
+         "the JAX package differentiates the plain layer)", "gmh_bwd", gmh_bwd_inputs,
+         {"f32": (gmh_attention_bwd, gmh_attention_bwd_plain)}, None, {},
+         lambda c: gmh_bwd_cost(*c[1:])),
     ]
 
 
@@ -869,47 +1234,75 @@ def phase_timing(shapes, dev, launches, errs):
     return rows
 
 
+def profile_summary(prof, wall, path, steps):
+    """Device time by kernel, the device's busy share of the wall time and
+    the largest host items of one profiled run, on one line."""
+    import torch
+
+    events = prof.key_averages()
+    # a user-annotated range (``Optimizer.step#Adam.step``) spans its kernels on
+    # the device timeline: counted, it would count their time twice
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    dev_us = {e.key: getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0)) for e in device}
+    total = sum(dev_us.values())
+    check(total > 0, "the profiler saw no device time")
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
+    host = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA),
+                  key=lambda e: -e.self_cpu_time_total)[:12]
+    say("profile", path=path, steps=steps,
+        wall_s=f"{wall:.4f}", device_busy_s=f"{total / 1e6:.4f}",
+        busy_share=f"{total / 1e6 / wall:.4f}",
+        device_kernels_per_step=f"{sum(e.count for e in device) / steps:.1f}",
+        top_device_us=json.dumps([(k[:60], round(v, 1)) for k, v in top]),
+        top_host_self_us=json.dumps([(e.key[:40], e.count,
+                                      round(e.self_cpu_time_total, 1)) for e in host]))
+
+
 def phase_profile(train_adjs, out_dir):
-    """torch.profiler over a 20-step sampler run of each path: device time
-    by kernel and the device's busy share of the wall time.  The default
-    path's trace goes to DIR/sampler_trace.json."""
+    """torch.profiler over a 20-step sampler run of each path and 20
+    training epochs (a step and a test loss each, after 5 epochs of
+    warm-up): device time by kernel and the device's busy share of the wall
+    time.  The default sampler path's trace goes to
+    DIR/sampler_trace.json, the training's to DIR/train_trace.json."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from ccsd_tpu_torch.training.trainer import Trainer
 
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    os.makedirs(out_dir, exist_ok=True)
     steps = 20
     for fused in (True, False):
         sampler = smoke_sampler(sample_config(steps=steps, fused=fused), train_adjs)
         sampler.sample(128)  # warm-up
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             sampler.sample(128)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         if fused:
-            os.makedirs(out_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(out_dir, "sampler_trace.json"))
-        events = prof.key_averages()
-        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_us = {e.key: getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0)) for e in device}
-        total = sum(dev_us.values())
-        check(total > 0, "the profiler saw no device time")
-        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
-        host = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA),
-                      key=lambda e: -e.self_cpu_time_total)[:12]
-        say("profile", path="default" if fused else "sample.fused: false", steps=steps,
-            wall_s=f"{wall:.4f}", device_busy_s=f"{total / 1e6:.4f}",
-            busy_share=f"{total / 1e6 / wall:.4f}",
-            device_kernels_per_step=f"{sum(e.count for e in device) / steps:.1f}",
-            top_device_us=json.dumps([(k[:60], round(v, 1)) for k, v in top]),
-            top_host_self_us=json.dumps([(e.key[:40], e.count,
-                                          round(e.self_cpu_time_total, 1)) for e in host]))
+        profile_summary(prof, wall, "default" if fused else "sample.fused: false", steps)
+
+    config = train_config(os.path.join(HERE, "build", "smoke_train"), "profile", 5)
+    trainer = Trainer(config, adjs=train_adjs, log=False)
+    trainer.train()  # warm-up
+    config.train.num_epochs = 5 + steps
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(os.path.join(out_dir, "train_trace.json"))
+    profile_summary(prof, wall, "train (an epoch: one step and one test loss)", steps)
 
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also profile 20 sampler steps of each path; trace into DIR")
+                    help="also profile 20 sampler steps of each path and 20 training "
+                         "epochs; traces into DIR")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     phase = "import"
@@ -960,6 +1353,17 @@ def main(argv) -> int:
         launches = phase_sample(train_adjs)
         # the degree pass runs only on graphs cut into row tiles (N > 64)
         launches["gcn_degrees"] = grid_launches["gcn_degrees"]
+        phase = "train_kernels"
+        # the train batch: all graphs but the first int(test_split M)
+        n_train = len(train_adjs) - int(float(config.data.test_split) * len(train_adjs))
+        shapes.update(train_shapes({"x": x_net, "adj": adj_net}, n_train))
+        errs.update(phase_train_kernels(shapes, dev))
+        phase = "train_grads"
+        phase_train_grads(config, train_adjs, dev)
+        phase = "train"
+        train_launches = phase_train(config, train_adjs, dev)
+        for k in ("gcn_aggregate_bwd", "gmh_attention_bwd"):  # on the training path only
+            launches[k] = train_launches[k]
         phase = "timing"
         rows = phase_timing(shapes, dev, launches, errs)
         if args.profile:
