@@ -9,13 +9,15 @@ Usage:
         [--train-adjs adjs.npy] [--out samples.npz]
 
 The dataset is ``--train-adjs`` (a (M, N, N) numpy array of padded
-adjacencies); without it, community_small generates 100 graphs by its
-recipe from the seed.  Training writes ``<folder>/checkpoints/<data>/
+adjacencies); without it, community_small generates the JAX package's 100
+graphs from the seed.  Training writes ``<folder>/checkpoints/<data>/
 <train.name>_<time>_final.pth`` (``--resume NAME`` continues the run saved
 as NAME) and prints one JSON line: epochs, the last epoch's train and test
 losses, train steps/s and the checkpoint.  Sampling takes the node counts
-from the dataset; the config's ``sample.fused`` and ``sample.fast`` (both
-on when absent) pick the network path, as in ``Sampler``, and ``ckpt`` the
+from the dataset's train split (all but the first ``int(test_split * M)``
+graphs, as training splits it and the JAX sampler draws); the config's
+``sample.fused`` and ``sample.fast`` (both on when absent) pick the
+network path, as in ``Sampler``, and ``ckpt`` the
 weights (a ``_final`` checkpoint of a port run, for one).
 """
 
@@ -46,6 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    from ccsd_tpu_torch.data.loader import split
     from ccsd_tpu_torch.sampling.sampler import Sampler
     from ccsd_tpu_torch.training.trainer import Trainer, dataset_adjs
     from ccsd_tpu_torch.utils.config import get_config
@@ -72,7 +75,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             "device": str(trainer.device),
         }))
         return 0
-    res = Sampler(config, adjs, device=args.device).sample(args.num_samples)
+    train = adjs[split(len(adjs), float(config.data.test_split))[0]]
+    res = Sampler(config, train, device=args.device).sample(args.num_samples)
     if args.out:
         np.savez(args.out, adj=res["adj"], x=res["x"], flags=res["flags"])
     print(json.dumps({

@@ -1,6 +1,8 @@
-// Backward of the degree-normalised GCN aggregation (gcn_aggregate.cu), one
-// block per graph, then a deterministic sum of the weight and bias partials
-// over the batch.
+// Backward of the degree-normalised GCN aggregation (gcn_aggregate.cu) in
+// one launch: each graph's rows split over a few blocks, the blocks in
+// clusters of eight, which sum their weight and bias gradients in
+// distributed shared memory; the last cluster to arrive takes the sum over
+// the clusters, in a fixed order (grad_common.cuh).
 //
 // Replaces: the gradient of gcn_aggregate_pallas (ccsd_tpu/ops/pallas/
 // gcn.py:45-85).  The Pallas kernel has no backward of its own: the JAX
@@ -13,146 +15,227 @@
 //              dY = norm^T G;   dX = dY W^T;   dW = sum_b X^T dY;
 //              dbias = sum_{b, n} G;   gN = G Y^T -> dA (grad_common.cuh)
 //
-// Nothing of the forward is saved: the block recomputes d, norm and Y from
-// X, A and W, which it stages anyway.
+// Nothing of the forward is saved: the block recomputes d and norm from A,
+// and Y = X W only where dA is asked for (no ScoreNetworkX layer asks).
 //
 // What bounds it on H100: at community_small's training shapes (B = 80,
 // N = 20, F <= 32) one call moves ~0.6 MB and does ~10 MFLOP, about 0.2 us
-// of either (bytes bound it), so the block's chain of short phases between
-// barriers bounds it in practice.  This first design is plain: one output
-// a thread in every product, operands read from shared memory (W and Y,
-// read down a column across a warp, at an odd stride: no bank conflicts),
-// the per-graph partials of dW and dbias written to device memory and
-// summed over the batch by a second, small launch (strided_sum), in graph
-// order.  dA is computed only when asked for (a null pointer skips it), as
-// is dX.  One graph a block, so N is at most 64 (the wrapper raises above).
+// of either (bytes bound it; chip_smoke.py, gcn_bwd_cost), so the chain of
+// short phases between barriers bounds it in practice.  The first design
+// (one block a graph, 80 blocks; one output a thread; Y recomputed on every
+// call; the weight partials summed by a second launch) took 10.0 us at
+// F_in 11 and 13.5 us at F_in 32 with dX; scripts/grad_stage_times.py found
+// 4.2-5.1 us of skeleton (loads, degrees, barriers, stores), 2.7-2.8 us in
+// the sum launch and 1-1.7 us for each product.  What this design does:
+//  * a graph's rows are split over cdiv(N, 16) blocks (two at N = 20: 160
+//    blocks at B = 80), each staging the graph by cp.async in two groups
+//    (A and G, then W and X) and computing the degrees for itself, then its
+//    rows' share of dY, dX, dW and dA;
+//  * d is applied once: the block forms its rows of norm^T (d_m A'[n, m]
+//    d_n), and dY = norm^T G, dX = dY W^T and dW = X^T dY are
+//    register-tiled (16-byte loads where the widths allow);
+//  * Y = X W and gN only where dA is asked for;
+//  * the weight and bias partials are summed in the cluster's distributed
+//    shared memory and over the clusters by the last to arrive: one
+//    launch, no float atomics, the same result on every run.
+// Measured on the same card in one call: 9.0-9.1 us at F_in 11 (the first
+// design 10.0) and 10.3-10.4 us at F_in 32 (13.5).  The sums over blocks
+// take 3.5-3.7 us of it (cluster barriers, the tickets and the last
+// cluster's tail over 20 cluster partials) and the skeleton 4.4-4.9 us;
+// the products 0.5-1.0 us each.
+// A block's rows of a graph hold N <= 64 (the wrapper raises above); the
+// blocks are padded to a multiple of the cluster size with blocks that
+// contribute zeros.
 
 #include "grad_common.cuh"
 
 namespace {
 
-// Shared layout (floats): A' N x N | X N x Fi | W Fi x ldw | G N x Fo |
-// Y N x ldw | dY N x Fo | gN N x N | d, slope, dr N each.  W (in dX = dY
-// W^T) and Y (in gN = G Y^T) are read down a column by a warp: their odd
-// row stride puts 32 rows in 32 banks.
+using namespace grad;
+
+constexpr int kMaxRows = 16;  // rows of a graph one block takes, at most
+
+__host__ __device__ constexpr int row_groups(int N) { return cdiv(N, kMaxRows); }
+
+// Shared layout (floats), each region 16-byte aligned: A' N x lda |
+// G N x ldo | W Fi x ldo | X N x ldx | norm^T rows R x ldt | dY R x ldo |
+// Y N x ldo and gN N x ldgn (where dA is asked for) | the block's partial
+// dW, db (T) | d, slope N each.  R = cdiv(N, row_groups(N)).
 struct Layout {
-  int ldw, x, w, g, y, dy, gn, d, slope, dr, total;
+  int R, T, lda, ldo, ldx, ldt, ldgn;
+  int adj, g, w, x, nt, dy, y, gn, part, d, slope, total;
   __host__ __device__ Layout(int N, int Fi, int Fo) {
-    ldw = Fo | 1;
-    x = N * N;
-    w = x + N * Fi;
-    g = w + Fi * ldw;
-    y = g + N * Fo;
-    dy = y + N * ldw;
-    gn = dy + N * Fo;
-    d = gn + N * N;
+    R = cdiv(N, row_groups(N));
+    T = Fi * Fo + Fo;
+    lda = ld4(N);
+    ldo = ld4(Fo);   // rows read along o (dX) or 4 columns at a time (dY, Y)
+    ldx = ld4(Fi);
+    ldt = ld4(N);    // norm^T rows read along n (dY)
+    ldgn = odd(N);   // gN read down a column (dA)
+    adj = 0;
+    g = round4(N * lda);
+    w = g + N * ldo;
+    x = w + Fi * ldo;
+    nt = x + N * ldx;
+    dy = nt + R * ldt;
+    y = dy + R * ldo;
+    gn = y + N * ldo;
+    part = gn + round4(N * ldgn);
+    d = part + round4(T);
     slope = d + N;
-    dr = slope + N;
-    total = dr + N;
+    total = slope + N;
   }
 };
 
-__global__ void __launch_bounds__(grad::kThreads)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 gcn_aggregate_bwd_kernel(const float* __restrict__ x, const float* __restrict__ adj,
                          const float* __restrict__ w, const float* __restrict__ g,
                          float* __restrict__ dx, float* __restrict__ dadj,
-                         float* __restrict__ part, int N, int Fi, int Fo, int add_loop,
+                         float* __restrict__ part, float* __restrict__ out_w,
+                         int* __restrict__ tickets, int B, int N, int Fi, int Fo, int add_loop,
                          float loop) {
   extern __shared__ __align__(16) float smem[];
   const Layout L(N, Fi, Fo);
-  const int ldw = L.ldw;
-  float* sA = smem;
-  float* sX = smem + L.x;
-  float* sW = smem + L.w;
+  float* sA = smem + L.adj;
   float* sG = smem + L.g;
-  float* sY = smem + L.y;
+  float* sW = smem + L.w;
+  float* sX = smem + L.x;
+  float* sNt = smem + L.nt;
   float* sDY = smem + L.dy;
+  float* sY = smem + L.y;
   float* sGN = smem + L.gn;
+  float* sPart = smem + L.part;
   float* sD = smem + L.d;
-  float* sS = smem + L.slope;
-  const int b = blockIdx.x;
+  float* sSl = smem + L.slope;
+  const int S = row_groups(N);
+  const int b = blockIdx.x / S, r0 = (blockIdx.x % S) * L.R;
+  const int M = min(L.R, N - r0);  // this block's rows r0 .. r0 + M
+  const bool need_x = dx != nullptr, need_adj = dadj != nullptr;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
 
-  grad::load_tile(sA, N, adj + static_cast<size_t>(b) * N * N, N, 1, N, N);
-  grad::load_tile(sX, Fi, x + static_cast<size_t>(b) * N * Fi, Fi, 1, N, Fi);
-  grad::load_tile(sW, ldw, w, Fo, 1, Fi, Fo);
-  grad::load_tile(sG, Fo, g + static_cast<size_t>(b) * N * Fo, Fo, 1, N, Fo);
-  __syncthreads();
-  grad::degrees(sA, N, N, add_loop, loop, sD, sS);
-  __syncthreads();
+  if (b < B) {  // else a padding block of the last cluster
+    // two groups of copies: A and G first; W and X (needed first by dX and
+    // dW, or by Y = X W where dA is asked for) arrive while d and dY are taken
+    stage(sA, L.lda, adj + static_cast<size_t>(b) * N * N, N, 1, N, N);
+    stage(sG, L.ldo, g + static_cast<size_t>(b) * N * Fo, Fo, 1, N, Fo);
+    gmh::cp_async_commit();
+    stage(sW, L.ldo, w, Fo, 1, Fi, Fo);
+    stage(sX, L.ldx, x + static_cast<size_t>(b) * N * Fi, Fi, 1, N, Fi);
+    gmh::cp_async_commit();
+    if (need_adj)
+      gmh::cp_async_wait<0>();
+    else
+      gmh::cp_async_wait<1>();
+    __syncthreads();
 
-  // Y = X W;  dY[m] = d_m sum_n A'[n, m] d_n G[n]
-  grad::product(
-      N, Fo, Fi, [&](int r, int k) { return sX[r * Fi + k]; },
-      [&](int k, int c) { return sW[k * ldw + c]; },
-      [&](int r, int c, float v) { sY[r * ldw + c] = v; });
-  grad::product(
-      N, Fo, N, [&](int m, int n) { return sA[n * N + m] * sD[n]; },
-      [&](int n, int c) { return sG[n * Fo + c]; },
-      [&](int m, int c, float v) { sDY[m * Fo + c] = sD[m] * v; });
-  __syncthreads();
+    // d of every row, by each warp for itself; the block's rows of norm^T,
+    // norm^T[m, n] = d_m A'[n, m] d_n, one warp a row; warp 0 keeps d and
+    // slope for dA; db = sum of the block's rows of G; Y = X W for dA
+    float d[2], sl[2];
+    warp_degrees(sA, L.lda, N, add_loop, loop, d, sl);
+    for (int i = warp; i < M; i += nwarps) {
+      const int m = r0 + i;
+      const float dm = shfl_d(d, m);
+      for (int n = lane; n < N; n += 32) {
+        const float a = (add_loop && n == m) ? loop : sA[n * L.lda + m];
+        sNt[i * L.ldt + n] = dm * a * (n < 32 ? d[0] : d[1]);
+      }
+    }
+    if (warp == 0)
+      for (int h = 0; h < 2; ++h)
+        if (lane + 32 * h < N) {
+          sD[lane + 32 * h] = d[h];
+          sSl[lane + 32 * h] = sl[h];
+        }
+    for (int o = threadIdx.x; o < Fo; o += blockDim.x) {
+      float s = 0.f;
+      if (!ablated(kGradW))
+        for (int n = r0; n < r0 + M; ++n) s += sG[n * L.ldo + o];
+      sPart[Fi * Fo + o] = s;
+    }
+    if (need_adj)
+      for (int p = threadIdx.x; p < patches<2, 4>(N, Fo); p += blockDim.x)
+        patch<2, 4>(
+            p, N, Fo, ablated(kGradAdj) ? 0 : Fi, [&](int r, int k) { return sX[r * L.ldx + k]; },
+            [&](int k, int o) { return sW[k * L.ldo + o]; },
+            [&](int r, int o, float v) { sY[r * L.ldo + o] = v; });
+    gmh::cp_async_wait<0>();
+    __syncthreads();
 
-  // dX = dY W^T;  this graph's dW = X^T dY and dbias = sum_n G[n]
-  if (dx != nullptr) {
-    float* out = dx + static_cast<size_t>(b) * N * Fi;
-    grad::product(
-        N, Fi, Fo, [&](int r, int k) { return sDY[r * Fo + k]; },
-        [&](int k, int c) { return sW[c * ldw + k]; },
-        [&](int r, int c, float v) { out[r * Fi + c] = v; });
+    // dY = norm^T G (the block's rows); gN = G Y^T for dA
+    auto dy = [&](int r, int o, float v) { sDY[r * L.ldo + o] = v; };
+    const int n_dy = (Fo & 3) == 0 ? patches4<1>(M, Fo) : patches<2, 4>(M, Fo);
+    const int n_gn = need_adj ? patches<2, 2>(N, N) : 0;
+    for (int i = threadIdx.x; i < n_dy + n_gn; i += blockDim.x) {
+      if (i >= n_dy)
+        patch_nt<2, 2>(i - n_dy, sG, L.ldo, sY, L.ldo, N, N, 0, ablated(kGradAdj) ? 0 : Fo,
+                       [&](int n, int m, float v) { sGN[n * L.ldgn + m] = v; });
+      else if ((Fo & 3) == 0)
+        patch_nn4<1>(i, sNt, L.ldt, sG, L.ldo, M, Fo, ablated(kGradY) ? 0 : N, dy);
+      else
+        patch<2, 4>(
+            i, M, Fo, ablated(kGradY) ? 0 : N, [&](int r, int k) { return sNt[r * L.ldt + k]; },
+            [&](int k, int o) { return sG[k * L.ldo + o]; }, dy);
+    }
+    __syncthreads();
+
+    // dX = dY W^T (the block's rows); this block's dW = X^T dY; dA of its rows
+    const int n_dx = need_x ? patches<2, 2>(M, Fi) : 0;
+    float* out_x = need_x ? dx + (static_cast<size_t>(b) * N + r0) * Fi : nullptr;
+    for (int i = threadIdx.x; i < n_dx + patches<2, 4>(Fi, Fo); i += blockDim.x) {
+      if (i < n_dx)
+        patch_nt<2, 2>(i, sDY, L.ldo, sW, L.ldo, M, Fi, 0, ablated(kGradX) ? 0 : Fo,
+                       [&](int r, int f, float v) { out_x[r * Fi + f] = v; });
+      else
+        patch<2, 4>(
+            i - n_dx, Fi, Fo, ablated(kGradW) ? 0 : M,
+            [&](int f, int k) { return sX[(r0 + k) * L.ldx + f]; },
+            [&](int k, int o) { return sDY[k * L.ldo + o]; },
+            [&](int f, int o, float v) { sPart[f * Fo + o] = v; });
+    }
+    if (need_adj)
+      adj_grad_rows(sGN, L.ldgn, sA, L.lda, sD, sSl, N, r0, r0 + M, add_loop, loop,
+                    dadj + static_cast<size_t>(b) * N * N, N, 1);
+  } else {
+    zero_fill(sPart, L.T);
   }
-  float* pb = part + static_cast<size_t>(b) * (Fi * Fo + Fo);
-  grad::product(
-      Fi, Fo, N, [&](int f, int n) { return sX[n * Fi + f]; },
-      [&](int n, int c) { return sDY[n * Fo + c]; },
-      [&](int f, int c, float v) { pb[f * Fo + c] = v; });
-  for (int c = threadIdx.x; c < Fo; c += blockDim.x) {
-    float s = 0.f;
-    for (int n = 0; n < N; ++n) s += sG[n * Fo + c];
-    pb[Fi * Fo + c] = s;
-  }
-  if (dadj == nullptr) return;
 
-  // gN = G Y^T, then dA
-  grad::product(
-      N, N, Fo, [&](int n, int k) { return sG[n * Fo + k]; },
-      [&](int k, int m) { return sY[m * ldw + k]; },
-      [&](int n, int m, float v) { sGN[n * N + m] = v; });
-  __syncthreads();
-  grad::adj_grad(sGN, sA, N, sD, sS, N, add_loop, smem + L.dr,
-                 dadj + static_cast<size_t>(b) * N * N, N, 1);
+  if (!ablated(kReduce))
+    batch_sum(sPart, L.T, gridDim.x / kCluster, part, L.T, tickets,
+              [&](int e, float v) { out_w[e] = v; });
 }
 
 }  // namespace
 
-// Shared bytes of a block (one graph).
+// Shared bytes of a block (one row group of a graph).
 extern "C" int gcn_aggregate_bwd_smem(int N, int Fi, int Fo) {
   return static_cast<int>(sizeof(float)) * Layout(N, Fi, Fo).total;
 }
 
+// Clusters of a launch over B graphs of N nodes (its blocks: clusters x
+// kCluster, the last cluster padded); part holds one partial of F_in *
+// F_out + F_out floats for each.
+extern "C" int gcn_aggregate_bwd_clusters(int B, int N) {
+  return cdiv(B * row_groups(N), kCluster);
+}
+
 // x (B, N, F_in), adj (B, N, N), w (F_in, F_out), g = dL/dout (B, N, F_out),
 // all contiguous -> dx (B, N, F_in) or null, dadj (B, N, N) or null, and
-// out_w (F_in * F_out + F_out): dW then dbias.  part (B, F_in * F_out +
-// F_out) is scratch for the per-graph partials.  Two launches on `stream`
-// (the graphs, then the batch sum); returns the first non-zero cudaError_t
-// (0 on success).
+// out_w (F_in * F_out + F_out): dW then dbias.  part (clusters, F_in *
+// F_out + F_out) is scratch; tickets: at least kCluster ints, zero, left
+// zero.
+// One launch on `stream`; returns its cudaError_t (0 on success).
 extern "C" int gcn_aggregate_bwd_run(const float* x, const float* adj, const float* w,
                                      const float* g, float* dx, float* dadj, float* part,
-                                     float* out_w, int B, int N, int Fi, int Fo, int add_loop,
-                                     float loop, void* stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(gcn_aggregate_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         gmh::kMaxSmem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+                                     float* out_w, int* tickets, int B, int N, int Fi, int Fo,
+                                     int add_loop, float loop, void* stream) {
+  static int allowed = -1;  // dynamic shared bytes a block may take
+  if (allowed < 0 && (allowed = allow_dynamic_smem(gcn_aggregate_bwd_kernel)) < 0)
+    return (int)cudaGetLastError();
   const int smem = gcn_aggregate_bwd_smem(N, Fi, Fo);
-  if (smem > gmh::kMaxSmem) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  gcn_aggregate_bwd_kernel<<<B, grad::kThreads, smem, s>>>(x, adj, w, g, dx, dadj, part, N, Fi,
-                                                          Fo, add_loop, loop);
-  const int e = (int)cudaGetLastError();
-  if (e != 0) return e;
-  const int len = Fi * Fo + Fo;
-  return grad::launch_strided_sum(part, out_w, len, B, len, len, 0, s);
+  if (smem > allowed) return (int)cudaErrorInvalidValue;
+  gcn_aggregate_bwd_kernel<<<gcn_aggregate_bwd_clusters(B, N) * kCluster, kThreads, smem,
+                             (cudaStream_t)stream>>>(x, adj, w, g, dx, dadj, part, out_w, tickets,
+                                                     B, N, Fi, Fo, add_loop, loop);
+  return (int)cudaGetLastError();
 }

@@ -7,15 +7,17 @@ ccsd_tpu/data/loader.py: ``init_features`` (:97-124), ``init_flags`` (the
 graph branch of :127-145), ``ArrayDataset`` (:160-209, single-process) and
 ``_split`` (:212-216); with the same seed they give the JAX package's
 features, split and batch order exactly.  ``community_small_adjs`` makes
-such an array by the community_small recipe
-(ccsd_tpu/data/generators.py:20-48, 196-204): two communities of
-``max_nodes // 2`` nodes each, ``max_nodes`` uniform in 12..20, G(n, 0.7)
-inside a community and at least one bridge.
+such an array by the JAX package's community_small recipe
+(ccsd_tpu/data/generators.py:20-48, 78-80, 88-115, 196-204) with numpy
+and the standard library only, graph for graph and edge for edge the
+graphs ``gen_graph_list`` gives after ``np.random.seed(seed)``.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Sequence, Tuple
+import itertools
+import random
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -87,21 +89,89 @@ def init_flags(train_adjs: np.ndarray, batch_size: int,
     return (np.abs(train_adjs[idx]).sum(-1) > 1e-5).astype(np.float32)
 
 
-def community_small_adjs(num: int, rng: np.random.Generator,
-                         max_node_num: int = 20, p_intra: float = 0.7,
-                         p_inter: float = 0.05) -> np.ndarray:
-    """(num, max_node_num, max_node_num) two-community graphs."""
+def _components(adj: List[List[int]]) -> List[set]:
+    """The node sets of ``nx.connected_components`` in its order, each
+    built by its breadth-first search (``_plain_bfs``) node by node, so
+    that a set iterates as networkx's does."""
+    seen: set = set()
+    comps = []
+    for v in range(len(adj)):
+        if v in seen:
+            continue
+        comp, level = {v}, [v]
+        while level:
+            nxt = []
+            for u in level:
+                for w in adj[u]:
+                    if w not in comp:
+                        comp.add(w)
+                        nxt.append(w)
+            level = nxt
+        seen.update(comp)
+        comps.append(comp)
+    return comps
+
+
+def _subgraph_nodes(comp: set, n: int) -> List[int]:
+    """``list(G.subgraph(comp).nodes())`` of a graph on nodes 0..n-1: the
+    view keeps the nodes in a set built one at a time, and iterates that set
+    where it holds fewer than half the graph's nodes, else the graph's own
+    node order."""
+    shown = set(v for v in comp)
+    return list(shown) if 2 * len(shown) < n else [v for v in range(n) if v in shown]
+
+
+def n_community(rs: np.random.RandomState, num_communities: int, max_nodes: int,
+                p_inter: float = 0.05) -> np.ndarray:
+    """(max_nodes', max_nodes') adjacency of ``n_community``
+    (ccsd_tpu/data/generators.py:20-48) without networkx.  Community i is
+    ``nx.gnp_random_graph(c, 0.7, seed=i)``: one ``random.Random(i).random()``
+    per pair of ``itertools.combinations(range(c), 2)``, placed after the
+    earlier ones (``disjoint_union_all``).  For each pair of connected
+    components, in networkx's order, one ``rs.random_sample()`` per node
+    pair may add a bridge; where none does, the first nodes of the two
+    are joined."""
+    c = max_nodes // num_communities
+    n = c * num_communities
+    p_bridge = p_inter * 2 / ((num_communities - 1) * c)
+    adj: List[List[int]] = [[] for _ in range(n)]  # G._adj, in insertion order
+    for i in range(num_communities):
+        r, off = random.Random(i), i * c
+        for u, v in itertools.combinations(range(c), 2):
+            if r.random() < 0.7:
+                adj[off + u].append(off + v)
+                adj[off + v].append(off + u)
+    out = np.zeros((n, n), np.float32)
+    for u, nbrs in enumerate(adj):
+        out[u, nbrs] = 1.0
+    comps = [_subgraph_nodes(comp, n) for comp in _components(adj)]
+    for i, nodes1 in enumerate(comps):
+        for nodes2 in comps[i + 1:]:
+            bridged = False
+            for n1 in nodes1:
+                for n2 in nodes2:
+                    if rs.random_sample() < p_bridge:
+                        out[n1, n2] = out[n2, n1] = 1.0
+                        bridged = True
+            if not bridged:
+                out[nodes1[0], nodes2[0]] = out[nodes2[0], nodes1[0]] = 1.0
+    return out
+
+
+def community_small_adjs(num: int, seed: Union[int, np.random.RandomState],
+                         max_node_num: int = 20) -> np.ndarray:
+    """(num, max_node_num, max_node_num) padded adjacencies of
+    community_small as the JAX package generates it (generators.py:196-204):
+    ``np.random.seed(seed)`` then ``gen_graph_list("community",
+    {"num_communities": [2], "max_nodes": arange(12, 21)}, num)``, drawn
+    here from ``np.random.RandomState(seed)`` in the same order, so the
+    graphs are the same bit for bit.  ``seed`` may be a RandomState, which
+    the draws advance."""
+    rs = seed if isinstance(seed, np.random.RandomState) else np.random.RandomState(seed)
+    sizes = np.arange(12, 21).tolist()
     out = np.zeros((num, max_node_num, max_node_num), np.float32)
     for g in range(num):
-        c = int(rng.integers(12, 21)) // 2
-        n = 2 * c
-        a = np.triu(rng.random((n, n)) < p_intra, 1)
-        a[:c, c:] = False  # no edges between communities but the bridges
-        p_bridge = p_inter * 2 / c
-        bridges = np.triu(rng.random((n, n)) < p_bridge, 1)
-        bridges[:c, :c] = bridges[c:, c:] = False
-        if not bridges.any():
-            bridges[0, c] = True
-        a = a | bridges
-        out[g, :n, :n] = a | a.T
+        num_communities = int(rs.choice([2]))  # GraphGenerator: one choice per parameter
+        a = n_community(rs, num_communities, int(rs.choice(sizes)))
+        out[g, :a.shape[0], :a.shape[0]] = a
     return out

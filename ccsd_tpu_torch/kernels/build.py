@@ -67,19 +67,24 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "gcn_aggregate_bwd": {
         # x, adj, w, dL/dout, dx, dadj, partials, out_w (dW then dbias),
-        # B, N, F_in, F_out, add_loop, loop, stream
-        "gcn_aggregate_bwd_run": [_P] * 8 + [_I] * 5 + [_F, _P],
+        # tickets, B, N, F_in, F_out, add_loop, loop, stream
+        "gcn_aggregate_bwd_run": [_P] * 9 + [_I] * 5 + [_F, _P],
         # N, F_in, F_out -> shared bytes of a block
         "gcn_aggregate_bwd_smem": [_I] * 3,
+        # B, N -> clusters of a launch
+        "gcn_aggregate_bwd_clusters": [_I] * 2,
     },
     "gmh_attention_bwd": {
         # x, adj, wq, bq, wk, bk, wv, bv, dL/dV, dL/dA, dx, dadj, partials of
-        # dx, partials of the weights, out_w, B, C, N, F_in, attn_dim, F_out,
-        # heads, head_dim, strides of adj (b, c, n, m), of dL/dA (b, n, m, c)
-        # and of dadj (b, c, n, m), score_div, add_loop, loop, stream
-        "gmh_attention_bwd_run": [_P] * 15 + [_I] * 8 + [_L] * 12 + [_F, _I, _F, _P],
+        # dx, partials of the weights, out_w, tickets, B, C, N, F_in,
+        # attn_dim, F_out, heads, head_dim, strides of adj (b, c, n, m), of
+        # dL/dA (b, n, m, c) and of dadj (b, c, n, m), score_div, add_loop,
+        # loop, stream
+        "gmh_attention_bwd_run": [_P] * 16 + [_I] * 8 + [_L] * 12 + [_F, _I, _F, _P],
         # N, F_in, attn_dim, F_out, heads -> shared bytes of a block
         "gmh_attention_bwd_smem": [_I] * 5,
+        # B -> clusters of a channel's blocks
+        "gmh_attention_bwd_clusters": [_I],
     },
 }
 

@@ -19,7 +19,8 @@ its own) first computes d once per row for them to read.
 
 On a CUDA tensor that needs a gradient the wrapper runs the forward kernel
 inside a ``torch.autograd.Function`` whose backward is the kernel
-``csrc/gcn_aggregate_bwd.cu`` (one block a graph, N <= 64), with
+``csrc/gcn_aggregate_bwd.cu`` (a graph's rows over a few blocks, N <= 64;
+one launch, its batch sums ordered by the tickets of ``ticket_buffer``), with
 ``gcn_aggregate_bwd_plain`` beside it: the gradients of x, adj, the weight
 and the bias written out by hand (``csrc/grad_common.cuh`` gives the
 formulas).  The degree clamp follows ``jnp.clip``: at a row sum of exactly
@@ -31,7 +32,7 @@ of the plain forward (``torch.maximum`` splits a tie the same way).
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -255,10 +256,42 @@ def gcn_aggregate_bwd_plain(x, adj, weight, g, loop: float = 1.0, add_loop: bool
     return dx, dadj, torch.einsum("bnf,bno->fo", x, dY), g.sum(dim=(0, 1))
 
 
+TICKETS = 1 << 16  # ints of a device's ticket buffer
+_TICKETS: Dict[torch.device, torch.Tensor] = {}
+
+
+def ticket_buffer(device: torch.device, need: int) -> torch.Tensor:
+    """The int32 tickets that order the backward kernels' sums over blocks
+    (csrc/grad_common.cuh) on ``device``: zeros, allocated on first use and
+    left zero by every launch, so launches that use it must not run
+    concurrently on two streams.  Raises where a launch needs more than it
+    holds, or where the first use is inside a CUDA-graph capture."""
+    if need > TICKETS:
+        raise ValueError(f"the backward kernels' sums need {need} tickets (limit {TICKETS})")
+    buf = _TICKETS.get(device)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the backward kernels' tickets are allocated at their first "
+                               "launch, which must not be inside a CUDA-graph capture")
+        buf = _TICKETS[device] = torch.zeros(TICKETS, dtype=torch.int32, device=device)
+    return buf
+
+
+MAX_CLUSTER = 8  # blocks of a backward kernel's cluster, at most
+
+
+@functools.lru_cache(maxsize=None)
+def gcn_aggregate_bwd_clusters(B: int, N: int) -> int:
+    """Clusters of one csrc/gcn_aggregate_bwd.cu launch, each with a
+    weight partial of its own in the scratch."""
+    return kernel_fn("gcn_aggregate_bwd", "gcn_aggregate_bwd_clusters")(B, N)
+
+
 @functools.lru_cache(maxsize=None)
 def gcn_aggregate_bwd_smem(N: int, Fi: int, Fo: int) -> int:
-    """Shared bytes of a block of csrc/gcn_aggregate_bwd.cu, one graph;
-    raises a ``ValueError`` naming N where one block cannot hold it."""
+    """Shared bytes of a block of csrc/gcn_aggregate_bwd.cu, one row group
+    of a graph; raises a ``ValueError`` naming N where a block cannot hold
+    the graph."""
     if N > WHOLE_GRAPH_N:
         raise ValueError(f"gcn_aggregate_bwd: N={N} exceeds the one-block graph of the "
                          f"backward kernel (N <= {WHOLE_GRAPH_N})")
@@ -285,12 +318,15 @@ def gcn_aggregate_bwd(x, adj, weight, g, loop: float = 1.0, add_loop: bool = Tru
     new = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
     dx = new((B, N, Fi)) if need_x else None
     dadj = new((B, N, N)) if need_adj else None
-    part, out_w = new((B, Fi * Fo + Fo)), new(Fi * Fo + Fo)
+    out_w = new(Fi * Fo + Fo)
+    part = new((gcn_aggregate_bwd_clusters(B, N), Fi * Fo + Fo))
+    tickets = ticket_buffer(x.device, MAX_CLUSTER)
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = kernel_fn("gcn_aggregate_bwd")(
         x.data_ptr(), adj.data_ptr(), weight.data_ptr(), g.data_ptr(), ptr(dx), ptr(dadj),
-        part.data_ptr(), out_w.data_ptr(), B, N, Fi, Fo, int(add_loop), float(loop), stream)
+        part.data_ptr(), out_w.data_ptr(), tickets.data_ptr(), B, N, Fi, Fo, int(add_loop),
+        float(loop), stream)
     check_status("gcn_aggregate_bwd", status)
     LAUNCHES["gcn_aggregate_bwd"] += 1
     return dx, dadj, out_w[:Fi * Fo].view(Fi, Fo), out_w[Fi * Fo:]

@@ -23,11 +23,12 @@ instead, which no model path reaches.
 
 On a CUDA tensor that needs a gradient the wrapper runs the forward kernel
 inside a ``torch.autograd.Function`` whose backward is the kernel
-``csrc/gmh_attention_bwd.cu`` (a block per (graph, channel), N <= 64): the
-gradients of x, the adjacency (written in the adjacency's own layout, so a
-later layer's channels-last adjacency gets a channels-last gradient) and
-the six weights and biases.  ``gmh_attention_bwd_plain`` writes the same
-gradients out by hand.
+``csrc/gmh_attention_bwd.cu`` (a block per (graph, channel), N <= 64; one
+launch, its sums over graphs and channels ordered by the tickets of
+``gcn.ticket_buffer``): the gradients of x, the adjacency (written in the
+adjacency's own layout, so a later layer's channels-last adjacency gets a
+channels-last gradient) and the six weights and biases.
+``gmh_attention_bwd_plain`` writes the same gradients out by hand.
 """
 
 from __future__ import annotations
@@ -45,7 +46,9 @@ from ccsd_tpu_torch.kernels.gcn import (
     check_cuda_f32,
     check_smem,
     check_strided_f32,
+    MAX_CLUSTER,
     gcn_norm,
+    ticket_buffer,
 )
 
 # one block of the attention kernels holds a whole graph's channel
@@ -259,14 +262,17 @@ def gmh_attention_bwd(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, num_heads: int,
     attention_bwd_smem(N, Fi, A, O, H)
     new = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
     sizes = [C * Fi * A, C * Fi * A, C * Fi * O, C * A, C * A, C * O]
-    out_w, part_w = new(sum(sizes)), new((B, sum(sizes)))
+    clusters = kernel_fn("gmh_attention_bwd", "gmh_attention_bwd_clusters")(B)
+    out_w, part_w = new(sum(sizes)), new((clusters, sum(sizes)))  # a partial a cluster
     dx, part_x = (new((B, N, Fi)), new((B, C, N, Fi))) if need_x else (None, None)
     dadj = torch.empty_like(adj) if need_adj else None  # adj's strides
+    tickets = ticket_buffer(x.device, MAX_CLUSTER * C + B)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = kernel_fn("gmh_attention_bwd")(
         x.data_ptr(), adj.data_ptr(), wq.data_ptr(), _ptr(bq), wk.data_ptr(), _ptr(bk),
         wv.data_ptr(), _ptr(bv), gv.data_ptr(), ga.data_ptr(), _ptr(dx), _ptr(dadj),
-        _ptr(part_x), part_w.data_ptr(), out_w.data_ptr(), B, C, N, Fi, A, O, H, ds,
+        _ptr(part_x), part_w.data_ptr(), out_w.data_ptr(), tickets.data_ptr(), B, C, N, Fi,
+        A, O, H, ds,
         *adj.stride(), *ga.stride(), *(dadj.stride() if need_adj else (0,) * 4),
         math.sqrt(out_dim), int(add_loop), float(loop), stream,
     )

@@ -55,8 +55,7 @@ def dataset_adjs(config, adjs: Optional[np.ndarray] = None) -> np.ndarray:
     if str(config.data.data) != "community_small":
         raise ValueError(f"{config.data.data}: pass the dataset as a (M, N, N) array "
                          "(only community_small is generated here)")
-    return community_small_adjs(COMMUNITY_SMALL_GRAPHS,
-                                np.random.default_rng(int(config.get("seed", 42))),
+    return community_small_adjs(COMMUNITY_SMALL_GRAPHS, int(config.get("seed", 42)),
                                 int(config.data.max_node_num))
 
 

@@ -44,10 +44,14 @@ Phases, each printing one line of its own results:
 6. train   -- community_small training at full width through ``Trainer``:
               each backward kernel (``gcn_aggregate_bwd``,
               ``gmh_attention_bwd``) against its plain backward at the
-              train batch's shapes and layouts (every gradient, within
-              BWD_REL_TOL of its magnitude); the gradients of the full loss
+              train batch's shapes and layouts, and at grid_small's and
+              grid_small_CC_two_stage's (every gradient, within
+              BWD_REL_TOL of its magnitude; ``gmh_attention_bwd`` with the
+              adjacency in both layouts), each called twice on the same
+              inputs with bit-identical results; the gradients of the full loss
               on the card against a float64 CPU copy; 200 epochs from
-              seeded weights on 100 generated graphs (one train batch of
+              seeded weights on 100 graphs of community_small as the JAX
+              package generates them (seed 0; one train batch of
               80 and one test batch of 20 an epoch) with finite, falling
               losses, exact launch counts per epoch and the train steps/s;
               the final checkpoint loaded by ``Sampler``, whose networks
@@ -63,7 +67,9 @@ Phases, each printing one line of its own results:
               adjacency contiguous, ``channel_agg`` also beside the
               ``gcn_norm`` + ``torch.matmul`` pair; grid's shapes of
               ``gcn_aggregate`` and ``channel_agg`` timed and kept out of
-              the means; the backward kernels at the train batch's shapes.
+              the means; the backward kernels at the train batch's shapes,
+              and at grid_small's and grid_small_CC_two_stage's, out of the
+              means.
 
 Then one JSON line of per-kernel results (``ms``, ``plain_ms`` and
 ``bound_ms`` per launch, averaged over the path's layer shapes; each shape
@@ -865,6 +871,28 @@ def train_shapes(models, B):
     return {"gcn_bwd": gcn, "gmh_bwd": gmh}
 
 
+def more_train_shapes():
+    """``gcn_bwd_more`` and ``gmh_bwd_more`` cases: the backward kernels at
+    the layer shapes of EXTRA_CONFIGS (N = 49; head widths 8 and 6), each
+    config's first and later layer asking for what its training path asks
+    (train_shapes); checked in the train_kernels phase and timed, out of
+    the means."""
+    from ccsd_tpu_torch.kernels.gmh_attention import head_split
+    from ccsd_tpu_torch.utils.config import get_config
+
+    gcn, gmh = [], []
+    for name in EXTRA_CONFIGS:
+        c = get_config(name, seed=0, folder=HERE)
+        m, B, N = c.model, int(c.data.batch_size), int(c.data.max_node_num)
+        F = int(c.data.max_feat_num)
+        for k, Fi in enumerate((F, m.nhid)):
+            gcn.append((f"{name}.x.layers.{k}", B, N, Fi, m.nhid, 1.0, k > 0, False))
+        for k, (Fi, A, C) in enumerate(((F, m.nhid, m.c_init), (m.nhid, m.adim, m.c_hid))):
+            H = head_split(A, m.num_heads)[0]
+            gmh.append((f"{name}.layers.{k}", B, C, N, Fi, A, m.nhid, H, k > 0, k > 0))
+    return {"gcn_bwd_more": gcn, "gmh_bwd_more": gmh}
+
+
 def padded(adj, gen):
     """adj (B, ..., N, N) with each graph's nodes from 12 to N present and
     the rest zeroed, as the training batches' absent nodes are (their rows
@@ -914,9 +942,19 @@ def grad_compare(got, ref, rel):
     return diff.max().item(), worst, bool((diff <= rel * scale).all() and got.isfinite().all())
 
 
+def gmh_bwd_inputs_other_layout(case, gen, dev):
+    """As gmh_bwd_inputs, the adjacency in the other layout than the path's
+    (channels-last for the first layer, contiguous for a later one)."""
+    x, adj, *rest = gmh_bwd_inputs(case, gen, dev)
+    return (x, adj.contiguous() if not first_layer(case) else channels_last(adj), *rest)
+
+
 def phase_train_kernels(shapes, dev):
     """Each backward kernel against its plain backward on the card, at the
-    training path's shapes and layouts, every gradient the call gives."""
+    training path's shapes (and ``<key>_more``'s), every gradient the call
+    gives, ``gmh_attention_bwd`` in both adjacency layouts; and each
+    kernel called twice on the same inputs, which must give the same bits
+    (the sums over blocks run in a fixed order)."""
     import torch
     from ccsd_tpu_torch.kernels.gcn import gcn_aggregate_bwd, gcn_aggregate_bwd_plain
     from ccsd_tpu_torch.kernels.gmh_attention import gmh_attention_bwd, gmh_attention_bwd_plain
@@ -925,15 +963,22 @@ def phase_train_kernels(shapes, dev):
              "gmh_attention_bwd": ("dx", "dadj", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv")}
     gen = torch.Generator(device=dev).manual_seed(7)
     errs = {}
-    for kname, key, mk, kern, plain in (
-            ("gcn_aggregate_bwd", "gcn_bwd", gcn_bwd_inputs, gcn_aggregate_bwd,
+    for kname, variant, key, mk, kern, plain in (
+            ("gcn_aggregate_bwd", "path", "gcn_bwd", gcn_bwd_inputs, gcn_aggregate_bwd,
              gcn_aggregate_bwd_plain),
-            ("gmh_attention_bwd", "gmh_bwd", gmh_bwd_inputs, gmh_attention_bwd,
-             gmh_attention_bwd_plain)):
-        for case in shapes[key]:
+            ("gmh_attention_bwd", "path layout", "gmh_bwd", gmh_bwd_inputs, gmh_attention_bwd,
+             gmh_attention_bwd_plain),
+            ("gmh_attention_bwd", "other layout", "gmh_bwd", gmh_bwd_inputs_other_layout,
+             gmh_attention_bwd, gmh_attention_bwd_plain)):
+        for case in shapes[key] + shapes.get(f"{key}_more", []):
             args = mk(case, gen, dev)
             got = kern(*args)
+            again = kern(*args)
             torch.cuda.synchronize()
+            same = all((g is None and a is None) or torch.equal(g, a) for g, a in zip(got, again))
+            say("train_kernels", kernel=kname, variant=variant, case=case[0],
+                repeat_bit_identical=same)
+            check(same, f"{kname} {case[0]}: two calls on the same inputs differ")
             ref = plain(*args)
             for out, g, r in zip(names[kname], got, ref):
                 check((g is None) == (r is None), f"{kname} {case[0]}: {out} given by one side")
@@ -941,7 +986,7 @@ def phase_train_kernels(shapes, dev):
                     continue
                 check(g.shape == r.shape, f"{kname} {case[0]}: {out} {g.shape} vs {r.shape}")
                 abs_err, worst, ok = grad_compare(g, r, BWD_REL_TOL)
-                say("train_kernels", kernel=kname, case=case[0], grad=out,
+                say("train_kernels", kernel=kname, variant=variant, case=case[0], grad=out,
                     shape="x".join(map(str, g.shape)), max_abs_err=f"{abs_err:.3e}",
                     max_scaled_err=f"{worst:.3e}", rel_tol=BWD_REL_TOL, ok=ok)
                 check(ok, f"{kname} {case[0]}: {out} disagrees with the plain backward")
@@ -1340,8 +1385,7 @@ def main(argv) -> int:
             "adj_fused_fast": (fused(True), per_layer, BF16_MODEL_TOL),
         }
         shapes = path_shapes({"x": x_net, "adj": adj_net})
-        train_adjs = community_small_adjs(100, np.random.default_rng(0),
-                                          int(config.data.max_node_num))
+        train_adjs = community_small_adjs(100, 0, int(config.data.max_node_num))
 
         phase = "kernels"
         errs = phase_kernels(shapes, dev)
@@ -1357,6 +1401,7 @@ def main(argv) -> int:
         # the train batch: all graphs but the first int(test_split M)
         n_train = len(train_adjs) - int(float(config.data.test_split) * len(train_adjs))
         shapes.update(train_shapes({"x": x_net, "adj": adj_net}, n_train))
+        shapes.update(more_train_shapes())
         errs.update(phase_train_kernels(shapes, dev))
         phase = "train_grads"
         phase_train_grads(config, train_adjs, dev)

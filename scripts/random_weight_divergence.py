@@ -59,7 +59,7 @@ def main() -> None:
     mx, ma = (load_model(d, generator=g).eval() for d in load_model_params(cfg))
     with torch.no_grad():
         ma.final.linears[-1].weight.mul_(args.adj_head_scale)
-    flags = init_flags(community_small_adjs(100, np.random.default_rng(0)), B,
+    flags = init_flags(community_small_adjs(100, 0), B,
                        np.random.default_rng(0))
     kw = dict(predictor="Euler", corrector="Langevin", snr=0.05, scale_eps=0.7,
               n_steps=1, denoise=True, eps=1e-4)

@@ -13,7 +13,9 @@
   the test).  This file imports no JAX, so they run on a machine without
   it.  Card tolerance: f32 on both sides, only the summation order differs
   (the kernel's FMA loops against the CPU's or cuBLAS's), scaled by the
-  gradient's magnitude: |got - ref| <= 1e-5 (|ref| + max |ref|).
+  gradient's magnitude: |got - ref| <= 1e-5 (|ref| + max |ref|).  Also on
+  the card: batches that are not a multiple of the kernels' cluster size,
+  every choice of dx and dadj, and two calls that must give the same bits.
 """
 
 import os
@@ -230,6 +232,65 @@ def test_gmh_backward_kernel_matches_plain_on_card(cuda, shape, layout):
             if a is None:
                 continue
             assert a.shape == r.shape and grad_tol_ok(a, r), (i, (a - r).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_x,need_adj", [(True, True), (True, False), (False, True),
+                                             (False, False)])
+def test_gcn_backward_kernel_gives_what_is_asked_on_card(cuda, need_x, need_adj):
+    """Each of dx and dadj comes out right where it is asked for and is None
+    where it is not; dW and dbias come out right either way."""
+    B, N, Fi, Fo = 80, 20, 32, 32
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(B, N, Fi, generator=g, device=cuda)
+    adj = _adj((B, N, N), g, cuda)
+    w = torch.randn(Fi, Fo, generator=g, device=cuda) * 0.3
+    go = torch.randn(B, N, Fo, generator=g, device=cuda)
+    ref = gcn_aggregate_bwd_plain(x, adj, w, go)
+    got = gcn_aggregate_bwd(x, adj, w, go, need_x=need_x, need_adj=need_adj)
+    torch.cuda.synchronize()
+    for i, (a, r, asked) in enumerate(zip(got, ref, (need_x, need_adj, True, True))):
+        if not asked:
+            assert a is None
+            continue
+        assert a.shape == r.shape and grad_tol_ok(a, r), (i, (a - r).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [7, 20, 80])
+def test_backward_kernels_take_any_batch_on_card(cuda, B):
+    """The blocks are padded to a multiple of the cluster size (8): batches
+    of 7 and 20 graphs (the last cluster partly padding) and 80 agree with
+    the plain backwards."""
+    g = torch.Generator(device=cuda).manual_seed(B)
+    x = torch.randn(B, 20, 32, generator=g, device=cuda)
+    adj = _adj((B, 20, 20), g, cuda)
+    w = torch.randn(32, 32, generator=g, device=cuda) * 0.3
+    go = torch.randn(B, 20, 32, generator=g, device=cuda)
+    for a, r in zip(gcn_aggregate_bwd(x, adj, w, go), gcn_aggregate_bwd_plain(x, adj, w, go)):
+        assert grad_tol_ok(a, r), (a - r).abs().max().item()
+    x, adj, ws, gv, ga, H, O = _gmh_case((B, 8, 20, 32, 32, 32, 4), g, cuda, "channels-last")
+    for a, r in zip(gmh_attention_bwd(x, adj, *ws, gv, ga, H, O),
+                    gmh_attention_bwd_plain(x, adj, *ws, gv, ga, H, O)):
+        assert grad_tol_ok(a, r), (a - r).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_backward_kernels_repeat_bit_for_bit_on_card(cuda):
+    """No float atomics: two calls on the same inputs give the same bits
+    (the batch and channel sums run in a fixed order)."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn(80, 20, 32, generator=g, device=cuda)
+    adj = _adj((80, 20, 20), g, cuda)
+    w = torch.randn(32, 32, generator=g, device=cuda) * 0.3
+    go = torch.randn(80, 20, 32, generator=g, device=cuda)
+    first = gcn_aggregate_bwd(x, adj, w, go)
+    for a, b in zip(first, gcn_aggregate_bwd(x, adj, w, go)):
+        assert torch.equal(a, b)
+    x, adj, ws, gv, ga, H, O = _gmh_case((80, 8, 20, 32, 32, 32, 4), g, cuda, "channels-last")
+    first = gmh_attention_bwd(x, adj, *ws, gv, ga, H, O)
+    for a, b in zip(first, gmh_attention_bwd(x, adj, *ws, gv, ga, H, O)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

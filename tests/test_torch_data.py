@@ -1,0 +1,52 @@
+"""The port's community_small generator against the JAX package's.
+
+``ccsd_tpu_torch.data.loader.community_small_adjs(num, seed)`` replicates
+``np.random.seed(seed)`` followed by ``gen_graph_list("community", ...)``
+(ccsd_tpu/data/generators.py:196-204) with numpy and the standard library
+only; the graphs must be equal bit for bit once padded to N = 20 as the
+JAX package pads them (``graphs_to_tensor``).
+"""
+
+import numpy as np
+import pytest
+
+from ccsd_tpu.data import generators
+from ccsd_tpu.data.cc_codec import graphs_to_tensor
+
+from ccsd_tpu_torch.data.loader import community_small_adjs, n_community
+
+
+@pytest.fixture
+def global_np_random():
+    """The JAX recipe draws from numpy's global state: restore it after."""
+    state = np.random.get_state()
+    yield
+    np.random.set_state(state)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7, 42, 2024])
+def test_community_small_equals_gen_graph_list(seed, global_np_random):
+    np.random.seed(seed)
+    graphs = generators.gen_graph_list(
+        "community", {"num_communities": [2], "max_nodes": np.arange(12, 21).tolist()},
+        length=100)
+    want = graphs_to_tensor(graphs, 20)
+    got = community_small_adjs(100, seed)
+    assert got.shape == want.shape == (100, 20, 20) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("num_communities,max_nodes", [(2, 4), (2, 7), (2, 11), (3, 9),
+                                                       (3, 12), (4, 8)])
+def test_n_community_equals_the_jax_recipe(num_communities, max_nodes, global_np_random):
+    """Small communities come out of G(c, 0.7) disconnected, so the bridges
+    run over more than two components, each in the node order of networkx's
+    subgraph view; the global state must also end where the JAX recipe
+    leaves it."""
+    np.random.seed(3)
+    g = generators.n_community(num_communities, max_nodes)
+    want = graphs_to_tensor([g], g.number_of_nodes())[0]
+    after = np.random.random_sample()
+    rs = np.random.RandomState(3)
+    np.testing.assert_array_equal(n_community(rs, num_communities, max_nodes), want)
+    assert rs.random_sample() == after

@@ -265,7 +265,7 @@ def test_fused_sampler_end_to_end_matches_jax(monkeypatch, fast):
 
 
 def test_init_flags_matches_jax():
-    adjs = community_small_adjs(30, np.random.default_rng(0))
+    adjs = community_small_adjs(30, 0)
     graphs = [nx.from_numpy_array(a[: int((a.sum(-1) > 0).sum())]
                                   [:, : int((a.sum(-1) > 0).sum())]) for a in adjs]
     cfg = JAttrDict({"data": {"max_node_num": 20, "batch_size": 16}})
@@ -275,7 +275,7 @@ def test_init_flags_matches_jax():
 
 
 def test_community_small_adjs_follow_the_recipe():
-    adjs = community_small_adjs(200, np.random.default_rng(1))
+    adjs = community_small_adjs(200, 1)
     assert adjs.shape == (200, 20, 20)
     assert np.array_equal(adjs, adjs.transpose(0, 2, 1))
     assert not adjs[:, np.arange(20), np.arange(20)].any()
@@ -286,7 +286,7 @@ def test_community_small_adjs_follow_the_recipe():
 def _tiny_config(seed=3):
     return AttrDict({
         "data": {"data": "tiny", "batch_size": B, "max_node_num": N,
-                 "max_feat_num": F},
+                 "max_feat_num": F, "test_split": 0.2},
         "sde": {k: {"type": "VP", "beta_min": 0.1, "beta_max": 1.0,
                     "num_scales": 4} for k in ("x", "adj")},
         "model": {"x": "ScoreNetworkX", "adj": "ScoreNetworkA", "conv": "GCN",
@@ -311,7 +311,7 @@ def test_cli_samples_from_a_config_file(tmp_path, capsys):
     (tmp_path / "config").mkdir()
     with open(tmp_path / "config" / "tiny.yaml", "w") as f:
         yaml.safe_dump(_tiny_config().to_dict(), f)
-    train = community_small_adjs(10, np.random.default_rng(0), max_node_num=N + 12)
+    train = community_small_adjs(10, 0, max_node_num=N + 12)
     np.save(tmp_path / "train.npy", train[:, :N, :N])
     out = tmp_path / "samples.npz"
     assert cli.main(["--type", "sample", "--config", "tiny", "--folder", str(tmp_path),
@@ -321,6 +321,38 @@ def test_cli_samples_from_a_config_file(tmp_path, capsys):
     assert report["samples"] == 5 and report["device"] == "cpu" and report["finite"]
     got = np.load(out)
     assert got["adj"].shape == (5, N, N) and got["x"].shape == (5, N, F)
+
+
+def test_cli_sample_draws_node_counts_from_the_train_split(tmp_path):
+    """``cli --type sample`` hands the Sampler the train split only (all but
+    the first int(test_split * M) graphs): its flags are the JAX
+    ``init_flags`` of the train graphs under the same seed, and not those
+    of the whole set."""
+    import yaml
+
+    from ccsd_tpu_torch import cli
+
+    cfg = _tiny_config()
+    (tmp_path / "config").mkdir()
+    with open(tmp_path / "config" / "tiny.yaml", "w") as f:
+        yaml.safe_dump(cfg.to_dict(), f)
+    sizes = [8, 8, 2, 3, 4, 5, 6, 7, 2, 3]  # the test split: the two of 8 nodes
+    adjs = np.zeros((len(sizes), N, N), np.float32)
+    for a, n in zip(adjs, sizes):  # paths: every node of the graph has an edge
+        a[np.arange(n - 1), np.arange(1, n)] = a[np.arange(1, n), np.arange(n - 1)] = 1
+    np.save(tmp_path / "adjs.npy", adjs)
+    out = tmp_path / "samples.npz"
+    assert cli.main(["--type", "sample", "--config", "tiny", "--folder", str(tmp_path),
+                     "--device", "cpu", "--num-samples", str(B),
+                     "--train-adjs", str(tmp_path / "adjs.npy"), "--out", str(out)]) == 0
+    flags = np.load(out)["flags"]
+    k = int(cfg.data.test_split * len(sizes))
+    graphs = [nx.path_graph(n) for n in sizes]
+    seed = int(cfg.sample.seed)
+    jcfg = JAttrDict({"data": {"max_node_num": N, "batch_size": B}})
+    np.testing.assert_array_equal(
+        flags, jinit_flags(graphs[k:], jcfg, B, rng=np.random.default_rng(seed)))
+    assert not np.array_equal(flags, init_flags(adjs, B, np.random.default_rng(seed)))
 
 
 @pytest.mark.parametrize("sample,expect", [
@@ -343,7 +375,7 @@ def test_sampler_builds_the_network_the_jax_sampler_builds(sample, expect):
 
 
 def test_sampler_on_cpu_returns_valid_graphs():
-    train = community_small_adjs(10, np.random.default_rng(0), max_node_num=N + 12)
+    train = community_small_adjs(10, 0, max_node_num=N + 12)
     train = train[:, :N, :N]
     res = Sampler(_tiny_config(), train, device="cpu").sample(num_samples=6)
     adj, flags = res["adj"], res["flags"]

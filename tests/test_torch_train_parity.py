@@ -170,7 +170,7 @@ def test_community_small_split_gives_one_train_and_one_test_batch():
     """community_small at test_split 0.2 and batch_size 128: an epoch is one
     train batch of 80 graphs and one test batch of 20."""
     cfg = get_config("community_small", 0)
-    adjs = loader.community_small_adjs(100, np.random.default_rng(0))
+    adjs = loader.community_small_adjs(100, 0)
     tr, te = loader.split(len(adjs), cfg.data.test_split)
     train = loader.ArrayDataset((adjs[tr],), cfg.data.batch_size, seed=0)
     test = loader.ArrayDataset((adjs[te],), cfg.data.batch_size, seed=0)
