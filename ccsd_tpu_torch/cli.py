@@ -15,10 +15,16 @@ graphs from the seed.  Training writes ``<folder>/checkpoints/<data>/
 as NAME) and prints one JSON line: epochs, the last epoch's train and test
 losses, train steps/s and the checkpoint.  Sampling takes the node counts
 from the dataset's train split (all but the first ``int(test_split * M)``
-graphs, as training splits it and the JAX sampler draws); the config's
-``sample.fused`` and ``sample.fast`` (both on when absent) pick the
-network path, as in ``Sampler``, and ``ckpt`` the
-weights (a ``_final`` checkpoint of a port run, for one).
+graphs, as training splits it and the JAX sampler draws) and follows the
+JAX sampler's protocol against the test split (the first graphs; the same
+``--seed`` gives the split the training run held out): ``len(test)``
+graphs unless ``--num-samples`` says otherwise, drawn from the seed
+``sample.seed``, scored by the four graph MMDs and, where the config sets
+``data.lifting_procedure``, the four lifted-CC MMDs; it prints one JSON
+line with both (``mmd``, ``cc_mmd``).  The config's ``sample.fused`` and
+``sample.fast`` (both on when absent) pick the network path, as in
+``Sampler``, and ``ckpt`` the weights (a ``_final`` checkpoint of a port
+run, for one).
 """
 
 from __future__ import annotations
@@ -75,8 +81,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             "device": str(trainer.device),
         }))
         return 0
-    train = adjs[split(len(adjs), float(config.data.test_split))[0]]
-    res = Sampler(config, train, device=args.device).sample(args.num_samples)
+    tr, te = split(len(adjs), float(config.data.test_split))
+    res = Sampler(config, adjs[tr], adjs[te], device=args.device).sample(args.num_samples)
     if args.out:
         np.savez(args.out, adj=res["adj"], x=res["x"], flags=res["flags"])
     print(json.dumps({
@@ -85,6 +91,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         "mean_edges": float(res["adj"].sum((1, 2)).mean() / 2),
         "sampling_time": res["sampling_time"],
         "steps_per_s": res["steps_per_s"],
+        "mmd": res.get("mmd"),
+        "cc_mmd": res.get("cc_mmd"),
+        "eval_seconds": res.get("eval_seconds"),
         "weights": res["weights"],
         "device": res["device"],
     }))

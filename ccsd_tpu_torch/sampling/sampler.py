@@ -1,16 +1,26 @@
-"""Graph sampler: weights -> PC reverse diffusion -> quantized graphs.
+"""Graph sampler: weights -> PC reverse diffusion -> quantized graphs -> MMD.
 
-Port of the graph path of ccsd_tpu/sampling/sampler.py:210-375 without the
-MMD evaluation.  As in the JAX package (:220-223), the models are built by
-``with_fused(defs, sample.fused, fast=sample.fast)``, both on by default:
-ScoreNetworkA takes the channel-folded path with bf16 head scores and the
-``blocksum`` final layer; ``sample.fused: false`` gives the unfused f32
-network, ``sample.fast: false`` the fused one in f32.  Weights come from the
-checkpoint the config names (``ckpt``): the port's own ``.pth``
+Port of the graph path of ccsd_tpu/sampling/sampler.py:210-433, without
+the trajectory figures.  As in the JAX package (:220-223), the models are
+built by ``with_fused(defs, sample.fused, fast=sample.fast)``, both on by
+default: ScoreNetworkA takes the channel-folded path with bf16 head scores
+and the ``blocksum`` final layer; ``sample.fused: false`` gives the unfused
+f32 network, ``sample.fast: false`` the fused one in f32.  Weights come
+from the checkpoint the config names (``ckpt``): the port's own ``.pth``
 (``training/trainer.py``) where one has that name, else a JAX
 ``.ckpt.pkl``; without a name, from the port's own seeded initialisation.
-``sample.use_ema`` picks the EMA weights of either.  Each round samples ``batch_size`` graphs;
-``sample`` runs ``ceil(num_samples / batch_size)`` rounds and returns numpy.
+``sample.use_ema`` picks the EMA weights of either.
+
+The evaluation protocol is the JAX sampler's (:243-258, :340-433): rounds
+of ``data.batch_size // sample.divide_batch`` graphs, ``ceil(len(test) /
+batch)`` of them, capped by ``sample.max_samples``; the first ``len(test)``
+graphs are kept, and with ``sample.eval`` on (the default) scored against
+the test split: the four graph MMDs (``mmd``) and, where
+``data.lifting_procedure`` is set and the dense CC incidence is tractable
+(``cc_eval_tractable``), the four lifted-CC MMDs (``cc_mmd``).  The kept
+graphs go to ``<folder>/samples/<data>/samples.npz`` (adjacency, x,
+flags), the port's counterpart of the JAX sampler's ``samples.pkl`` of
+networkx graphs.
 """
 
 from __future__ import annotations
@@ -18,17 +28,22 @@ from __future__ import annotations
 import math
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ccsd_tpu_torch import resolve_device
+from ccsd_tpu_torch.data.cc_codec import convert_graphs_to_CCs
 from ccsd_tpu_torch.data.loader import init_flags
 from ccsd_tpu_torch.diffusion.losses import get_score_fn
 from ccsd_tpu_torch.diffusion.sde import load_sde
 from ccsd_tpu_torch.diffusion.solvers import get_pc_sampler
+from ccsd_tpu_torch.eval.cc_stats import eval_CC_list
+from ccsd_tpu_torch.eval.graphs import adjs_to_graphs
+from ccsd_tpu_torch.eval.stats import eval_graph_list, load_eval_settings
 from ccsd_tpu_torch.models.registry import load_model, load_model_params, with_fused
+from ccsd_tpu_torch.ops.cells import rank2_dim
 from ccsd_tpu_torch.ops.masks import quantize
 from ccsd_tpu_torch.training.checkpoint import (
     ckpt_path,
@@ -40,8 +55,47 @@ from ccsd_tpu_torch.training.checkpoint import (
 )
 from ccsd_tpu_torch.utils.config import AttrDict
 from ccsd_tpu_torch.utils.from_jax import load_jax_params
+from ccsd_tpu_torch.utils.logger import Logger
 
 NAMES = ("x", "adj")
+CC_EVAL_MAX_CELLS = 200_000  # sample.cc_eval_max_cells when absent, as in JAX
+
+
+def worker_kwargs_from_config(data_cfg) -> Dict[str, Any]:
+    """CC-eval worker kwargs from a config's data section (JAX
+    ``worker_kwargs_from_config``, sampler.py:116-125)."""
+    return dict(
+        min_node_val=data_cfg.min_node_val, max_node_val=data_cfg.max_node_val,
+        node_label=data_cfg.node_label, min_edge_val=data_cfg.min_edge_val,
+        max_edge_val=data_cfg.max_edge_val, edge_label=data_cfg.edge_label,
+        d_min=data_cfg.d_min, d_max=data_cfg.d_max, N=data_cfg.max_node_num,
+    )
+
+
+def cc_eval_cells(cfg) -> int:
+    """Columns of the dense eval incidence, sum_k C(N, k) for k in
+    [d_min, d_max] (3 and 3 when absent)."""
+    d = cfg.data
+    return rank2_dim(int(d.max_node_num), int(d.get("d_min", 3)), int(d.get("d_max", 3)))[1]
+
+
+def cc_eval_tractable(cfg) -> bool:
+    """The JAX sampler's gate on the lifted-CC eval (``_cc_eval_tractable``,
+    sampler.py:186-206): at most ``sample.cc_eval_max_cells`` cells (grid's
+    N = 361 gives ~7.8e6, an incidence no implementation can hold)."""
+    return cc_eval_cells(cfg) <= int(cfg.sample.get("cc_eval_max_cells", CC_EVAL_MAX_CELLS))
+
+
+def sampling_rounds(batch_size: int, num_test: int, divide_batch=None,
+                    max_samples=None) -> Tuple[int, int]:
+    """(graphs a round, rounds) of the evaluation protocol (JAX
+    sampler.py:244-258)."""
+    if divide_batch:
+        batch_size //= int(divide_batch)
+    n_rounds = max(1, math.ceil(num_test / batch_size))
+    if max_samples:
+        n_rounds = min(n_rounds, max(1, math.ceil(int(max_samples) / batch_size)))
+    return batch_size, n_rounds
 
 
 class Sampler:
@@ -52,13 +106,18 @@ class Sampler:
     or the training sections (``data``, ``sde``, ``model``) for a seeded
     init.
     ``train_adjs`` (M, N, N) is the training set the node counts are drawn
-    from.  The device defaults to CUDA and raises when there is none.
+    from; ``test_adjs`` the test split the protocol sizes its output by and
+    scores it against.  The device defaults to CUDA and raises when there
+    is none.  ``log`` prints the MMDs as the JAX sampler logs them.
     """
 
-    def __init__(self, config, train_adjs: np.ndarray, device=None):
+    def __init__(self, config, train_adjs: np.ndarray, test_adjs: Optional[np.ndarray] = None,
+                 device=None, log: bool = True):
         self.config = config
         self.train_adjs = np.asarray(train_adjs, np.float32)
+        self.test_adjs = None if test_adjs is None else np.asarray(test_adjs, np.float32)
         self.device = resolve_device(device)
+        self.logger = Logger(verbose=log)
         if config.get("is_cc", False):
             raise NotImplementedError("CC sampling is not ported yet")
 
@@ -102,11 +161,23 @@ class Sampler:
         return configt, models, source
 
     def sample(self, num_samples: Optional[int] = None) -> Dict[str, Any]:
+        """Sample by the evaluation protocol, or ``num_samples`` graphs in
+        rounds of the protocol's batch when that is given (no cap); with no
+        test split and no count, one round.  Returns the kept graphs as
+        numpy (``adj``, ``x``, ``flags``), ``finite``, ``sampling_time`` and
+        ``steps_per_s`` of the sampling loop, and with a test split and
+        ``sample.eval`` on, ``mmd``, ``cc_mmd`` (or None) and
+        ``eval_seconds``."""
         cfg = self.config
         configt, models, source = self.load_models()
-        batch_size = int(configt.data.batch_size)
-        n = batch_size if num_samples is None else int(num_samples)
-        n_rounds = max(1, math.ceil(n / batch_size))
+        test = self.test_adjs
+        batch_size, n_rounds = sampling_rounds(
+            int(configt.data.batch_size), 1 if test is None else len(test),
+            cfg.sample.get("divide_batch"), cfg.sample.get("max_samples"))
+        n = batch_size if test is None else len(test)
+        if num_samples is not None:
+            n = int(num_samples)
+            n_rounds = max(1, math.ceil(n / batch_size))
         N = int(configt.data.max_node_num)
         sdes = {k: load_sde(configt.sde[k]) for k in NAMES}
         sampling_fn = get_pc_sampler(
@@ -135,7 +206,7 @@ class Sampler:
             xs.append(out.x.cpu().numpy())
             flags_all.append(flags.numpy())
         seconds = time.perf_counter() - t0
-        return {
+        results = {
             "adj": np.concatenate(adjs)[:n],
             "x": np.concatenate(xs)[:n],
             "flags": np.concatenate(flags_all)[:n],
@@ -145,4 +216,53 @@ class Sampler:
             "weights": source,
             "device": str(self.device),
         }
+        if test is not None and cfg.sample.get("eval", True):
+            t0 = time.perf_counter()
+            results.update(self.evaluate(test, results["adj"]))
+            results["eval_seconds"] = time.perf_counter() - t0
+        self.save_samples(results)
+        return results
 
+    def evaluate(self, test_adjs: np.ndarray, adjs: np.ndarray) -> Dict[str, Any]:
+        """``mmd`` and ``cc_mmd`` (None where the config has no lift or the
+        lift is intractable) of ``adjs`` against ``test_adjs``, logged as
+        the JAX sampler logs them."""
+        cfg = self.config
+        test_graphs, graphs = adjs_to_graphs(test_adjs), adjs_to_graphs(adjs)
+        methods, kernels = load_eval_settings()
+        out: Dict[str, Any] = {
+            "mmd": eval_graph_list(test_graphs, graphs, methods=methods, kernels=kernels),
+            "cc_mmd": None,
+        }
+        lift = cfg.data.get("lifting_procedure")
+        if lift and not cc_eval_tractable(cfg):
+            self.logger.log(
+                f"lifted-CC eval skipped: {cc_eval_cells(cfg)} candidate cells at "
+                f"N={cfg.data.max_node_num} exceeds cc_eval_max_cells="
+                f"{int(cfg.sample.get('cc_eval_max_cells', CC_EVAL_MAX_CELLS))}")
+        elif lift:
+            lift_kw = dict(lifting_procedure=lift,
+                           lifting_procedure_kwargs=cfg.data.get("lifting_procedure_kwargs"),
+                           max_nb_nodes=cfg.data.max_node_num)
+            out["cc_mmd"] = eval_CC_list(
+                convert_graphs_to_CCs(test_graphs, **lift_kw),
+                convert_graphs_to_CCs(graphs, **lift_kw),
+                worker_kwargs_from_config(cfg.data),
+                cc_nb_eval=cfg.sample.get("cc_nb_eval", 1000))
+        for k, v in out["mmd"].items():
+            self.logger.log(f"{k:9s} : {v:.6f}")
+        for k, v in (out["cc_mmd"] or {}).items():
+            self.logger.log(f"{k:24s} : {v:.6f}")
+        return out
+
+    def save_samples(self, results: Dict[str, Any]) -> str:
+        """The kept graphs to ``<folder>/samples/<data>/samples.npz``,
+        written whole or not at all."""
+        cfg = self.config
+        out_dir = os.path.join(cfg.get("folder", "./"), "samples", str(cfg.data.data))
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, "samples.npz")
+        tmp = os.path.join(out_dir, f"samples.{os.getpid()}.tmp.npz")
+        np.savez(tmp, adj=results["adj"], x=results["x"], flags=results["flags"])
+        os.replace(tmp, path)
+        return path

@@ -58,6 +58,16 @@ Phases, each printing one line of its own results:
               must give the trainer's EMA networks' outputs exactly; and a
               run resumed from the checkpoint the run wrote at epoch 100,
               which must end equal to it.
+   eval    -- the sampler's evaluation protocol on the 200-epoch checkpoint
+              of the train phase, on the default path and with
+              ``sample.fused: false``: 20 test graphs, one round of B = 128,
+              1000 steps through ``Sampler``, scored by the four graph MMDs
+              and the four lifted-CC MMDs (path_based lift) against the test
+              split; the orbit counter built from the port's copy must equal
+              the brute-force counter on every test and sampled graph, every
+              MMD must be finite, every MMD of the test split against itself
+              exactly 0, and each run's launch counts those phase 5 asserts;
+              prints each path's eight MMDs and the host's eval seconds.
 7. timing  -- CUDA-event times of each kernel and its plain version at the
               path's shapes and layouts (device time from a CUDA-graph
               replay, and the time of an eager host loop), beside the
@@ -787,6 +797,24 @@ def smoke_sampler(config, train_adjs):
     return SmokeSampler(config, train_adjs)
 
 
+def sample_launches(config, fused):
+    """The exact launches of one sampling round: every score evaluation
+    (one a predictor step, one a corrector step) launches ``gcn_aggregate``
+    once a ScoreNetworkX layer, and ``channel_agg`` and ``gmh_scores``
+    (fused) or ``gmh_attention`` (unfused) once an AttentionLayer."""
+    from ccsd_tpu_torch.kernels import LAUNCHES
+
+    steps = int(config.sde.adj.num_scales)
+    evals = steps * (int(config.sampler.n_steps) + 1
+                     if config.sampler.corrector == "Langevin" else 1)
+    per_layer = ("channel_agg", "gmh_scores") if fused else ("gmh_attention",)
+    expect = {k: 0 for k in LAUNCHES}
+    expect["gcn_aggregate"] = evals * int(config.model.depth)
+    for k in per_layer:
+        expect[k] = evals * int(config.model.num_layers)
+    return expect
+
+
 def sample_once(train_adjs, fused):
     """One 1000-step sample of 128 graphs after a 10-step warm-up; checks
     the graphs and the exact launch counts; returns the counts."""
@@ -796,13 +824,7 @@ def sample_once(train_adjs, fused):
     smoke_sampler(sample_config(steps=10, fused=fused), train_adjs).sample(128)  # warm-up
     config = sample_config(fused=fused)
     steps = int(config.sde.adj.num_scales)
-    evals = steps * (int(config.sampler.n_steps) + 1
-                     if config.sampler.corrector == "Langevin" else 1)
-    per_layer = ("channel_agg", "gmh_scores") if fused else ("gmh_attention",)
-    expect = {k: 0 for k in LAUNCHES}
-    expect["gcn_aggregate"] = evals * int(config.model.depth)
-    for k in per_layer:
-        expect[k] = evals * int(config.model.num_layers)
+    expect = sample_launches(config, fused)
 
     sampler = smoke_sampler(config, train_adjs)
     reset_launches()
@@ -1150,7 +1172,72 @@ def phase_train(config, train_adjs, dev):
     check(resumed.history == trainer.history, "resumed losses differ from the uninterrupted run")
     say("train_resume", resumed_from_epoch=TRAIN_EPOCHS // 2, to=resumed.epoch,
         equals_uninterrupted=True)
-    return launches
+    return launches, f"{name}_final"
+
+
+# ------------------------------------------------------------------ eval --
+
+def check_orbits(graphs, what):
+    """The orbit library's counts equal the brute-force counter's."""
+    from ccsd_tpu_torch.eval.graphs import edge_list
+    from ccsd_tpu_torch.eval.orbits import orbit_counts, orbit_counts_py
+
+    for i, g in enumerate(graphs):
+        brute = orbit_counts_py(g.num_nodes, edge_list(g).tolist())
+        check((orbit_counts(g) == brute).all(),
+              f"{what} graph {i}: the orbit library disagrees with the brute-force counter")
+
+
+def phase_eval(config, ckpt, train_adjs):
+    """The evaluation protocol on the train phase's checkpoint ``ckpt``, on
+    both sampler paths, with its gates."""
+    import math
+
+    from ccsd_tpu_torch.data.cc_codec import convert_graphs_to_CCs
+    from ccsd_tpu_torch.data.loader import split
+    from ccsd_tpu_torch.eval import cc_stats, orbits, stats
+    from ccsd_tpu_torch.eval.graphs import adjs_to_graphs
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.sampling.sampler import Sampler, worker_kwargs_from_config
+
+    t0 = time.perf_counter()
+    lib = orbits.library()
+    say("eval_orbits", library=os.path.relpath(lib._name, HERE),
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    tr, te = split(len(train_adjs), float(config.data.test_split))
+    train, test = train_adjs[tr], train_adjs[te]
+    test_graphs = adjs_to_graphs(test)
+    check_orbits(test_graphs, "test")
+    lift = dict(lifting_procedure=config.data.lifting_procedure,
+                lifting_procedure_kwargs=config.data.lifting_procedure_kwargs,
+                max_nb_nodes=int(config.data.max_node_num))
+    test_ccs = convert_graphs_to_CCs(test_graphs, **lift)
+    self_mmd = {**stats.eval_graph_list(test_graphs, test_graphs, *stats.load_eval_settings()),
+                **cc_stats.eval_CC_list(test_ccs, test_ccs, worker_kwargs_from_config(config.data))}
+    say("eval_self", graphs=len(test_graphs), mmd=json.dumps(self_mmd))
+    check(all(v == 0.0 for v in self_mmd.values()), f"test split against itself: {self_mmd}")
+
+    for fused in (True, False):
+        path = "default (sample.fused, sample.fast on)" if fused else "sample.fused: false"
+        cfg = train_config(os.path.join(HERE, "build", "smoke_train"), "smoke", TRAIN_EPOCHS)
+        cfg.ckpt, cfg.sample.fused = ckpt, fused
+        sampler = Sampler(cfg, train, test)
+        reset_launches()
+        res = sampler.sample()
+        launches = dict(LAUNCHES)
+        expect = sample_launches(cfg, fused)
+        check(launches == expect, f"eval {path}: launches {launches}, expected exactly {expect}")
+        check(res["adj"].shape == (len(test), 20, 20) and res["finite"],
+              f"eval {path}: {res['adj'].shape} graphs, finite {res['finite']}")
+        mmds = {**res["mmd"], **res["cc_mmd"]}
+        check(len(mmds) == 8 and all(math.isfinite(v) for v in mmds.values()),
+              f"eval {path}: MMDs {mmds}")
+        check_orbits(adjs_to_graphs(res["adj"]), f"{path} sampled")
+        say("eval", path=repr(path), weights=repr(res["weights"]), graphs=len(test),
+            batch=int(cfg.data.batch_size), steps=int(cfg.sde.adj.num_scales),
+            steps_per_s=f"{res['steps_per_s']:.2f}", mmd=json.dumps(res["mmd"]),
+            cc_mmd=json.dumps(res["cc_mmd"]), eval_seconds=f"{res['eval_seconds']:.3f}",
+            card=repr(smi_name_power()), launches=json.dumps(launches))
 
 
 def timing_specs():
@@ -1406,9 +1493,11 @@ def main(argv) -> int:
         phase = "train_grads"
         phase_train_grads(config, train_adjs, dev)
         phase = "train"
-        train_launches = phase_train(config, train_adjs, dev)
+        train_launches, ckpt = phase_train(config, train_adjs, dev)
         for k in ("gcn_aggregate_bwd", "gmh_attention_bwd"):  # on the training path only
             launches[k] = train_launches[k]
+        phase = "eval"
+        phase_eval(config, ckpt, train_adjs)
         phase = "timing"
         rows = phase_timing(shapes, dev, launches, errs)
         if args.profile:

@@ -1,8 +1,9 @@
 """Package boundaries of the port and its on-card kernel checks.
 
 * Nothing in ccsd_tpu_torch/ or chip_smoke.py imports jax, jaxlib, optax,
-  flax or ccsd_tpu (an AST walk), and every module imports in a process
-  where those cannot be imported.
+  flax or ccsd_tpu, nor networkx, toponetx or sklearn, which the card's
+  machine lacks (an AST walk), and every module imports in a process
+  where none of those can be imported.
 * Entry points default to CUDA and raise without it.
 * Tests marked ``cuda`` run each kernel against its plain version on the
   card; they skip where there is no CUDA device (decided inside the test).
@@ -25,11 +26,11 @@ from ccsd_tpu_torch import default_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "ccsd_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "ccsd_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "ccsd_tpu", "networkx", "toponetx", "sklearn")
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "port_quality_run.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -43,7 +44,9 @@ def _modules():
 def test_import_guard_covers_every_kernel_module():
     rel = {os.path.relpath(p, ROOT) for p in _sources()}
     assert {"chip_smoke.py", "ccsd_tpu_torch/kernels/channel_agg.py",
-            "ccsd_tpu_torch/kernels/gmh_scores.py"} <= rel
+            "ccsd_tpu_torch/kernels/gmh_scores.py", "ccsd_tpu_torch/eval/stats.py",
+            "ccsd_tpu_torch/eval/orbits/__init__.py", "ccsd_tpu_torch/data/cc_codec.py",
+            "scripts/port_quality_run.py"} <= rel
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -64,7 +67,11 @@ def test_no_jax_imports(path):
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert {"ccsd_tpu_torch.sampling.sampler", "ccsd_tpu_torch.kernels.channel_agg",
-            "ccsd_tpu_torch.kernels.gmh_scores"} <= set(mods)
+            "ccsd_tpu_torch.kernels.gmh_scores", "ccsd_tpu_torch.eval.mmd",
+            "ccsd_tpu_torch.eval.graphs", "ccsd_tpu_torch.eval.stats",
+            "ccsd_tpu_torch.eval.orbits", "ccsd_tpu_torch.eval.cc_stats",
+            "ccsd_tpu_torch.data.complex", "ccsd_tpu_torch.data.lifts",
+            "ccsd_tpu_torch.data.cc_codec", "ccsd_tpu_torch.ops.cells"} <= set(mods)
     script = (
         "import importlib, sys\n"
         f"for m in {FORBIDDEN!r}:\n    sys.modules[m] = None\n"
