@@ -9,8 +9,10 @@ Usage:
         [--train-adjs adjs.npy] [--out samples.npz]
 
 The dataset is ``--train-adjs`` (a (M, N, N) numpy array of padded
-adjacencies); without it, community_small generates the JAX package's 100
-graphs from the seed.  Training writes ``<folder>/checkpoints/<data>/
+adjacencies); without it, community_small, grid_small and grid generate
+the JAX package's 100 graphs from the seed (the other datasets need
+``--train-adjs``: their source files are not in the tree).  Training
+writes ``<folder>/checkpoints/<data>/
 <train.name>_<time>_final.pth`` (``--resume NAME`` continues the run saved
 as NAME) and prints one JSON line: epochs, the last epoch's train and test
 losses, train steps/s and the checkpoint.  Sampling takes the node counts

@@ -432,4 +432,258 @@ __device__ __forceinline__ void store_pairs(float* __restrict__ out,
   }
 }
 
+// -------------------------------------------- tiled scores (N > 64)
+//
+// A graph whose Q, K and N x N head sums do not fit one block (N > 64: at
+// grid's N = 361 the sums of one head alone are 521 KB against 227 KB) is
+// cut into tiles of kTile rows.  A block takes one tile pair (I, J), I <= J,
+// of one graph for a group of G channels; the pairs come from the wrapper's
+// plan (pairs[2 p], pairs[2 p + 1] = I, J), which covers every pair once.
+// Per channel g the block stages the Q and K rows of both tiles and takes
+//   T_IJ[n, m] = sum_h tanh(s_h(Q_n, K_m) / score_div)   n in I, m in J
+//   T_JI[m, n] = sum_h tanh(s_h(Q_m, K_n) / score_div)   m in J, n in I
+// into shared memory; after the group's channels it writes
+//   out[n, m, g] = out[m, n, g] = (T_IJ[n, m] / H + T_JI[m, n] / H) / 2
+// for the rows of I and then of J, as runs over (m, g) (with G = C, whole
+// rows of a tile's N_J x C floats), so the symmetrisation needs no second
+// pass and no scratch.  A diagonal pair (I == J) takes T_II once, reads it
+// both ways and writes its tile once.  The rounding points of the one-block
+// stage are kept: f32, or (kBf16) Q and K rounded to bf16 (a pass over the
+// staged rows), products exact in f32 and summed in f32 in d order, each
+// s_h rounded to bf16 once, tanhf and the head sums in f32.  The products
+// are f32 FMAs on the bf16-valued operands (a bf16 x bf16 product is exact
+// in f32, so an FMA rounds only its sum): the tensor cores would add in
+// another order, and at these sizes the tanh, not the products, sets the
+// time.
+//
+// Work of a block, 256 threads: per channel, thread t takes direction
+// t / 128 (IJ, or JI; the JI threads idle on a diagonal pair) and a patch
+// of 2 rows x 4 columns, rows pm + 16 i and columns pn + 8 j (pm = p / 8,
+// pn = p % 8, p = t % 128): per head ds d cost 2 + 4 row loads (16-byte
+// loads of four d where ds % 4 == 0) for 8 ds FMAs, and 8 tanhf.  Rows
+// past a ragged tile's end read its last row and are never stored.
+//
+// Shared layout (floats): two stages of [Q_I | K_I | Q_J | K_J], each
+// kTile x ld (ld4(A): 16-byte copies, eight distinct K rows a warp in
+// distinct banks), so the copies of channel g + 1 land while channel g is
+// computed; then T_IJ and T_JI of the G channels, tile_plane(G) floats a
+// channel, rows of kTileLd floats (odd).  tile_plane(G) = 32 / G (mod 32)
+// for G dividing 32, so the store phase's reads of both T (a warp over
+// 32 / G columns x G channels, once along a row and once down a column)
+// fall in distinct banks.
+
+constexpr int kTile = 32;        // rows of a tile
+constexpr int kTileLd = kTile + 1;
+
+__host__ __device__ constexpr int tile_plane(int G) {
+  return kTile * kTileLd + (32 % G == 0 ? (32 / G) & 31 : 1);
+}
+
+struct TiledScoresLayout {
+  int ld;     // row stride of the staged Q and K
+  int stage;  // floats of one stage: Q_I, K_I, Q_J, K_J
+  int t;      // offset of T_IJ (T_JI follows at t + G * tile_plane(G))
+  int total;
+  __host__ __device__ TiledScoresLayout(int A, int G) {
+    ld = ld4(A);
+    stage = 4 * kTile * ld;
+    t = 2 * stage;
+    total = t + 2 * G * tile_plane(G);
+  }
+};
+
+// The f32 value rounded to the nearest bf16 (ties to even), as an f32.
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// One patch of T for one channel: rows r[i] of Qr against rows c[j] of Kc,
+// all heads, into Tp (rows of kTileLd floats).
+template <bool kBf16>
+__device__ __forceinline__ void tile_patch(const float* __restrict__ Qr,
+                                           const float* __restrict__ Kc, int ld, int pm,
+                                           int pn, int nr, int nc, int H, int ds, float inv,
+                                           float* __restrict__ Tp) {
+  int rq[2], rk[4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) rq[i] = min(pm + 16 * i, nr - 1) * ld;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) rk[j] = min(pn + 8 * j, nc - 1) * ld;
+  float acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const bool vec = (ds & 3) == 0 && (ld & 3) == 0;
+  for (int h = 0; h < H; ++h) {
+    float s[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    int d = h * ds;
+    if (vec)
+      for (; d < (h + 1) * ds; d += 4) {
+        float4 a[2], b[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) a[i] = *reinterpret_cast<const float4*>(Qr + rq[i] + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(Kc + rk[j] + d);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+            s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+            s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+            s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+          }
+      }
+    for (; d < (h + 1) * ds; ++d) {
+      float a[2], b[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) a[i] = Qr[rq[i] + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Kc[rk[j] + d];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[i][j] += tanhf((kBf16 ? bf16_round(s[i][j]) : s[i][j]) * inv);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) Tp[(pm + 16 * i) * kTileLd + pn + 8 * j] = acc[i][j];
+}
+
+// pairs: the plan, (I, J) of every pair; grid (pairs, channel groups, B).
+// q, k: (B, C, N, A) in strides (b, c, n), the feature stride 1.
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads)
+tiled_scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const int* __restrict__ pairs, float* __restrict__ out, int C, int N,
+                    int A, int H, int ds, int G, long long qsb, long long qsc, long long qsn,
+                    long long ksb, long long ksc, long long ksn, float score_div) {
+  extern __shared__ __align__(16) float smem[];
+  const TiledScoresLayout L(A, G);
+  const int I = pairs[2 * blockIdx.x], J = pairs[2 * blockIdx.x + 1];
+  const bool diag = I == J;
+  const int I0 = I * kTile, J0 = J * kTile;
+  const int nI = min(kTile, N - I0), nJ = min(kTile, N - J0);
+  const int b = blockIdx.z, c0 = blockIdx.y * G;
+  const int nch = min(G, C - c0);
+  const int plane = tile_plane(G);
+  float* tIJ = smem + L.t;
+  float* tJI = diag ? tIJ : tIJ + G * plane;
+  const int mat = kTile * L.ld;  // floats of one staged matrix
+
+  // stage s holds Q_I, K_I at 0, mat and Q_J, K_J at 2 mat, 3 mat
+  auto stage = [&](int g, float* dst) {
+    const float* qc = q + b * qsb + (c0 + g) * qsc;
+    const float* kc = k + b * ksb + (c0 + g) * ksc;
+    copy_tile_async(dst, L.ld, qc + I0 * qsn, qsn, 1, nI, A);
+    copy_tile_async(dst + mat, L.ld, kc + I0 * ksn, ksn, 1, nI, A);
+    if (!diag) {
+      copy_tile_async(dst + 2 * mat, L.ld, qc + J0 * qsn, qsn, 1, nJ, A);
+      copy_tile_async(dst + 3 * mat, L.ld, kc + J0 * ksn, ksn, 1, nJ, A);
+    }
+  };
+  const float inv = 1.0f / score_div;
+  const int t = threadIdx.x, dir = t >> 7, p = t & 127, pm = p >> 3, pn = p & 7;
+  const int warp = t >> 5, lane = t & 31, nwarps = blockDim.x >> 5;
+
+  stage(0, smem);
+  cp_async_commit();
+  for (int g = 0; g < nch; ++g) {
+    float* cur = smem + (g & 1) * L.stage;
+    if (g + 1 < nch) {
+      stage(g + 1, smem + ((g + 1) & 1) * L.stage);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kBf16) {  // Q and K rounded to bf16, every staged element once: rows by warp
+      const int rows = diag ? 2 * kTile : 4 * kTile;
+      for (int r = warp; r < rows; r += nwarps)
+        for (int c = lane; c < A; c += 32) {
+          float& v = cur[r * L.ld + c];
+          v = bf16_round(v);
+        }
+      __syncthreads();
+    }
+    if (ablated(kHeadSums)) {
+      if (dir == 0 || !diag) {
+        float* Tp = (dir ? tJI : tIJ) + g * plane;
+        for (int i = 0; i < 2; ++i)
+          for (int j = 0; j < 4; ++j) Tp[(pm + 16 * i) * kTileLd + pn + 8 * j] = 0.f;
+      }
+    } else if (dir == 0) {  // rows of I against K_J (K_I on a diagonal pair)
+      tile_patch<kBf16>(cur, cur + (diag ? 1 : 3) * mat, L.ld, pm, pn, nI, diag ? nI : nJ, H,
+                        ds, inv, tIJ + g * plane);
+    } else if (!diag) {  // rows of J against K_I
+      tile_patch<kBf16>(cur + 2 * mat, cur + mat, L.ld, pm, pn, nJ, nI, H, ds, inv,
+                        tJI + g * plane);
+    }
+    __syncthreads();  // T of channel g complete; stage g & 1 free for g + 2
+  }
+  if (ablated(kStore)) return;
+
+  // rows of I (pass 0), then of J (pass 1, off the diagonal), a warp an
+  // output row and its lanes along the row's run of (column, channel):
+  // both entries of a pair from the same two sums in the same order, so
+  // the map is exactly symmetric.  1/H multiplies (exact for a power of
+  // two, as the 4 heads of every config); a power-of-two group splits a
+  // lane's index by a shift, with no integer division
+  const float ih = 1.0f / static_cast<float>(H);
+  const bool pow2 = (nch & (nch - 1)) == 0;
+  const int gshift = __ffs(nch) - 1;
+  float* ob = out + static_cast<size_t>(b) * N * N * C + c0;
+  for (int pass = 0; pass < (diag ? 1 : 2); ++pass) {
+    const int nr = pass ? nJ : nI, nc = pass ? nI : nJ;
+    const int r0 = pass ? J0 : I0, cc0 = pass ? I0 : J0;
+    for (int r = warp; r < nr; r += nwarps) {
+      float* orow = ob + (static_cast<size_t>(r0 + r) * N + cc0) * C;
+      for (int j = lane; j < nc * nch; j += 32) {
+        const int cidx = pow2 ? j >> gshift : j / nch, g = j - cidx * nch;
+        const int n = pass ? cidx : r, m = pass ? r : cidx;  // n in I, m in J
+        const float a = tIJ[g * plane + n * kTileLd + m];
+        const float bb = tJI[g * plane + m * kTileLd + n];
+        orow[cidx * C + g] = (a * ih + bb * ih) * 0.5f;
+      }
+    }
+  }
+}
+
+// Launch over the wrapper's plan of npairs tile pairs; the cudaError_t of
+// the launch (0 on success).  The kernel's shared-memory limit is raised at
+// every launch that needs more than the default 48 KB, not once behind a
+// static flag: two libraries include this launcher, and a function-local
+// static of a template is one symbol shared by every library loaded (a
+// unique global symbol), so a flag set by one would skip the other's call.
+template <bool kBf16>
+int tiled_scores_launch(const float* q, const float* k, const int* pairs, float* out, int B,
+                        int C, int N, int A, int H, int ds, int G, int npairs, long long qsb,
+                        long long qsc, long long qsn, long long ksb, long long ksc,
+                        long long ksn, float score_div, cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(float)) * TiledScoresLayout(A, G).total;
+  if (G < 1 || smem > kMaxSmem || B > 65535) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(tiled_scores_kernel<kBf16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid(npairs, cdiv(C, G), B);
+  tiled_scores_kernel<kBf16><<<grid, kThreads, smem, stream>>>(
+      q, k, pairs, out, C, N, A, H, ds, G, qsb, qsc, qsn, ksb, ksc, ksn, score_div);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace gmh

@@ -168,3 +168,67 @@ extern "C" int gmh_scores_run(const float* q, const float* k, float* out,
               : launch<false>(q, k, out, B, C, N, A, H, ds, G, qsb, qsc, qsn,
                               ksb, ksc, ksn, score_div, s);
 }
+
+// ------------------------------------------------------ tiled (N > 64)
+//
+// Above N = 64 a graph's Q, K and N x N head sums do not fit one block: the
+// tile-pair stage of gmh_common.cuh takes over, a block per (tile pair,
+// channel group, graph) of the wrapper's plan, in f32 or with the bf16
+// path's rounding points.  What bounds it on H100 at grid's widest layer
+// (B = 8, C = 8, N = 361, attn 32, 4 heads): 5.9 MB of Q and K read and
+// 33.4 MB of maps written (11.7 us at 3.35 TB/s), 0.53 GFLOP of products
+// (8 us at 67 TFLOP/s), and 33.4 M tanhf, each a sequence of instructions
+// with two multi-function-unit operations (exp and reciprocal) on its
+// exp branch: the tanh, not the bytes, is expected to set the floor
+// (gmh_tanh_rate_run measures its rate on the card).
+
+extern "C" int gmh_tiled_scores_smem(int A, int G) {
+  return static_cast<int>(sizeof(float)) * gmh::TiledScoresLayout(A, G).total;
+}
+
+// pairs: npairs x (I, J), the wrapper's plan; bf16 != 0 selects the bf16
+// rounding points.  Returns the cudaError_t of the launch (0 on success).
+extern "C" int gmh_tiled_scores_run(const float* q, const float* k, const int* pairs,
+                                    float* out, int B, int C, int N, int A, int H, int ds,
+                                    int G, int npairs, long long qsb, long long qsc,
+                                    long long qsn, long long ksb, long long ksc,
+                                    long long ksn, float score_div, int bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? gmh::tiled_scores_launch<true>(q, k, pairs, out, B, C, N, A, H, ds, G, npairs,
+                                               qsb, qsc, qsn, ksb, ksc, ksn, score_div, s)
+              : gmh::tiled_scores_launch<false>(q, k, pairs, out, B, C, N, A, H, ds, G,
+                                                npairs, qsb, qsc, qsn, ksb, ksc, ksn,
+                                                score_div, s);
+}
+
+// ------------------------------------------------- the tanhf rate probe
+//
+// Not a kernel of the path: a measurement of what one tanhf costs on the
+// card, for the floor the tanh sets under the score kernels.  Each thread
+// runs eight independent chains of v = 1.5 tanhf(v) + 0.1 (one FMA beside
+// each tanhf), whose values settle near 1.45: the exp branch of tanhf,
+// which the score kernels' larger arguments take.  tanhf calls:
+// blocks x 256 x iters x 8.
+
+namespace {
+
+__global__ void __launch_bounds__(256) tanh_rate_kernel(float* out, int iters) {
+  float v[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) v[u] = 1e-3f * static_cast<float>(threadIdx.x + 37 * u);
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = fmaf(1.5f, tanhf(v[u]), 0.1f);
+  float sum = 0.f;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) sum += v[u];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
+}
+
+}  // namespace
+
+// out: blocks x 256 floats.  Returns the cudaError_t of the launch.
+extern "C" int gmh_tanh_rate_run(float* out, int blocks, int iters, void* stream) {
+  tanh_rate_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(out, iters);
+  return (int)cudaGetLastError();
+}

@@ -6,11 +6,11 @@ padded adjacencies instead of a list of graphs.  Port copies of
 ccsd_tpu/data/loader.py: ``init_features`` (:97-124), ``init_flags`` (the
 graph branch of :127-145), ``ArrayDataset`` (:160-209, single-process) and
 ``_split`` (:212-216); with the same seed they give the JAX package's
-features, split and batch order exactly.  ``community_small_adjs`` makes
-such an array by the JAX package's community_small recipe
-(ccsd_tpu/data/generators.py:20-48, 78-80, 88-115, 196-204) with numpy
-and the standard library only, graph for graph and edge for edge the
-graphs ``gen_graph_list`` gives after ``np.random.seed(seed)``.
+features, split and batch order exactly.  ``community_small_adjs`` and
+``grid_adjs`` make such an array by the JAX package's community_small and
+grid recipes (ccsd_tpu/data/generators.py:20-48, 77-84, 87-113, 196-225)
+with numpy and the standard library only, graph for graph and edge for
+edge the graphs ``gen_graph_list`` gives after ``np.random.seed(seed)``.
 """
 
 from __future__ import annotations
@@ -175,3 +175,44 @@ def community_small_adjs(num: int, seed: Union[int, np.random.RandomState],
         a = n_community(rs, num_communities, int(rs.choice(sizes)))
         out[g, :a.shape[0], :a.shape[0]] = a
     return out
+
+
+def grid_adjs(num: int, seed: Union[int, np.random.RandomState], max_node_num: int,
+              m_range: Sequence[int], n_range: Sequence[int]) -> np.ndarray:
+    """(num, max_node_num, max_node_num) padded adjacencies of the grid
+    recipes as the JAX package generates them (generators.py:206-225):
+    ``np.random.seed(seed)`` then ``gen_graph_list("grid", {"m": m_range,
+    "n": n_range}, num)``.  ``GraphGenerator`` draws m, then n, one
+    ``np.random.choice`` each in the dict's order, and builds
+    ``nx.grid_2d_graph(m, n)``, whose nodes (i, j) networkx numbers
+    row-major, i n + j; the edges join (i, j) to (i + 1, j) and to
+    (i, j + 1).  No draw is rejected: the recipes set no node bounds and
+    every grid has more than one node.  ``seed`` may be a RandomState, which
+    the draws advance."""
+    rs = seed if isinstance(seed, np.random.RandomState) else np.random.RandomState(seed)
+    m_range, n_range = list(m_range), list(n_range)
+    out = np.zeros((num, max_node_num, max_node_num), np.float32)
+    for g in range(num):
+        m, n = int(rs.choice(m_range)), int(rs.choice(n_range))
+        if m * n > max_node_num:
+            raise ValueError(f"a {m} x {n} grid has more than max_node_num={max_node_num} nodes")
+        ids = np.arange(m * n).reshape(m, n)
+        for u, v in ((ids[:-1], ids[1:]), (ids[:, :-1], ids[:, 1:])):  # (i+1, j), (i, j+1)
+            out[g, u.ravel(), v.ravel()] = out[g, v.ravel(), u.ravel()] = 1.0
+    return out
+
+
+# the generated datasets: (recipe, its parameters, graphs), as the JAX
+# package's generate_dataset makes them (generators.py:196-225)
+GENERATED = {
+    "community_small": (community_small_adjs, {}, 100),
+    "grid_small": (grid_adjs, {"m_range": range(4, 8), "n_range": range(4, 8)}, 100),
+    "grid": (grid_adjs, {"m_range": range(10, 20), "n_range": range(10, 20)}, 100),
+}
+
+
+def generated_adjs(data: str, seed: int, max_node_num: int) -> np.ndarray:
+    """The dataset ``data`` (a key of ``GENERATED``) generated from ``seed``
+    and padded to ``max_node_num``."""
+    recipe, params, num = GENERATED[data]
+    return recipe(num, seed, max_node_num, **params)

@@ -50,6 +50,18 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gmh_attention_f32": [_P] * 10 + [_I] * 8 + [_L] * 4 + [_F, _I, _F, _P],
         # N, F_in, attn_dim, F_out, heads -> shared bytes of a block
         "gmh_attention_smem": [_I] * 5,
+        # above N = 64: x, adj, degrees, wq, bq, wk, bk, wv, bv, qk scratch,
+        # v_out, B, C, N, F_in, attn_dim, F_out, channels per block, adj
+        # strides (b, c, n, m), add_loop, loop, stream
+        "gmh_projection_run": [_P] * 11 + [_I] * 7 + [_L] * 4 + [_I, _F, _P],
+        # N, F_in, attn_dim, F_out, channels per block -> shared bytes
+        "gmh_projection_smem": [_I] * 5,
+        # q, k, tile pairs, a_out, B, C, N, attn_dim, heads, head_dim,
+        # channels per block, pairs, q strides (b, c, n), k strides (b, c, n),
+        # score_div, stream
+        "gmh_tiled_scores_run": [_P] * 4 + [_I] * 8 + [_L] * 6 + [_F, _P],
+        # attn_dim, channels per block -> shared bytes of a block
+        "gmh_tiled_scores_smem": [_I] * 2,
     },
     "channel_agg": {
         # adj, x, degrees, out, B, C, N, F, adj strides (b, c, n, m),
@@ -64,6 +76,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gmh_scores_run": [_P, _P, _P] + [_I] * 7 + [_L] * 6 + [_F, _I, _P],
         # N, attn_dim, heads, channels per block, bf16 -> shared bytes of a block
         "gmh_scores_smem": [_I] * 5,
+        # above N = 64: q, k, tile pairs, out, B, C, N, attn_dim, heads,
+        # head_dim, channels per block, pairs, q strides, k strides,
+        # score_div, bf16, stream
+        "gmh_tiled_scores_run": [_P] * 4 + [_I] * 8 + [_L] * 6 + [_F, _I, _P],
+        # attn_dim, channels per block -> shared bytes of a block
+        "gmh_tiled_scores_smem": [_I] * 2,
+        # out (blocks x 256), blocks, iterations, stream: the tanhf rate probe
+        "gmh_tanh_rate_run": [_P, _I, _I, _P],
     },
     "gcn_aggregate_bwd": {
         # x, adj, w, dL/dout, dx, dadj, partials, out_w (dW then dbias),

@@ -17,6 +17,18 @@ are written in the layouts AttentionLayer consumes next, and the plain
 version returns the same: V concatenated over channels as (B, N, C * F_out),
 and the maps channels-last as (B, N, N, C).
 
+Above N = 64 (``MAX_N``; grid: N = 361) one block cannot hold a graph's
+channel, and the wrapper takes three launches: ``gcn_degrees`` (the
+degrees of every row, ``kernels/gcn.py``), ``gmh_projection`` (Q, K and V
+a row tile of ``TILE`` rows at a time, Q and K into a scratch) and the
+tile-pair score stage of ``csrc/gmh_common.cuh`` in f32 over the plan of
+``tile_pairs`` (counted as ``gmh_attention``: it writes the maps).  The
+plan covers every pair of tiles I <= J once; a block writes the entries
+(n, m) with n in tile I and m in tile J, and, off the diagonal, (m, n):
+every entry of the map once.  The projection holds a graph's X whole in
+shared memory, which bounds the N it takes (``projection_group`` raises,
+naming N, past it); the score stage takes any N.
+
 With ``add_loop=False`` the diagonal is kept as given, following
 ``gcn_norm`` (ccsd_tpu/models/gcn.py:31-33); the Pallas body writes 0 there
 instead, which no model path reaches.
@@ -37,23 +49,98 @@ import functools
 import math
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
 from ccsd_tpu_torch.kernels import LAUNCHES
-from ccsd_tpu_torch.kernels.build import check_status, kernel_fn
+from ccsd_tpu_torch.kernels.build import SMEM_LIMIT, check_status, kernel_fn
 from ccsd_tpu_torch.kernels.gcn import (
     adj_grad_plain,
     check_cuda_f32,
     check_smem,
     check_strided_f32,
     MAX_CLUSTER,
+    _with_loop,
+    gcn_degrees,
     gcn_norm,
     ticket_buffer,
 )
 
 # one block of the attention kernels holds a whole graph's channel
-# (gmh_attention) or a graph's Q, K and N x N head sums (gmh_scores)
+# (gmh_attention) or a graph's Q, K and N x N head sums (gmh_scores); above
+# it, both take the tiled designs
 MAX_N = 64
+TILE = 32  # rows of a tile of the tiled designs (kTile, csrc/gmh_common.cuh)
+H100_SMS = 132
+
+
+def tile_pairs(N: int, tile: int = TILE) -> np.ndarray:
+    """The plan of a tiled score launch: (I, J) of every pair of the
+    ceil(N / tile) row tiles with I <= J, row-major, as int32 (pairs, 2).
+    Block p takes pair p: the entries (n, m), n in tile I and m in tile J,
+    and where I != J also (m, n); the last tile is ragged where tile does
+    not divide N."""
+    nt = -(-N // tile)
+    return np.array([(i, j) for i in range(nt) for j in range(i, nt)], np.int32).reshape(-1, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def pair_plan(N: int, device: torch.device) -> torch.Tensor:
+    """``tile_pairs(N)`` on ``device``, made once per N and device."""
+    return torch.from_numpy(tile_pairs(N)).to(device)
+
+
+def channel_group(B: int, C: int, sms: int, fits: Callable[[int], bool]) -> int:
+    """Channels per block G of a launch over B graphs (or graph tiles) x C
+    channels.
+
+    G starts at C, so that a graph's channels of one map entry leave as one
+    run, and is halved while the grid of B x ceil(C / G) blocks leaves an
+    SM without a block, or a block of G channels does not fit (``fits``).
+    A block works on its channels together, so fewer, larger blocks write
+    longer runs, down to one block an SM (the G sweep of
+    scripts/gmh_stage_times.py)."""
+    G = C
+    while G > 1 and (B * -(-C // G) < sms or not fits(G)):
+        G = (G + 1) // 2
+    return G
+
+
+@functools.lru_cache(maxsize=None)
+def device_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def tiled_scores_group(kernel: str, B: int, C: int, N: int, A: int,
+                       sms: int = H100_SMS) -> int:
+    """G of a tile-pair score launch of ``kernel``'s library (gmh_scores or
+    gmh_attention), from the library's own count of a block's shared
+    memory (which depends on attn and G only: any N is tiled)."""
+    def smem(g: int) -> int:
+        return kernel_fn(kernel, "gmh_tiled_scores_smem")(A, g)
+
+    check_smem(kernel, smem(1), N=N, attn=A)
+    return channel_group(B * len(tile_pairs(N)), C, sms, lambda g: smem(g) <= SMEM_LIMIT)
+
+
+@functools.lru_cache(maxsize=None)
+def projection_group(B: int, C: int, N: int, Fi: int, A: int, O: int,
+                     sms: int = H100_SMS) -> int:
+    """G of a ``gmh_projection`` launch (blocks of one row tile of a graph),
+    from the library's count of a block's shared memory.  The block holds
+    the graph's X whole: past what that allows, raises a ``ValueError``
+    naming N, before any kernel is built."""
+    xbytes = 4 * N * (-(-Fi // 4) * 4)
+    if xbytes > SMEM_LIMIT:
+        raise ValueError(f"gmh_attention: N={N}, F_in={Fi}: the tiled design holds a graph's "
+                         f"X whole in one block ({xbytes} B > {SMEM_LIMIT} B of shared memory)")
+
+    def smem(g: int) -> int:
+        return kernel_fn("gmh_attention", "gmh_projection_smem")(N, Fi, A, O, g)
+
+    check_smem("gmh_attention", smem(1), N=N, F_in=Fi)
+    return channel_group(B * -(-N // TILE), C, sms, lambda g: smem(g) <= SMEM_LIMIT)
 
 
 def head_split(attn_dim: int, num_heads: int) -> Tuple[int, int]:
@@ -111,6 +198,50 @@ def attention_smem(N: int, Fi: int, A: int, O: int, H: int) -> int:
                      lambda: kernel_fn("gmh_attention", "gmh_attention_smem")(N, Fi, A, O, H))
 
 
+def gmh_projection_plain(x, adj, deg, wq, bq, wk, bk, wv, bv, loop: float = 1.0,
+                         add_loop: bool = True):
+    """The projection of the tiled design: x (B, N, F_in), adj (B, C, N,
+    N), deg (B, C, N) the degrees ``gcn_degrees`` gives -> (qk (B, C, N,
+    2 attn): Q | K, V (B, N, C * F_out))."""
+    a = _with_loop(adj, loop) if add_loop else adj
+    nx = (deg[..., :, None] * a * deg[..., None, :]) @ x[:, None]  # (B, C, N, F_in)
+    w = torch.cat([wq, wk, wv], -1)
+    b = torch.cat([torch.zeros(w.shape[0], t.shape[-1], dtype=w.dtype, device=w.device)
+                   if bb is None else bb for bb, t in ((bq, wq), (bk, wk), (bv, wv))], -1)
+    out = nx @ w[None] + b[None, :, None, :]
+    A2 = 2 * wq.shape[-1]
+    B, C, N, _ = out.shape
+    return (out[..., :A2].contiguous(),
+            out[..., A2:].permute(0, 2, 1, 3).reshape(B, N, C * wv.shape[-1]))
+
+
+def gmh_projection(x, adj, deg, wq, bq, wk, bk, wv, bv, loop: float = 1.0,
+                   add_loop: bool = True):
+    """The projection launch of the tiled design (``csrc/gmh_attention.cu``
+    ``gmh_projection_kernel``) for CUDA tensors, the plain version for CPU
+    tensors; adj in any strides."""
+    if x.device.type == "cpu":
+        return gmh_projection_plain(x, adj, deg, wq, bq, wk, bk, wv, bv, loop, add_loop)
+    check_cuda_f32("gmh_projection", x=x, deg=deg, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv)
+    check_strided_f32("gmh_projection", "adj", adj, x.device)
+    B, C, N, Fi, A, O, _, _ = _check_shapes("gmh_projection", x, adj, wq, bq, wk, bk, wv, bv,
+                                            1)
+    if deg.shape != (B, C, N):
+        raise ValueError(f"gmh_projection: deg {tuple(deg.shape)}, expected {(B, C, N)}")
+    G = projection_group(B, C, N, Fi, A, O, device_sms(x.device))
+    qk = torch.empty((B, C, N, 2 * A), dtype=torch.float32, device=x.device)
+    v_out = torch.empty((B, N, C * O), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = kernel_fn("gmh_attention", "gmh_projection_run")(
+        x.data_ptr(), adj.data_ptr(), deg.data_ptr(), wq.data_ptr(), _ptr(bq), wk.data_ptr(),
+        _ptr(bk), wv.data_ptr(), _ptr(bv), qk.data_ptr(), v_out.data_ptr(),
+        B, C, N, Fi, A, O, G, *adj.stride(), int(add_loop), float(loop), stream,
+    )
+    check_status("gmh_projection", status)
+    LAUNCHES["gmh_projection"] += 1
+    return qk, v_out
+
+
 def _check_shapes(name, x, adj, wq, bq, wk, bk, wv, bv, num_heads):
     """(B, C, N, F_in, attn, F_out, heads, head_dim), after checking every
     shape against x's and the weights'."""
@@ -138,6 +269,8 @@ def _launch_gmh_attention(x, adj, wq, bq, wk, bk, wv, bv, num_heads, out_dim, lo
     check_strided_f32("gmh_attention", "adj", adj, x.device)
     B, C, N, Fi, A, O, H, ds = _check_shapes("gmh_attention", x, adj, wq, bq, wk, bk, wv,
                                              bv, num_heads)
+    if N > MAX_N:
+        return _launch_tiled(x, adj, wq, bq, wk, bk, wv, bv, H, ds, out_dim, loop, add_loop)
     attention_smem(N, Fi, A, O, H)
     v_out = torch.empty((B, N, C * O), dtype=torch.float32, device=x.device)
     a_out = torch.empty((B, N, N, C), dtype=torch.float32, device=x.device)
@@ -147,6 +280,26 @@ def _launch_gmh_attention(x, adj, wq, bq, wk, bk, wv, bv, num_heads, out_dim, lo
         _ptr(bk), wv.data_ptr(), _ptr(bv), v_out.data_ptr(), a_out.data_ptr(),
         B, C, N, Fi, A, O, H, ds, *adj.stride(), math.sqrt(out_dim),
         int(add_loop), float(loop), stream,
+    )
+    check_status("gmh_attention", status)
+    LAUNCHES["gmh_attention"] += 1
+    return v_out, a_out
+
+
+def _launch_tiled(x, adj, wq, bq, wk, bk, wv, bv, H, ds, out_dim, loop, add_loop):
+    """N > MAX_N: the degrees, the projection, then the tile-pair scores."""
+    B, N, _ = x.shape
+    C, _, A = wq.shape
+    G = tiled_scores_group("gmh_attention", B, C, N, A, device_sms(x.device))
+    deg = gcn_degrees(adj, add_loop, loop)
+    qk, v_out = gmh_projection(x, adj, deg, wq, bq, wk, bk, wv, bv, loop, add_loop)
+    a_out = torch.empty((B, N, N, C), dtype=torch.float32, device=x.device)
+    pairs = pair_plan(N, x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = kernel_fn("gmh_attention", "gmh_tiled_scores_run")(
+        qk.data_ptr(), qk[..., A:].data_ptr(), pairs.data_ptr(), a_out.data_ptr(),
+        B, C, N, A, H, ds, G, pairs.shape[0], *qk.stride()[:3], *qk.stride()[:3],
+        math.sqrt(out_dim), stream,
     )
     check_status("gmh_attention", status)
     LAUNCHES["gmh_attention"] += 1

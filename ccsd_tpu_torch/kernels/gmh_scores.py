@@ -21,22 +21,33 @@ expression.  The probes' bf16 kernels round at every add instead, so they
 differ from this by a few bf16 ulps of the sum (tests/test_torch_fused_kernels.py).
 The kernel is ``csrc/gmh_scores.cu``: one block per graph and group of
 channels (``channel_group``), the bf16 head products on the tensor cores.
+Above N = 64 (``MAX_N``) a block cannot hold a graph's Q, K and N x N head
+sums, and one launch of the tile-pair stage of ``csrc/gmh_common.cuh``
+takes over: a block per pair of ``TILE``-row tiles of the plan
+``tile_pairs(N)`` (kernels/gmh_attention.py) for a group of channels,
+with the same rounding points (f32 FMAs on the bf16-valued operands).
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Callable
 
 import torch
 
 from ccsd_tpu_torch.kernels import LAUNCHES
 from ccsd_tpu_torch.kernels.build import SMEM_LIMIT, check_status, kernel_fn
 from ccsd_tpu_torch.kernels.gcn import check_cuda_f32
-from ccsd_tpu_torch.kernels.gmh_attention import fit_graph, head_split
-
-H100_SMS = 132
+from ccsd_tpu_torch.kernels.gmh_attention import (
+    H100_SMS,
+    MAX_N,
+    channel_group,
+    device_sms,
+    fit_graph,
+    head_split,
+    pair_plan,
+    tiled_scores_group,
+)
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -65,21 +76,6 @@ def gmh_scores_plain(q: torch.Tensor, k: torch.Tensor, num_heads: int,
     return ((att + att.transpose(-1, -2)) / 2).permute(0, 2, 3, 1).contiguous()
 
 
-def channel_group(B: int, C: int, sms: int, fits: Callable[[int], bool]) -> int:
-    """Channels per block G of a launch over B graphs x C channels.
-
-    G starts at C, so that a graph's channels of one map entry leave as one
-    run, and is halved while the grid of B x ceil(C / G) blocks leaves an
-    SM without a block, or a block of G channels does not fit (``fits``).
-    A block works on its channels together, so fewer, larger blocks write
-    longer runs, down to one block an SM (the G sweep of
-    scripts/gmh_stage_times.py)."""
-    G = C
-    while G > 1 and (B * -(-C // G) < sms or not fits(G)):
-        G = (G + 1) // 2
-    return G
-
-
 @functools.lru_cache(maxsize=None)
 def scores_group(B: int, C: int, N: int, A: int, H: int, bf16: bool,
                  sms: int = H100_SMS) -> int:
@@ -90,11 +86,6 @@ def scores_group(B: int, C: int, N: int, A: int, H: int, bf16: bool,
 
     fit_graph("gmh_scores", N, lambda: smem(1))
     return channel_group(B, C, sms, lambda g: smem(g) <= SMEM_LIMIT)
-
-
-@functools.lru_cache(maxsize=None)
-def device_sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def gmh_scores(q: torch.Tensor, k: torch.Tensor, num_heads: int, out_dim: int,
@@ -110,13 +101,22 @@ def gmh_scores(q: torch.Tensor, k: torch.Tensor, num_heads: int, out_dim: int,
                          "must both be (B, C, N, A)")
     B, C, N, A = q.shape
     H, ds = head_split(A, num_heads)
-    G = scores_group(B, C, N, A, H, bool(bf16), device_sms(q.device))
     out = torch.empty((B, N, N, C), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = kernel_fn("gmh_scores")(
-        q.data_ptr(), k.data_ptr(), out.data_ptr(), B, C, N, A, H, ds, G,
-        *q.stride()[:3], *k.stride()[:3], math.sqrt(out_dim), int(bf16), stream,
-    )
+    if N > MAX_N:
+        G = tiled_scores_group("gmh_scores", B, C, N, A, device_sms(q.device))
+        pairs = pair_plan(N, q.device)
+        status = kernel_fn("gmh_scores", "gmh_tiled_scores_run")(
+            q.data_ptr(), k.data_ptr(), pairs.data_ptr(), out.data_ptr(), B, C, N, A, H, ds,
+            G, pairs.shape[0], *q.stride()[:3], *k.stride()[:3], math.sqrt(out_dim),
+            int(bf16), stream,
+        )
+    else:
+        G = scores_group(B, C, N, A, H, bool(bf16), device_sms(q.device))
+        status = kernel_fn("gmh_scores")(
+            q.data_ptr(), k.data_ptr(), out.data_ptr(), B, C, N, A, H, ds, G,
+            *q.stride()[:3], *k.stride()[:3], math.sqrt(out_dim), int(bf16), stream,
+        )
     check_status("gmh_scores", status)
     LAUNCHES["gmh_scores"] += 1
     return out

@@ -20,8 +20,11 @@ fused kernels have no backward yet, so a ``model.fused`` config raises
 there.  The seed drives the data order (``ArrayDataset``, as the JAX
 package shuffles), the networks' seeded Glorot init, and a generator on
 the device that draws t and the noise.  The dataset is a (M, N, N) array of
-padded adjacencies: community_small's generated by its recipe from the
-seed (100 graphs) unless the caller passes one.
+padded adjacencies: community_small's, grid_small's or grid's generated by
+its recipe from the seed (100 graphs) unless the caller passes one.  The
+backward kernels hold a graph of at most 64 nodes, so on the card a config
+with a larger ``max_node_num`` (grid: 361) raises, naming N, before its
+first step.
 """
 
 from __future__ import annotations
@@ -34,9 +37,10 @@ import numpy as np
 import torch
 
 from ccsd_tpu_torch import resolve_device
-from ccsd_tpu_torch.data.loader import ArrayDataset, community_small_adjs, init_features, split
+from ccsd_tpu_torch.data.loader import GENERATED, ArrayDataset, generated_adjs, init_features, split
 from ccsd_tpu_torch.diffusion.losses import get_sde_loss_fn
 from ccsd_tpu_torch.diffusion.sde import load_sde
+from ccsd_tpu_torch.kernels.gcn import WHOLE_GRAPH_N
 from ccsd_tpu_torch.models.registry import load_model, load_model_params
 from ccsd_tpu_torch.training.checkpoint import load_port_ckpt, port_ckpt_path, save_port_ckpt
 from ccsd_tpu_torch.training.ema import EMA
@@ -44,19 +48,19 @@ from ccsd_tpu_torch.training.optim import Optimizer
 from ccsd_tpu_torch.utils.logger import Logger, set_log
 
 NAMES = ("x", "adj")
-COMMUNITY_SMALL_GRAPHS = 100
 
 
 def dataset_adjs(config, adjs: Optional[np.ndarray] = None) -> np.ndarray:
-    """The (M, N, N) training set: ``adjs`` as given, or community_small's
-    generated from the config's seed."""
+    """The (M, N, N) training set: ``adjs`` as given, or the dataset's
+    recipe (community_small, grid_small, grid) run from the config's
+    seed."""
     if adjs is not None:
         return np.asarray(adjs, np.float32)
-    if str(config.data.data) != "community_small":
-        raise ValueError(f"{config.data.data}: pass the dataset as a (M, N, N) array "
-                         "(only community_small is generated here)")
-    return community_small_adjs(COMMUNITY_SMALL_GRAPHS, int(config.get("seed", 42)),
-                                int(config.data.max_node_num))
+    data = str(config.data.data)
+    if data not in GENERATED:
+        raise ValueError(f"{data}: pass the dataset as a (M, N, N) array (only "
+                         f"{', '.join(GENERATED)} are generated here)")
+    return generated_adjs(data, int(config.get("seed", 42)), int(config.data.max_node_num))
 
 
 class Trainer:
@@ -69,6 +73,11 @@ class Trainer:
             raise NotImplementedError("CC training is not ported yet")
         self.config = config
         self.device = resolve_device(device)
+        N = int(config.data.max_node_num)
+        if self.device.type == "cuda" and N > WHOLE_GRAPH_N:
+            raise ValueError(f"{config.data.data}: N={N} exceeds the one-block graph of the "
+                             f"backward kernels (N <= {WHOLE_GRAPH_N}); training on the card "
+                             "needs their tiled design")
         self.seed = int(config.get("seed", 42))
         tc = config.train
 

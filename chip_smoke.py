@@ -14,7 +14,8 @@ Phases, each printing one line of its own results:
 
 1. device  -- require CUDA; print the card's name and power limit; switch
               TF32 off for matmuls and cuDNN so f32 means f32.
-2. build   -- nvcc the seven kernels (ccsd_tpu_torch/csrc), in parallel.
+2. build   -- nvcc the seven kernel sources (ccsd_tpu_torch/csrc), in
+              parallel.
 3. kernels -- each forward kernel against its plain PyTorch version on the
               card, at every shape the community_small paths give it
               (``gmh_scores`` in f32 and in bf16, with a tolerance derived
@@ -26,14 +27,20 @@ Phases, each printing one line of its own results:
               grid_small (B = 8, N = 49, head width 8) and
               grid_small_CC_two_stage (head width 6); ``gcn_aggregate``,
               ``channel_agg`` and their degree pass ``gcn_degrees`` also at
-              grid's (B = 8, N = 361).
+              grid's (B = 8, N = 361); the two attention kernels (their
+              tiled designs) and ``gmh_projection`` at grid's layer shapes
+              (C = 2 on F_in 5, C = 8 on F_in 32, both adjacency layouts)
+              and at N = 100 (a ragged last tile).
 4. models  -- ScoreNetworkX and ScoreNetworkA (unfused; fused f32; fused
               fast, the sampler's default) at B = 128 on the card (kernel
               path) against a float64 CPU copy of the same weights (plain
               path).
    grid    -- ScoreNetworkX of grid (B = 8, N = 361) the same way, with
               exact launch counts (``gcn_aggregate`` and ``gcn_degrees``
-              once a layer).
+              once a layer), and grid's ScoreNetworkA (unfused, fused f32,
+              fused fast; 7 AttentionLayers, each launching
+              ``gcn_degrees`` and ``gmh_projection`` + ``gmh_attention``,
+              or ``channel_agg`` + ``gmh_scores``).
 5. sample  -- the full community_small graph sampler: B = 128, N = 20,
               1000 Euler + Langevin steps through ``Sampler``, first with
               its defaults (``sample.fused`` and ``sample.fast`` on: the
@@ -41,6 +48,11 @@ Phases, each printing one line of its own results:
               unfused path); the launch counters of each run must equal the
               expected counts exactly, the graphs must be valid, and each
               run prints its steps/s.
+   grid_sample -- after grid_small_eval: grid's sampler (B = 8, N = 361, 1000
+              Reverse + Langevin steps) on both paths the same way, from
+              the EMA weights of grid_small's run (the two configs' networks
+              have the same widths; seeded weights overflow before step
+              400 at every adjacency-head scale from 1 to 0.01).
 6. train   -- community_small training at full width through ``Trainer``:
               each backward kernel (``gcn_aggregate_bwd``,
               ``gmh_attention_bwd``) against its plain backward at the
@@ -58,6 +70,15 @@ Phases, each printing one line of its own results:
               must give the trainer's EMA networks' outputs exactly; and a
               run resumed from the checkpoint the run wrote at epoch 100,
               which must end equal to it.
+   grid_small_train -- grid_small (B = 8, N = 49; ScoreNetworkX depth 5,
+              7 AttentionLayers) through ``Trainer`` on the dataset it
+              generates from the seed, cut to GRID_SMALL_EPOCHS epochs (ten
+              train and three test batches an epoch): finite, falling
+              losses and exact launch counts an epoch.
+   grid_small_eval -- its EMA checkpoint (``sample.use_ema: true``) through
+              ``Sampler`` by the JAX protocol (20 test graphs, three rounds
+              of 8, 1000 Reverse + Langevin steps) on both paths: exact
+              launch counts and the eight MMDs, finite.
    eval    -- the sampler's evaluation protocol on the 200-epoch checkpoint
               of the train phase, on the default path and with
               ``sample.fused: false``: 20 test graphs, one round of B = 128,
@@ -79,13 +100,17 @@ Phases, each printing one line of its own results:
               ``gcn_aggregate`` and ``channel_agg`` timed and kept out of
               the means; the backward kernels at the train batch's shapes,
               and at grid_small's and grid_small_CC_two_stage's, out of the
-              means.
+              means; the attention kernels' tiled designs at grid's shapes,
+              out of the means, beside the floor the tanh sets (the tanhf
+              rate measured on the card by a probe kernel), and
+              ``gmh_projection`` at grid's shapes (its path).
+
+Each phase prints its seconds.
 
 Then one JSON line of per-kernel results (``ms``, ``plain_ms`` and
 ``bound_ms`` per launch, averaged over the path's layer shapes; each shape
-under ``shapes``; ``launches`` from the run of the path the kernel is on:
-the sampler's, for ``gcn_degrees`` grid's ScoreNetworkX, for the backward
-kernels the 200-epoch training run),
+under ``shapes``; ``launches`` from the run of the path the kernel is on,
+the most of any path's run, each path's under ``launches_by_path``),
 the ``nvidia-smi`` name and power limit, and the result line.  Any failed
 phase exits non-zero without the result line.  Imports only torch, numpy
 and ccsd_tpu_torch.
@@ -144,6 +169,20 @@ BWD_REL_TOL = 1e-5
 GRAD_REL_TOL = 1e-4
 GRAD_F32_FACTOR = 4.0
 TRAIN_EPOCHS = 200  # full-width training run of the train phase
+# grid's ScoreNetworkA (N = 361, seeded weights) is ill-conditioned in f32:
+# its later layers normalise adjacencies of |entries| ~20 whose rows cancel,
+# and a float32 copy on the CPU lies ~1e-2 from float64 (measured on the
+# CPU: layer 6 alone, fed float64 inputs, 3e-3; the fast network, whose
+# bf16 roundings flip, 0.2), so no f32 implementation meets MODEL_TOL
+# there.  The card may lie GRID_F32_FACTOR times as far from float64 as the
+# CPU's own f32 copy of the same network (as the train-grads gate), and
+# never need be closer than phase 4's tolerance; B = GRID_NET_B keeps the
+# CPU's float64 forward short
+GRID_F32_FACTOR = 4.0
+GRID_NET_B = 2
+# grid_small's training run, cut from the config's 5000 epochs to fit the
+# smoke's time limit (ten train and three test batches an epoch)
+GRID_SMALL_EPOCHS = 100
 
 
 class PhaseError(RuntimeError):
@@ -283,6 +322,23 @@ def gmh_bwd_cost(B, C, N, Fi, A, O, H, need_x, need_adj):
     return nbytes, flops
 
 
+def proj_cost(B, C, N, Fi, A, O):
+    """(bytes, flops) of one gmh_projection launch: x, the adjacency, the
+    degrees and the weights read once, Q | K and V written once; d A' d
+    applied as the sums read it, norm X, the projection and the bias."""
+    P = 2 * A + O
+    nbytes = 4 * (B * N * Fi + B * C * N * N + B * C * N + C * (Fi * P + P)
+                  + B * C * N * 2 * A + B * N * C * O)
+    flops = B * C * (N * N + 2 * N * N * Fi + N * Fi   # d_m a, the sums, d_n
+                     + 2 * N * Fi * P + N * P)          # projection, bias
+    return nbytes, flops
+
+
+def tanh_count(B, C, N, H):
+    """tanhf calls of one attention map launch: one a head and entry."""
+    return B * C * N * N * H
+
+
 def bound_ms(nbytes, flops):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -369,14 +425,33 @@ def path_shapes(models):
             **grid_shapes()}
 
 
+def attention_layer_cases(name, c):
+    """(gmh cases, scores cases) of config c's first and later
+    AttentionLayer, named ``<name>.layers.<k>``."""
+    from ccsd_tpu_torch.kernels.gmh_attention import head_split
+
+    m, B, N = c.model, int(c.data.batch_size), int(c.data.max_node_num)
+    gmh, scores = [], []
+    for k, (Fi, A, C) in enumerate(((c.data.max_feat_num, m.nhid, m.c_init),
+                                    (m.nhid, m.adim, m.c_hid))):
+        H = head_split(A, m.num_heads)[0]
+        gmh.append((f"{name}.layers.{k}", B, C, N, Fi, A, m.nhid, H))
+        scores.append((f"{name}.layers.{k}", B, C, N, A, H, m.nhid))
+    return gmh, scores
+
+
 # kernel-check cases off the community_small path (phase 3 only): grid_small
 # (N = 49, head width 8) and the graph widths of grid_small_CC_two_stage
 # (N = 49, adim 24: head width 6), each config's first and later layer
 EXTRA_CONFIGS = ("grid_small", "grid_small_CC_two_stage")
-# grid (N = 361): the two normalising kernels and their degree pass (the
-# attention kernels stop at N = 64); checked in phase 3, timed in phase 6
-# beside the path's shapes and kept out of the kernels line's means
+# grid (N = 361): the two normalising kernels and their degree pass, the
+# attention kernels' tiled designs and the projection they launch; checked
+# in phase 3, timed in phase 7 beside the path's shapes and kept out of the
+# community_small means (the projection runs on grid's path only)
 GRID_CONFIG = "grid"
+# an N that the tile does not divide (three tiles of 32 and one of 4), at
+# grid's widths and batch, for the tiled attention kernels (phase 3)
+RAGGED_N = 100
 
 
 def grid_shapes():
@@ -394,25 +469,35 @@ def grid_shapes():
     degrees = [(f"{GRID_CONFIG}.x.layers", B, 1, N, "contiguous")]
     degrees += [(name, B, C, N, "contiguous" if name.endswith(".0") else "channels-last")
                 for name, B, C, N, _ in agg]
-    return {"gcn_more": gcn, "agg_more": agg, "degrees": degrees}
+    gmh, _ = attention_layer_cases(GRID_CONFIG, c)
+    ragged, _ = attention_layer_cases(f"{GRID_CONFIG}.n{RAGGED_N}", ragged_config())
+    return {"gcn_more": gcn, "agg_more": agg, "degrees": degrees, "proj": gmh,
+            "proj_more": ragged}
+
+
+def ragged_config():
+    """grid's config with max_node_num RAGGED_N."""
+    from ccsd_tpu_torch.utils.config import AttrDict, get_config
+
+    c = AttrDict(get_config(GRID_CONFIG, seed=0, folder=HERE).to_dict())
+    c.data.max_node_num = RAGGED_N
+    return c
 
 
 def more_shapes():
-    """``gmh_more`` and ``scores_more`` cases from EXTRA_CONFIGS, as the
-    ScoreNetworkA layers of each config give them (models/score_a.py)."""
-    from ccsd_tpu_torch.kernels.gmh_attention import head_split
+    """``gmh_more`` and ``scores_more`` cases from EXTRA_CONFIGS, grid and
+    grid at N = RAGGED_N, as the ScoreNetworkA layers of each config give
+    them (models/score_a.py)."""
     from ccsd_tpu_torch.utils.config import get_config
 
     gmh, scores = [], []
-    for name in EXTRA_CONFIGS:
-        c = get_config(name, seed=0, folder=HERE)
-        m, B, N = c.model, int(c.data.batch_size), int(c.data.max_node_num)
-        for k, (Fi, A, C) in enumerate(((c.data.max_feat_num, m.nhid, m.c_init),
-                                        (m.nhid, m.adim, m.c_hid))):
-            H = head_split(A, m.num_heads)[0]
-            case = f"{name}.layers.{k}"
-            gmh.append((case, B, C, N, Fi, A, m.nhid, H))
-            scores.append((case, B, C, N, A, H, m.nhid))
+    configs = [(name, get_config(name, seed=0, folder=HERE)) for name in EXTRA_CONFIGS]
+    configs += [(GRID_CONFIG, get_config(GRID_CONFIG, seed=0, folder=HERE)),
+                (f"{GRID_CONFIG}.n{RAGGED_N}", ragged_config())]
+    for name, c in configs:
+        g, sc = attention_layer_cases(name, c)
+        gmh += g
+        scores += sc
     return {"gmh_more": gmh, "scores_more": scores}
 
 
@@ -450,11 +535,17 @@ def gcn_inputs(case, gen, dev):
 
 
 def gmh_inputs(case, gen, dev):
+    """A standard-normal adjacency where one block holds the graph; above
+    N = 64 a 0/1 one of mean degree 4, as grid's graphs have (gcn_inputs
+    says why)."""
     import torch
 
     _, B, C, N, Fi, A, O, H = case
     x = torch.randn(B, N, Fi, generator=gen, device=dev)
-    adj = sym(torch.randn(B, C, N, N, generator=gen, device=dev))
+    if N > 64:
+        adj = sym((torch.rand(B, C, N, N, generator=gen, device=dev) < 4 / N).float())
+    else:
+        adj = sym(torch.randn(B, C, N, N, generator=gen, device=dev))
     r = lambda *s: 0.1 * torch.randn(*s, generator=gen, device=dev)  # noqa: E731
     w = [glorot((C, Fi, A), gen, dev), r(C, A), glorot((C, Fi, A), gen, dev),
          r(C, A), glorot((C, Fi, O), gen, dev), r(C, O)]
@@ -481,6 +572,20 @@ def gmh_path_inputs(case, gen, dev):
 
 def contiguous_adj(x, adj, *rest):
     return (x, adj.contiguous(), *rest)
+
+
+def proj_inputs(case, gen, dev):
+    """gmh_projection's inputs in the layout the unfused path gives the
+    layer, with the degrees gcn_degrees would give."""
+    from ccsd_tpu_torch.kernels.gcn import gcn_degrees_plain
+
+    x, adj, *w, _, _ = gmh_path_inputs(case, gen, dev)
+    return (x, adj, gcn_degrees_plain(adj), *w)
+
+
+def proj_inputs_other_layout(case, gen, dev):
+    x, adj, deg, *w = proj_inputs(case, gen, dev)
+    return (x, channels_last(adj) if first_layer(case) else adj.contiguous(), deg, *w)
 
 
 def channels_last(adj):
@@ -604,7 +709,12 @@ def kernel_specs():
         gcn_degrees,
         gcn_degrees_plain,
     )
-    from ccsd_tpu_torch.kernels.gmh_attention import gmh_attention, gmh_attention_plain
+    from ccsd_tpu_torch.kernels.gmh_attention import (
+        gmh_attention,
+        gmh_attention_plain,
+        gmh_projection,
+        gmh_projection_plain,
+    )
     from ccsd_tpu_torch.kernels.gmh_scores import gmh_scores, gmh_scores_plain
 
     def folded(fn):  # the probes' (B, C*N, N) form of the same sum
@@ -622,6 +732,10 @@ def kernel_specs():
         ("gmh_attention", "f32", "gmh", gmh_inputs, gmh_attention, gmh_attention_plain, f32),
         ("gmh_attention", "f32 channels-last adj", "gmh", gmh_inputs_channels_last,
          gmh_attention, gmh_attention_plain, f32),
+        ("gmh_projection", "f32 path layout", "proj", proj_inputs, gmh_projection,
+         gmh_projection_plain, f32),
+        ("gmh_projection", "f32 other layout", "proj", proj_inputs_other_layout,
+         gmh_projection, gmh_projection_plain, f32),
         ("channel_agg", "f32", "agg", agg_inputs, channel_agg, channel_agg_plain, f32),
         ("channel_agg", "f32 channels-last adj", "agg", agg_inputs_channels_last,
          channel_agg, channel_agg_plain, f32),
@@ -757,13 +871,83 @@ def phase_grid_x(dev):
     return launched
 
 
-def sample_config(steps=None, fused=True):
-    """community_small's config; ``fused=False`` sets ``sample.fused: false``."""
+def grid_inputs(c, B, seed):
+    """(x, adj, flags) of B graphs at config c's N: each graph's first
+    N - 60 to N nodes present, standard-normal features, a 0/1 adjacency
+    of mean degree 4 (grid's), masked."""
+    import numpy as np
+    import torch
+    from ccsd_tpu_torch.ops.masks import mask_adjs, mask_x
+
+    N, F = int(c.data.max_node_num), int(c.data.max_feat_num)
+    rng = np.random.default_rng(seed)
+    flags = torch.from_numpy(
+        (np.arange(N)[None] < rng.integers(N - 60, N + 1, (B, 1))).astype(np.float32))
+    x = mask_x(torch.from_numpy(rng.standard_normal((B, N, F)).astype(np.float32)), flags)
+    adj = mask_adjs(sym(torch.from_numpy((rng.random((B, N, N)) < 4 / N).astype(np.float32))),
+                    flags)
+    return x, adj, flags
+
+
+def phase_grid_a(dev):
+    """GRID_CONFIG's ScoreNetworkA (B = GRID_NET_B, N = 361, 7
+    AttentionLayers, seeded weights) unfused, fused f32 and fused fast, each
+    on the card against a float64 CPU copy, within the larger of phase 4's
+    tolerance and GRID_F32_FACTOR times the CPU f32 copy's own distance
+    from float64, and with exact launch counts (every layer: gcn_degrees,
+    then gmh_projection and gmh_attention, or channel_agg and gmh_scores);
+    returns each variant's launches."""
+    import copy
+
+    import torch
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.models.registry import load_model, load_model_params, with_fused
+    from ccsd_tpu_torch.utils.config import get_config
+
+    c = get_config(GRID_CONFIG, seed=0, folder=HERE)
+    defs = dict(zip(("x", "adj"), load_model_params(c)))
+    base = load_model(defs["adj"], generator=torch.Generator().manual_seed(3))
+    x, adj, flags = grid_inputs(c, GRID_NET_B, 5)
+    L = int(c.model.num_layers)
+    out = {}
+    for name, d, expect, tol in (
+            ("unfused", defs["adj"], {"gcn_degrees": L, "gmh_projection": L,
+                                      "gmh_attention": L}, MODEL_TOL),
+            ("fused_f32", with_fused(defs, fast=False)["adj"],
+             {"gcn_degrees": L, "channel_agg": L, "gmh_scores": L}, MODEL_TOL),
+            ("fused_fast", with_fused(defs, fast=True)["adj"],
+             {"gcn_degrees": L, "channel_agg": L, "gmh_scores": L}, BF16_MODEL_TOL)):
+        model = load_model(d).eval()
+        model.load_state_dict(base.state_dict())
+        card = copy.deepcopy(model).to(dev)
+        reset_launches()
+        with torch.no_grad():
+            got = card(x.to(dev), adj.to(dev), flags.to(dev))
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in LAUNCHES.items() if v}
+            cpu32 = model(x, adj, flags).double()
+            ref = model.double()(x.double(), adj.double(), flags.double())
+        check(launched == expect, f"grid ScoreNetworkA {name}: launches {launched}, "
+                                  f"expected {expect}")
+        cpu_err = (cpu32 - ref).abs().max().item()
+        tol = dict(tol, atol=max(tol["atol"], GRID_F32_FACTOR * cpu_err))
+        abs_err, rel_err, ok = compare(got.cpu().double(), ref, tol)
+        say("grid", model=f"{GRID_CONFIG} ScoreNetworkA {name}",
+            shape="x".join(map(str, got.shape)), launches=json.dumps(launched),
+            max_abs_err=f"{abs_err:.3e}", max_rel_err=f"{rel_err:.3e}",
+            cpu_f32_max_abs_err=f"{cpu_err:.3e}", tol=json.dumps(tol), ok=ok)
+        check(ok, f"grid ScoreNetworkA {name} on the card disagrees with the CPU copy")
+        out[name] = launched
+    return out
+
+
+def sample_config(steps=None, fused=True, name="community_small"):
+    """The named config (community_small unless said); ``fused=False``
+    sets ``sample.fused: false``."""
     from ccsd_tpu_torch.utils.config import AttrDict, get_config
 
-    config = get_config("community_small", seed=0, folder=HERE)
-    ckpts = sorted(glob.glob(os.path.join(HERE, "checkpoints", "community_small",
-                                          "*.ckpt.pkl")))
+    config = get_config(name, seed=0, folder=HERE)
+    ckpts = sorted(glob.glob(os.path.join(HERE, "checkpoints", name, "*.ckpt.pkl")))
     if ckpts:
         config.ckpt = os.path.basename(ckpts[0])[: -len(".ckpt.pkl")]
     config = AttrDict(config.to_dict())
@@ -775,20 +959,28 @@ def sample_config(steps=None, fused=True):
     return config
 
 
-def smoke_sampler(config, train_adjs):
-    """``Sampler`` on the default device (CUDA).  Without a checkpoint the
-    weights are the port's seeded Glorot init, with the adjacency network's
-    last layer scaled by ``SEEDED_ADJ_HEAD_SCALE``: at full Glorot scale
-    untrained weights feed the adjacency back into itself through
-    ``pow_tensor`` and the reverse diffusion overflows after ~230 of the
-    1000 steps, in the JAX package as in the port."""
+def smoke_sampler(config, train_adjs, weights=None):
+    """``Sampler`` on the default device (CUDA).  ``weights``, a port
+    checkpoint, gives the networks its EMA weights (grid: grid_small's run,
+    whose networks have grid's widths).  Otherwise, without a checkpoint in
+    the config, the weights are the port's seeded Glorot init, with the
+    adjacency network's last layer scaled by ``SEEDED_ADJ_HEAD_SCALE``: at
+    full Glorot scale untrained weights feed the adjacency back into itself
+    through ``pow_tensor`` and community_small's reverse diffusion overflows
+    after ~230 of the 1000 steps, in the JAX package as in the port."""
     import torch
     from ccsd_tpu_torch.sampling.sampler import Sampler
+    from ccsd_tpu_torch.training.checkpoint import load_port_ckpt, state_dict_from_ckpt
 
     class SmokeSampler(Sampler):
         def load_models(self):
             configt, models, source = super().load_models()
-            if not self.config.get("ckpt"):
+            if weights:
+                ckpt = load_port_ckpt(weights, map_location="cpu")
+                for n, m in models.items():
+                    m.load_state_dict(state_dict_from_ckpt(ckpt, n, m, True))
+                source = f"EMA weights of {os.path.relpath(weights, HERE)}"
+            elif not self.config.get("ckpt"):
                 with torch.no_grad():
                     models["adj"].final.linears[-1].weight.mul_(SEEDED_ADJ_HEAD_SCALE)
                 source += f", adjacency head x {SEEDED_ADJ_HEAD_SCALE}"
@@ -797,45 +989,61 @@ def smoke_sampler(config, train_adjs):
     return SmokeSampler(config, train_adjs)
 
 
-def sample_launches(config, fused):
-    """The exact launches of one sampling round: every score evaluation
-    (one a predictor step, one a corrector step) launches ``gcn_aggregate``
-    once a ScoreNetworkX layer, and ``channel_agg`` and ``gmh_scores``
-    (fused) or ``gmh_attention`` (unfused) once an AttentionLayer."""
+def sample_launches(config, fused, rounds=1):
+    """The exact launches of ``rounds`` sampling rounds: every score
+    evaluation (one a predictor step, one a corrector step) launches
+    ``gcn_aggregate`` once a ScoreNetworkX layer, and ``channel_agg`` and
+    ``gmh_scores`` (fused) or ``gmh_attention`` (unfused) once an
+    AttentionLayer.  Above N = 64 (grid) each of those layers also launches
+    ``gcn_degrees`` first, and an unfused AttentionLayer ``gmh_projection``
+    between the two."""
     from ccsd_tpu_torch.kernels import LAUNCHES
+    from ccsd_tpu_torch.kernels.gcn import rows_per_block
+    from ccsd_tpu_torch.kernels.gmh_attention import MAX_N
 
     steps = int(config.sde.adj.num_scales)
-    evals = steps * (int(config.sampler.n_steps) + 1
-                     if config.sampler.corrector == "Langevin" else 1)
-    per_layer = ("channel_agg", "gmh_scores") if fused else ("gmh_attention",)
+    evals = rounds * steps * (int(config.sampler.n_steps) + 1
+                              if config.sampler.corrector == "Langevin" else 1)
+    N = int(config.data.max_node_num)
+    depth, L = int(config.model.depth), int(config.model.num_layers)
+    per_layer = ["channel_agg", "gmh_scores"] if fused else ["gmh_attention"]
+    if N > MAX_N and not fused:
+        per_layer.append("gmh_projection")
     expect = {k: 0 for k in LAUNCHES}
-    expect["gcn_aggregate"] = evals * int(config.model.depth)
+    expect["gcn_aggregate"] = evals * depth
     for k in per_layer:
-        expect[k] = evals * int(config.model.num_layers)
+        expect[k] = evals * L
+    expect["gcn_degrees"] = evals * (depth * (rows_per_block(N) < N) + L * (N > MAX_N))
     return expect
 
 
-def sample_once(train_adjs, fused):
-    """One 1000-step sample of 128 graphs after a 10-step warm-up; checks
-    the graphs and the exact launch counts; returns the counts."""
+def sample_once(train_adjs, fused, name="community_small", graphs=128, phase="sample",
+                weights=None):
+    """One 1000-step sample of ``graphs`` graphs (one round of the config's
+    batch) after a 10-step warm-up, ``weights`` as ``smoke_sampler`` takes
+    them; checks the graphs and the exact launch counts; returns the
+    counts."""
     import numpy as np
     from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
 
-    smoke_sampler(sample_config(steps=10, fused=fused), train_adjs).sample(128)  # warm-up
-    config = sample_config(fused=fused)
+    smoke_sampler(sample_config(steps=10, fused=fused, name=name),
+                  train_adjs, weights).sample(graphs)  # warm-up
+    config = sample_config(fused=fused, name=name)
     steps = int(config.sde.adj.num_scales)
     expect = sample_launches(config, fused)
 
-    sampler = smoke_sampler(config, train_adjs)
+    sampler = smoke_sampler(config, train_adjs, weights)
     reset_launches()
-    res = sampler.sample(128)
+    res = sampler.sample(graphs)
     launches = dict(LAUNCHES)
 
     path = "default (sample.fused, sample.fast on)" if fused else "sample.fused: false"
+    path = f"{name} {path}"
     adj, x, flags = res["adj"], res["x"], res["flags"]
     B, N = adj.shape[0], adj.shape[1]
+    N_, F_ = int(config.data.max_node_num), int(config.data.max_feat_num)
     check(res["device"].startswith("cuda"), f"sampler ran on {res['device']}")
-    check(adj.shape == (128, 20, 20) and x.shape == (128, 20, 11),
+    check(adj.shape == (graphs, N_, N_) and x.shape == (graphs, N_, F_),
           f"shapes adj {adj.shape}, x {x.shape}")
     check(res["finite"], "non-finite sampler output")
     check(set(np.unique(adj)) <= {0.0, 1.0}, "adjacency not quantized")
@@ -847,20 +1055,22 @@ def sample_once(train_adjs, fused):
     check(not x[absent].any(), "features on absent nodes")
     check(launches == expect, f"{path}: launches {launches}, expected exactly {expect}")
     edges = adj.sum((1, 2)) / 2
-    say("sample", path=repr(path), graphs=B, steps=steps,
+    say(phase, path=repr(path), graphs=B, steps=steps, predictor=config.sampler.predictor,
+        corrector=config.sampler.corrector,
         seconds=f"{res['sampling_time']:.3f}", mean_edges=f"{edges.mean():.3f}",
         mean_nodes=f"{flags.sum(-1).mean():.3f}", weights=repr(res["weights"]),
         launches=json.dumps(launches), expected=json.dumps(expect))
-    say("steps_per_s", path=repr(path), steps_per_s=f"{res['steps_per_s']:.2f}")
+    say("steps_per_s", path=repr(path), steps_per_s=f"{res['steps_per_s']:.2f}",
+        card=repr(smi_name_power()))
     return launches
 
 
-def phase_sample(train_adjs):
-    """The default (fused fast) sample, then the unfused one; returns each
-    kernel's launches in the run of the path it is on."""
-    fast = sample_once(train_adjs, fused=True)
-    unfused = sample_once(train_adjs, fused=False)
-    return {k: max(fast[k], unfused[k]) for k in fast}
+def phase_sample(train_adjs, name="community_small", graphs=128, phase="sample",
+                 weights=None):
+    """The default (fused fast) sample, then the unfused one; returns
+    {path: launches} of the two runs."""
+    return {f"{name} {p}": sample_once(train_adjs, fused, name, graphs, phase, weights)
+            for p, fused in (("default", True), ("unfused", False))}
 
 
 # ----------------------------------------------------------------- train --
@@ -1016,11 +1226,12 @@ def phase_train_kernels(shapes, dev):
     return errs
 
 
-def train_config(folder, name, epochs):
-    """community_small's training config, the run's outputs under folder."""
+def train_config(folder, name, epochs, data="community_small"):
+    """The training config of ``data`` (community_small unless said), the
+    run's outputs under folder."""
     from ccsd_tpu_torch.utils.config import AttrDict, get_config
 
-    config = AttrDict(get_config("community_small", seed=0, folder=HERE).to_dict())
+    config = AttrDict(get_config(data, seed=0, folder=HERE).to_dict())
     config.folder = folder
     config.train.name, config.train.num_epochs = name, epochs
     config.train.save_interval, config.train.print_interval = epochs, 50
@@ -1240,6 +1451,111 @@ def phase_eval(config, ckpt, train_adjs):
             card=repr(smi_name_power()), launches=json.dumps(launches))
 
 
+GRID_SMALL = "grid_small"
+
+
+def grid_small_ckpt_path(name):
+    """The path of grid_small's smoke checkpoint ``name``."""
+    from ccsd_tpu_torch.training.checkpoint import port_ckpt_path
+
+    return port_ckpt_path(os.path.join(HERE, "build", "smoke_grid_small"), GRID_SMALL, name)
+
+
+def phase_grid_small_train():
+    """grid_small through ``Trainer`` on the dataset it generates from the
+    seed (100 graphs: ten train batches of 8 and three test batches, 8, 8
+    and 4), cut to GRID_SMALL_EPOCHS epochs: finite losses that fall and
+    the exact launches of an epoch; returns (launches, checkpoint name)."""
+    import shutil
+
+    import numpy as np
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.training.trainer import Trainer
+    from ccsd_tpu_torch.utils.config import get_config
+
+    folder = os.path.join(HERE, "build", "smoke_grid_small")
+    shutil.rmtree(folder, ignore_errors=True)
+    config = train_config(folder, "smoke", GRID_SMALL_EPOCHS, data=GRID_SMALL)
+    published = int(get_config(GRID_SMALL, seed=0, folder=HERE).train.num_epochs)
+    trainer = Trainer(config)
+    check(trainer.device.type == "cuda", f"the trainer runs on {trainer.device}")
+    n_train, n_test = len(trainer.train_loader), len(trainer.test_loader)
+    check([n_train, n_test] == [10, 3], f"{GRID_SMALL}: {n_train} train and {n_test} test "
+                                        "batches an epoch, expected 10 and 3")
+    depth, L = int(config.model.depth), int(config.model.num_layers)
+    per_epoch = {"gcn_aggregate": (n_train + n_test) * depth,
+                 "gmh_attention": (n_train + n_test) * L,
+                 "gcn_aggregate_bwd": n_train * depth, "gmh_attention_bwd": n_train * L}
+    reset_launches()
+    t0 = time.perf_counter()
+    name = trainer.train()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    expect = {k: GRID_SMALL_EPOCHS * per_epoch.get(k, 0) for k in LAUNCHES}
+    check(launches == expect, f"{GRID_SMALL} train: launches {launches}, expected exactly "
+                              f"{expect}")
+    hist, test = np.asarray(trainer.history["train"]), np.asarray(trainer.history["test"])
+    first, end = hist[0], hist[-10:].mean(axis=0)
+    say("grid_small_train", epochs=trainer.epoch, cut=f"{GRID_SMALL_EPOCHS} of {published}",
+        steps=trainer.step, seconds=f"{seconds:.3f}",
+        loss_x=f"{first[0]:.4f}->{hist[-1][0]:.4f}", loss_adj=f"{first[1]:.4f}->{hist[-1][1]:.4f}",
+        test_loss_x=f"{test[0][0]:.4f}->{test[-1][0]:.4f}",
+        test_loss_adj=f"{test[0][1]:.4f}->{test[-1][1]:.4f}",
+        launches_per_epoch=json.dumps({k: v // GRID_SMALL_EPOCHS for k, v in launches.items()
+                                       if v}))
+    say("train_steps_per_s", config=GRID_SMALL, steps_per_s=f"{trainer.step / seconds:.2f}",
+        card=repr(smi_name_power()))
+    check(np.isfinite(hist).all() and np.isfinite(test).all(), "non-finite training losses")
+    check(bool((end < first).all()), f"losses did not fall: epoch 1 {first}, last ten {end}")
+    return launches, f"{name}_final"
+
+
+def phase_grid_small_eval(ckpt):
+    """grid_small's checkpoint ``ckpt`` by the JAX protocol, its EMA
+    weights (the config's ``sample.use_ema: true``), Reverse + Langevin,
+    on both paths: exact launch counts of its three rounds of 8, 20 graphs
+    kept, eight finite MMDs; returns {path: launches}."""
+    from ccsd_tpu_torch.data.loader import generated_adjs, split
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.sampling.sampler import Sampler, sampling_rounds
+
+    out = {}
+    for fused in (True, False):
+        path = "default (sample.fused, sample.fast on)" if fused else "sample.fused: false"
+        cfg = train_config(os.path.join(HERE, "build", "smoke_grid_small"), "smoke",
+                           GRID_SMALL_EPOCHS, data=GRID_SMALL)
+        cfg.ckpt, cfg.sample.fused = ckpt, fused
+        check(cfg.sample.use_ema and cfg.sampler.predictor == "Reverse",
+              f"{GRID_SMALL} samples with use_ema {cfg.sample.use_ema}, predictor "
+              f"{cfg.sampler.predictor}")
+        adjs = generated_adjs(GRID_SMALL, int(cfg.get("seed", 42)), int(cfg.data.max_node_num))
+        tr, te = split(len(adjs), float(cfg.data.test_split))
+        sampler = Sampler(cfg, adjs[tr], adjs[te])
+        batch, rounds = sampling_rounds(int(cfg.data.batch_size), len(adjs[te]))
+        reset_launches()
+        res = sampler.sample()
+        launches = dict(LAUNCHES)
+        expect = sample_launches(cfg, fused, rounds)
+        check(launches == expect, f"{GRID_SMALL} eval {path}: launches {launches}, "
+                                  f"expected exactly {expect}")
+        N = int(cfg.data.max_node_num)
+        check(res["adj"].shape == (len(adjs[te]), N, N) and res["finite"],
+              f"{GRID_SMALL} eval {path}: {res['adj'].shape} graphs, finite {res['finite']}")
+        check("ema" in res["weights"], f"{GRID_SMALL} sampled from {res['weights']}")
+        mmds = {**res["mmd"], **(res["cc_mmd"] or {})}
+        check(len(mmds) == 8 and all(math.isfinite(v) for v in mmds.values()),
+              f"{GRID_SMALL} eval {path}: MMDs {mmds}")
+        say("grid_small_eval", path=repr(path), weights=repr(res["weights"]),
+            graphs=len(adjs[te]), batch=batch, rounds=rounds,
+            steps=int(cfg.sde.adj.num_scales), steps_per_s=f"{res['steps_per_s']:.2f}",
+            mean_edges=f"{res['adj'].sum((1, 2)).mean() / 2:.3f}",
+            mmd=json.dumps(res["mmd"]), cc_mmd=json.dumps(res["cc_mmd"]),
+            eval_seconds=f"{res['eval_seconds']:.3f}", card=repr(smi_name_power()),
+            launches=json.dumps(launches))
+        out[f"{GRID_SMALL} eval {'default' if fused else 'unfused'}"] = launches
+    return out
+
+
 def timing_specs():
     """(kernel, source, the TPU kernels it replaces, shape key, inputs,
     {variant: (kernel fn, plain fn[, a change of the inputs])} with the
@@ -1264,6 +1580,8 @@ def timing_specs():
         gmh_attention_bwd,
         gmh_attention_bwd_plain,
         gmh_attention_plain,
+        gmh_projection,
+        gmh_projection_plain,
     )
     from ccsd_tpu_torch.kernels.gmh_scores import gmh_scores, gmh_scores_plain
 
@@ -1283,6 +1601,11 @@ def timing_specs():
          "ccsd_tpu/ops/pallas/gcn.py:45", "gcn", gcn_inputs,
          {"f32": (gcn_aggregate, gcn_aggregate_plain)}, None, {},
          lambda c: gcn_cost(*c[1:5])),
+        ("gmh_projection", "ccsd_tpu_torch/csrc/gmh_attention.cu",
+         "ccsd_tpu/ops/pallas/gmh_attention.py:62 (the norm and Q, K, V stage of "
+         "_gmh_kernel, :33-47, for graphs cut into row tiles)", "proj", proj_inputs,
+         {"f32": (gmh_projection, gmh_projection_plain)}, None, {},
+         lambda c: proj_cost(*c[1:7])),
         ("gcn_degrees", "ccsd_tpu_torch/csrc/gcn_degrees.cu",
          "ccsd_tpu/ops/pallas/gcn.py:37 (the degree stage of _gcn_kernel, for graphs "
          "cut into row tiles)", "degrees", degrees_inputs,
@@ -1321,10 +1644,44 @@ def timing_specs():
     ]
 
 
+def tanh_rate(dev):
+    """tanhf calls a second on the card: the probe of csrc/gmh_scores.cu
+    (``gmh_tanh_rate_run``: eight independent chains a thread, on tanhf's
+    exp branch, one FMA beside each call), eight blocks an SM, timed by
+    CUDA events after a warm-up."""
+    import torch
+    from ccsd_tpu_torch.kernels.build import check_status, kernel_fn
+
+    blocks, iters = 8 * torch.cuda.get_device_properties(dev).multi_processor_count, 1024
+    out = torch.empty(blocks * 256, device=dev)
+    fn = kernel_fn("gmh_scores", "gmh_tanh_rate_run")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run():
+        check_status("gmh_tanh_rate", fn(out.data_ptr(), blocks, iters, stream))
+
+    run()
+    ms = _events_ms(run, 1)
+    calls = blocks * 256 * iters * 8
+    check(bool(out.isfinite().all()), "the tanh probe gave non-finite values")
+    say("timing", tanh_probe_calls=calls, ms=f"{ms:.5f}",
+        tanh_per_s=f"{calls / (ms * 1e-3):.4e}", card=repr(smi_name_power()))
+    return calls / (ms * 1e-3)
+
+
+# the attention map kernels' tanhf calls of a case: (B, C, N, H) by key
+TANH_CASE = {"gmh": lambda c: (c[1], c[2], c[3], c[7]),
+             "scores": lambda c: (c[1], c[2], c[3], c[5])}
+# CUDA-graph replays of a case above N = 64 (grid): the plain versions'
+# intermediates there run to ~0.5 GB a call
+GRID_TIMING_ITERS = 20
+
+
 def phase_timing(shapes, dev, launches, errs):
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(2)
+    per_s = tanh_rate(dev)
     rows = []
     for kname, src, replaces, key, mk, variants, library, also, cost in timing_specs():
         per = []
@@ -1332,36 +1689,44 @@ def phase_timing(shapes, dev, launches, errs):
         with torch.no_grad():
             for case in shapes[key] + extra:
                 args = mk(case, gen, dev)
+                big = key in ("gmh", "scores", "proj") and case[3] > 64
+                iters = GRID_TIMING_ITERS if big else TIMING_ITERS
                 b_ms, by = bound_ms(*cost(case))
-                lib_ms = call_ms(library(*args))[0] if library else None
-                more = {f"{k}_ms": call_ms(f(*args))[0] for k, f in also.items()}
+                tanh_ms = (1e3 * tanh_count(*TANH_CASE[key](case)) / per_s
+                           if key in TANH_CASE else None)
+                lib_ms = call_ms(library(*args), iters)[0] if library else None
+                more = {f"{k}_ms": call_ms(f(*args), iters)[0] for k, f in also.items()}
                 for variant, (kern, plain, *change) in variants.items():
                     a = change[0](*args) if change else args
-                    ms, host_ms = call_ms(lambda: kern(*a))
-                    plain_ms, plain_host_ms = call_ms(lambda: plain(*a))
+                    ms, host_ms = call_ms(lambda: kern(*a), iters)
+                    plain_ms, plain_host_ms = call_ms(lambda: plain(*a), iters)
                     per.append({"case": case[0], "variant": variant, "ms": ms,
                                 "plain_ms": plain_ms, "host_loop_ms": host_ms,
                                 "plain_host_loop_ms": plain_host_ms,
                                 "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
-                                "off_path": case in extra, **more})
+                                "tanh_floor_ms": tanh_ms, "off_path": case in extra, **more})
                     say("timing", kernel=kname, variant=variant, case=case[0],
                         ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
                         host_loop_ms=f"{host_ms:.5f}",
                         plain_host_loop_ms=f"{plain_host_ms:.5f}", bound_ms=f"{b_ms:.6f}",
                         bound_by=by, library_ms="null" if lib_ms is None else f"{lib_ms:.5f}",
-                        **{k: f"{v:.5f}" for k, v in more.items()})
+                        tanh_floor_ms="null" if tanh_ms is None else f"{tanh_ms:.6f}",
+                        replays=iters, **{k: f"{v:.5f}" for k, v in more.items()})
         path_variant = next(iter(variants))
         on_path = [p for p in per if p["case"] != "improved" and not p["off_path"]
                    and p["variant"] == path_variant]
         mean = lambda k: sum(p[k] for p in on_path) / len(on_path)  # noqa: E731
         rows.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": errs[kname],
+            "launches": max(launches[kname].values()), "max_abs_err": errs[kname],
             # per launch, averaged over the path's layer shapes, in the
             # variant the path runs (bf16 for gmh_scores)
             "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
             "bound_by": max(on_path, key=lambda p: p["bound_ms"])["bound_by"],
-            "library_ms": mean("library_ms") if library else None, "shapes": per,
+            "library_ms": mean("library_ms") if library else None,
+            "tanh_floor_ms": mean("tanh_floor_ms") if key in TANH_CASE else None,
+            "launches_by_path": {p: n for p, n in launches[kname].items() if n},
+            "shapes": per,
         })
     return rows
 
@@ -1446,12 +1811,14 @@ def main(argv) -> int:
         phase_device()
         phase = "import"
         import_port()
-        from ccsd_tpu_torch.data.loader import community_small_adjs
+        from ccsd_tpu_torch.data.loader import community_small_adjs, generated_adjs
         from ccsd_tpu_torch.models.registry import load_model, load_model_params, with_fused
 
         dev = torch.device("cuda")
         phase = "build"
+        t_build = time.perf_counter()
         phase_build()
+        say("phase_seconds", name="build", seconds=f"{time.perf_counter() - t_build:.2f}")
 
         config = sample_config()
         defs = dict(zip(("x", "adj"), load_model_params(config)))
@@ -1474,35 +1841,48 @@ def main(argv) -> int:
         shapes = path_shapes({"x": x_net, "adj": adj_net})
         train_adjs = community_small_adjs(100, 0, int(config.data.max_node_num))
 
-        phase = "kernels"
-        errs = phase_kernels(shapes, dev)
-        phase = "models"
-        phase_models(models, train_adjs, dev)
-        phase = "grid"
-        grid_launches = phase_grid_x(dev)
-        phase = "sample"
-        launches = phase_sample(train_adjs)
-        # the degree pass runs only on graphs cut into row tiles (N > 64)
-        launches["gcn_degrees"] = grid_launches["gcn_degrees"]
-        phase = "train_kernels"
+        runs = {}  # {path's run: its launches}
+
+        def timed(name, fn, *a):
+            nonlocal phase
+            phase = name
+            t = time.perf_counter()
+            out = fn(*a)
+            say("phase_seconds", name=name, seconds=f"{time.perf_counter() - t:.2f}")
+            return out
+
+        errs = timed("kernels", phase_kernels, shapes, dev)
+        timed("models", phase_models, models, train_adjs, dev)
+        runs["grid ScoreNetworkX"] = timed("grid", phase_grid_x, dev)
+        runs.update({f"grid ScoreNetworkA {k}": v
+                     for k, v in timed("grid_a", phase_grid_a, dev).items()})
+        runs.update(timed("sample", phase_sample, train_adjs))
         # the train batch: all graphs but the first int(test_split M)
         n_train = len(train_adjs) - int(float(config.data.test_split) * len(train_adjs))
         shapes.update(train_shapes({"x": x_net, "adj": adj_net}, n_train))
         shapes.update(more_train_shapes())
-        errs.update(phase_train_kernels(shapes, dev))
-        phase = "train_grads"
-        phase_train_grads(config, train_adjs, dev)
-        phase = "train"
-        train_launches, ckpt = phase_train(config, train_adjs, dev)
-        for k in ("gcn_aggregate_bwd", "gmh_attention_bwd"):  # on the training path only
-            launches[k] = train_launches[k]
-        phase = "eval"
-        phase_eval(config, ckpt, train_adjs)
-        phase = "timing"
-        rows = phase_timing(shapes, dev, launches, errs)
+        errs.update(timed("train_kernels", phase_train_kernels, shapes, dev))
+        timed("train_grads", phase_train_grads, config, train_adjs, dev)
+        runs["community_small train"], ckpt = timed("train", phase_train, config,
+                                                    train_adjs, dev)
+        timed("eval", phase_eval, config, ckpt, train_adjs)
+        runs[f"{GRID_SMALL} train"], gs_ckpt = timed("grid_small_train",
+                                                     phase_grid_small_train)
+        runs.update(timed("grid_small_eval", phase_grid_small_eval, gs_ckpt))
+        # grid's networks have grid_small's widths: grid samples from its
+        # EMA weights (seeded ones overflow before step 400 at any head
+        # scale tried: scripts/random_weight_divergence.py)
+        grid_adjs = generated_adjs(GRID_CONFIG, 0, 361)
+        runs.update(timed("grid_sample", phase_sample, grid_adjs, GRID_CONFIG, 8,
+                          "grid_sample", grid_small_ckpt_path(gs_ckpt)))
+        from ccsd_tpu_torch.kernels import LAUNCHES
+
+        launches = {k: {p: run.get(k, 0) for p, run in runs.items()} for k in LAUNCHES}
+        idle = [k for k, by in launches.items() if not any(by.values())]
+        check(not idle, f"kernels launched in no path's run: {idle}")
+        rows = timed("timing", phase_timing, shapes, dev, launches, errs)
         if args.profile:
-            phase = "profile"
-            phase_profile(train_adjs, args.profile)
+            timed("profile", phase_profile, train_adjs, args.profile)
         phase = "result"
         say("done", seconds=f"{time.perf_counter() - t0:.1f}")
         print(json.dumps({"kernels": rows}))

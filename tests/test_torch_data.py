@@ -1,10 +1,12 @@
-"""The port's community_small generator against the JAX package's.
+"""The port's community_small and grid generators against the JAX
+package's.
 
-``ccsd_tpu_torch.data.loader.community_small_adjs(num, seed)`` replicates
-``np.random.seed(seed)`` followed by ``gen_graph_list("community", ...)``
-(ccsd_tpu/data/generators.py:196-204) with numpy and the standard library
-only; the graphs must be equal bit for bit once padded to N = 20 as the
-JAX package pads them (``graphs_to_tensor``).
+``ccsd_tpu_torch.data.loader.community_small_adjs(num, seed)`` and
+``grid_adjs(num, seed, ...)`` replicate ``np.random.seed(seed)`` followed by
+``gen_graph_list("community", ...)`` and ``gen_graph_list("grid", ...)``
+(ccsd_tpu/data/generators.py:196-225) with numpy and the standard library
+only; the graphs must be equal bit for bit once padded to the config's N
+as the JAX package pads them (``graphs_to_tensor``).
 """
 
 import numpy as np
@@ -13,7 +15,13 @@ import pytest
 from ccsd_tpu.data import generators
 from ccsd_tpu.data.cc_codec import graphs_to_tensor
 
-from ccsd_tpu_torch.data.loader import community_small_adjs, n_community
+from ccsd_tpu_torch.data.loader import (
+    GENERATED,
+    community_small_adjs,
+    generated_adjs,
+    grid_adjs,
+    n_community,
+)
 
 
 @pytest.fixture
@@ -50,3 +58,36 @@ def test_n_community_equals_the_jax_recipe(num_communities, max_nodes, global_np
     rs = np.random.RandomState(3)
     np.testing.assert_array_equal(n_community(rs, num_communities, max_nodes), want)
     assert rs.random_sample() == after
+
+
+# (m and n ranges, N) of grid_small and grid (generators.py:206-225)
+GRID_RECIPES = {"grid_small": (np.arange(4, 8).tolist(), 49),
+                "grid": (np.arange(10, 20).tolist(), 361)}
+
+
+@pytest.mark.parametrize("seed", [0, 3, 42])
+@pytest.mark.parametrize("name", list(GRID_RECIPES))
+def test_grid_equals_gen_graph_list(name, seed, global_np_random):
+    """m, then n, one np.random.choice each; nodes (i, j) numbered row-major;
+    100 graphs, as generate_dataset makes them."""
+    sizes, N = GRID_RECIPES[name]
+    np.random.seed(seed)
+    graphs = generators.gen_graph_list("grid", {"m": sizes, "n": sizes}, length=100)
+    want = graphs_to_tensor(graphs, N)
+    got = grid_adjs(100, seed, N, sizes, sizes)
+    assert got.shape == want.shape == (100, N, N) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(generated_adjs(name, seed, N), want)
+    # and the global state ends where the JAX recipe leaves it
+    after = np.random.random_sample()
+    rs = np.random.RandomState(seed)
+    grid_adjs(100, rs, N, sizes, sizes)
+    assert rs.random_sample() == after
+
+
+def test_generated_datasets_are_the_jax_recipes():
+    assert set(GENERATED) == {"community_small", "grid_small", "grid"}
+    np.testing.assert_array_equal(generated_adjs("community_small", 7, 20),
+                                  community_small_adjs(100, 7, 20))
+    with pytest.raises(ValueError, match="max_node_num=20"):
+        grid_adjs(1, 0, 20, [5], [5])

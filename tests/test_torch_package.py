@@ -363,6 +363,127 @@ def test_gmh_scores_kernel_matches_plain_on_card_at_every_shape(cuda, N, ds, C, 
     assert bool((err <= tol).all()), f"max error {err.max().item():.3e}"
 
 
+# the tiled designs (N > 64): one ragged tile past the one-block limit (65),
+# an N that is not a multiple of the tile (100: three tiles of 32 and one
+# of 4), and grid's 361 (eleven tiles of 32 and one of 9) at its batch
+TILED = [(3, 65), (3, 100), (8, 361)]
+
+
+def _grid_adj(B, C, N, g, dev):
+    """A symmetric 0/1 adjacency of mean degree 4, as grid's graphs have:
+    at N = 361 a row of 361 uniform entries sums to ~180 and one of
+    standard-normal entries to near zero as often as not, where two f32
+    orders of one sum differ by more than the tolerance."""
+    return _sym((torch.rand(B, C, N, N, device=dev, generator=g) < 4 / N).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "channels-last"])
+@pytest.mark.parametrize("C,Fi", [(2, 5), (8, 32)])
+@pytest.mark.parametrize("B,N", TILED)
+def test_tiled_gmh_kernel_matches_plain_on_card(cuda, B, N, C, Fi, layout):
+    """Above N = 64 the wrapper launches gcn_degrees, gmh_projection and the
+    tile-pair scores once each; V, the maps and the projection's own
+    outputs within rtol = atol = 1e-5 of the plain versions, the maps
+    exactly symmetric.  C and F_in of grid's first and later layers; the
+    adjacency contiguous (a first layer's) and channels-last (a later
+    one's)."""
+    from ccsd_tpu_torch.kernels import LAUNCHES
+    from ccsd_tpu_torch.kernels.gcn import gcn_degrees_plain
+    from ccsd_tpu_torch.kernels.gmh_attention import (
+        gmh_attention,
+        gmh_attention_plain,
+        gmh_projection,
+        gmh_projection_plain,
+    )
+
+    A = O = 32
+    g = torch.Generator(device=cuda).manual_seed(N + C)
+    r = lambda *s: torch.randn(*s, device=cuda, generator=g)  # noqa: E731
+    x = r(B, N, Fi)
+    adj = _grid_adj(B, C, N, g, cuda)
+    if layout == "channels-last":
+        adj = adj.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    w = [r(C, Fi, A) * 0.3, r(C, A), r(C, Fi, A) * 0.3, r(C, A), r(C, Fi, O), r(C, O)]
+    before = dict(LAUNCHES)
+    out = gmh_attention(x, adj, *w, 4, O)
+    torch.cuda.synchronize()
+    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    assert moved == {"gcn_degrees": 1, "gmh_projection": 1, "gmh_attention": 1}
+    for o, rr in zip(out, gmh_attention_plain(x, adj, *w, 4, O)):
+        torch.testing.assert_close(o, rr, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out[1], out[1].transpose(1, 2))
+    deg = gcn_degrees_plain(adj)
+    for o, rr in zip(gmh_projection(x, adj, deg, *w), gmh_projection_plain(x, adj, deg, *w)):
+        torch.testing.assert_close(o, rr, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("C", [2, 8])
+@pytest.mark.parametrize("B,N", TILED)
+def test_tiled_gmh_scores_kernel_matches_plain_on_card(cuda, B, N, C, bf16):
+    """One tile-pair launch; Q and K strided column blocks of one
+    projection, as the fused layer hands them over.  f32 within 1e-5;
+    bf16 within one bf16 ulp of each head sum over sqrt(O), element by
+    element, plus 1e-5; the map exactly symmetric."""
+    from ccsd_tpu_torch.kernels import LAUNCHES
+    from ccsd_tpu_torch.kernels.gmh_scores import gmh_scores, gmh_scores_plain
+
+    H, A, O = 4, 32, 32
+    g = torch.Generator(device=cuda).manual_seed(N * 10 + C)
+    qkv = torch.randn(C, B, N, 2 * A + O, device=cuda, generator=g).transpose(0, 1)
+    q, k = qkv[..., :A], qkv[..., A:2 * A]
+    before = dict(LAUNCHES)
+    out = gmh_scores(q, k, H, O, bf16=bf16)
+    torch.cuda.synchronize()
+    assert LAUNCHES["gmh_scores"] == before["gmh_scores"] + 1
+    ref = gmh_scores_plain(q, k, H, O, bf16=bf16)
+    tol = torch.full_like(ref, 1e-5)
+    if bf16:
+        s = torch.einsum("bcnhd,bcmhd->bchnm", q.reshape(B, C, N, H, -1),
+                         k.reshape(B, C, N, H, -1))
+        ulp = torch.exp2(torch.floor(torch.log2(s.abs().clamp_min(1e-30))) - 7)
+        b = ulp.mean(dim=2) / math.sqrt(O)
+        tol += ((b + b.transpose(-1, -2)) / 2).permute(0, 2, 3, 1)
+    err = (out - ref).abs()
+    assert bool((err <= tol).all()), f"max error {err.max().item():.3e}"
+    assert torch.equal(out, out.transpose(1, 2))
+
+
+@pytest.mark.parametrize("N", [49, 65, 100, 361])
+def test_tile_pair_plan_writes_every_entry_once(N):
+    """The wrapper's plan of a tiled launch: every pair of tiles I <= J
+    once, and the entries its blocks write (rows of I x columns of J, and
+    off the diagonal rows of J x columns of I, cut at N) cover the N x N
+    map exactly once."""
+    from ccsd_tpu_torch.kernels.gmh_attention import TILE, tile_pairs
+
+    plan = tile_pairs(N)
+    nt = -(-N // TILE)
+    assert plan.dtype == np.int32 and plan.shape == (nt * (nt + 1) // 2, 2)
+    assert sorted(map(tuple, plan.tolist())) == [(i, j) for i in range(nt)
+                                                for j in range(i, nt)]
+    writes = np.zeros((N, N), np.int64)
+    for i, j in plan.tolist():
+        rows, cols = slice(i * TILE, (i + 1) * TILE), slice(j * TILE, (j + 1) * TILE)
+        writes[rows, cols] += 1
+        if i != j:
+            writes[cols, rows] += 1
+    assert (writes == 1).all()
+
+
+def test_tiled_attention_raises_naming_n_past_what_it_holds():
+    """The projection holds a graph's X whole in one block: past that the
+    geometry raises, naming N, on the host, before any kernel is built."""
+    from ccsd_tpu_torch.kernels.build import SMEM_LIMIT
+    from ccsd_tpu_torch.kernels.gmh_attention import projection_group
+
+    N = SMEM_LIMIT // (4 * 32) + 1
+    with pytest.raises(ValueError, match=f"N={N}"):
+        projection_group(8, 8, N, 32, 32, 32)
+
+
 def _graph_configs():
     """(name, data, model) of every config/*.yaml with graph model widths."""
     from ccsd_tpu_torch.utils.config import load_yaml
@@ -395,13 +516,20 @@ def test_launch_geometry_fits_every_graph_config(cuda, name):
     of every graph config (the graph widths of the CC configs included):
     gcn_aggregate for each ScoreNetworkX layer and channel_agg for each
     AttentionLayer at every N, grid's 361 included; the two attention
-    kernels where N <= 64, at the config's batch and at 1.  The
+    kernels at the config's batch and at 1: their one-block designs where
+    N <= 64, their tiled designs (the projection, the tile-pair scores of
+    both libraries) above.  The
     shared-memory layouts live only in the CUDA sources, so their libraries
     are asked."""
     from ccsd_tpu_torch.kernels.build import SMEM_LIMIT, kernel_fn
     from ccsd_tpu_torch.kernels.channel_agg import agg_smem
     from ccsd_tpu_torch.kernels.gcn import gcn_aggregate_smem
-    from ccsd_tpu_torch.kernels.gmh_attention import MAX_N, attention_smem
+    from ccsd_tpu_torch.kernels.gmh_attention import (
+        MAX_N,
+        attention_smem,
+        projection_group,
+        tiled_scores_group,
+    )
     from ccsd_tpu_torch.kernels.gmh_scores import scores_group
 
     _, data, model = next(c for c in _graph_configs() if c[0] == name)
@@ -411,7 +539,15 @@ def test_launch_geometry_fits_every_graph_config(cuda, name):
     smem = kernel_fn("gmh_scores", "gmh_scores_smem")
     for C, Fi, A, O, H in _layer_shapes(data, model):
         assert 0 < agg_smem(N, Fi) <= SMEM_LIMIT, (C, N, Fi)
-        if N > MAX_N:
+        if N > MAX_N:  # the tiled designs
+            for B in (data["batch_size"], 1):
+                G = projection_group(B, C, N, Fi, A, O)
+                assert 1 <= G <= C and 0 < kernel_fn(
+                    "gmh_attention", "gmh_projection_smem")(N, Fi, A, O, G) <= SMEM_LIMIT
+                for kern in ("gmh_scores", "gmh_attention"):
+                    G = tiled_scores_group(kern, B, C, N, A)
+                    assert 1 <= G <= C and 0 < kernel_fn(kern, "gmh_tiled_scores_smem")(
+                        A, G) <= SMEM_LIMIT, (kern, B, C, N, A, G)
             continue
         assert 0 < attention_smem(N, Fi, A, O, H) <= SMEM_LIMIT, (C, N, Fi, A)
         for B in (data["batch_size"], 1):
