@@ -1,4 +1,4 @@
-"""Command-line entry point of the port (graph training and sampling).
+"""Command-line entry point of the port (graph and CC training and sampling).
 
 Usage:
     python -m ccsd_tpu_torch.cli --type train --config community_small \
@@ -6,7 +6,8 @@ Usage:
         [--resume NAME]
     python -m ccsd_tpu_torch.cli --type sample --config community_small \
         [--seed 42] [--folder ./] [--device cuda|cpu] [--num-samples 128] \
-        [--train-adjs adjs.npy] [--out samples.npz]
+        [--train-adjs adjs.npy] [--out samples.npz] [--ckpt NAME] \
+        [--score-dtype f32]
 
 The dataset is ``--train-adjs`` (a (M, N, N) numpy array of padded
 adjacencies); without it, community_small, grid_small and grid generate
@@ -26,7 +27,12 @@ graphs unless ``--num-samples`` says otherwise, drawn from the seed
 line with both (``mmd``, ``cc_mmd``).  The config's ``sample.fused`` and
 ``sample.fast`` (both on when absent) pick the network path, as in
 ``Sampler``, and ``ckpt`` the weights (a ``_final`` checkpoint of a port
-run, for one).
+run, for one; ``--ckpt NAME`` sets it, and ``--score-dtype`` sets
+``sample.score_dtype``).  A CC config (``--config community_small_CC``) trains the
+three networks on the graphs and their lift, and samples CCs: its JSON
+line adds ``cells_per_cc`` (its ``cc_mmd`` holds the CC MMDs), and
+``--out`` the rank-2 incidences.  Its default ``sample.score_dtype`` is
+bf16, which is not ported: pass ``--score-dtype f32``.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ import numpy as np
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ccsd_tpu_torch",
-                                description="PyTorch/CUDA graph training and sampling")
+                                description="PyTorch/CUDA graph and CC training and sampling")
     p.add_argument("--type", required=True, choices=["train", "sample"])
     p.add_argument("--config", required=True, help="config/<name>.yaml")
     p.add_argument("--folder", default="./", help="root of config/ and checkpoints/")
@@ -49,8 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None, help="default: cuda")
     p.add_argument("--num-samples", type=int, default=None)
     p.add_argument("--train-adjs", default=None, help=".npy of (M, N, N) adjacencies")
-    p.add_argument("--out", default=None, help="write adj/x/flags to this .npz")
+    p.add_argument("--out", default=None, help="write adj/x/flags[/rank2] to this .npz")
     p.add_argument("--resume", default=None, help="checkpoint name to resume training from")
+    p.add_argument("--ckpt", default=None, help="checkpoint name to sample from")
+    p.add_argument("--score-dtype", default=None, help="sample.score_dtype (f32)")
     return p
 
 
@@ -62,6 +70,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ccsd_tpu_torch.utils.config import get_config
 
     config = get_config(args.config, args.seed, args.folder)
+    if args.ckpt:
+        config.ckpt = args.ckpt
+    if args.score_dtype:
+        config.sample.score_dtype = args.score_dtype
     try:
         adjs = dataset_adjs(config, np.load(args.train_adjs) if args.train_adjs else None)
     except ValueError:
@@ -71,12 +83,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         if args.resume:
             trainer.load_checkpoint(args.resume)
         name = trainer.train()
-        last = {k: h[-1] if h else [float("nan")] * 2 for k, h in trainer.history.items()}
+        names = trainer.names
+        last = {k: h[-1] if h else [float("nan")] * len(names)
+                for k, h in trainer.history.items()}
         print(json.dumps({
             "epochs": trainer.epoch,
             "steps": trainer.step,
-            "train_loss_x": last["train"][0], "train_loss_adj": last["train"][1],
-            "test_loss_x": last["test"][0], "test_loss_adj": last["test"][1],
+            **{f"{k}_loss_{n}": v for k in ("train", "test") for n, v in zip(names, last[k])},
             "steps_per_s": trainer.steps_per_s,
             "ckpt": f"{name}_final",
             "ckpt_path": trainer.checkpoint_path(f"{name}_final"),
@@ -86,7 +99,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     tr, te = split(len(adjs), float(config.data.test_split))
     res = Sampler(config, adjs[tr], adjs[te], device=args.device).sample(args.num_samples)
     if args.out:
-        np.savez(args.out, adj=res["adj"], x=res["x"], flags=res["flags"])
+        extra = {"rank2": res["rank2"]} if "rank2" in res else {}
+        np.savez(args.out, adj=res["adj"], x=res["x"], flags=res["flags"], **extra)
+    cc = {"cells_per_cc": res["cells_per_cc"]} if "cells_per_cc" in res else {}
     print(json.dumps({
         "samples": int(res["adj"].shape[0]),
         "finite": res["finite"],
@@ -95,6 +110,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "steps_per_s": res["steps_per_s"],
         "mmd": res.get("mmd"),
         "cc_mmd": res.get("cc_mmd"),
+        **cc,
         "eval_seconds": res.get("eval_seconds"),
         "weights": res["weights"],
         "device": res["device"],

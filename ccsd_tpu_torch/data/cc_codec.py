@@ -2,14 +2,17 @@
 
 Port of ccsd_tpu/data/cc_codec.py: ``create_incidence_1_2`` (:34-79,
 full enumeration only), ``CC_to_incidence_matrices`` (:82-128),
-``pad_rank2`` (:226-259) and ``convert_graphs_to_CCs`` (:341-404), this
-one on the cleaned graphs of ``eval.graphs`` in place of networkx graphs
-and without the molecule attributes.
+``cc_from_incidence`` (:131-205), ``pad_adjs`` (:208-223), ``pad_rank2``
+(:226-259), ``get_global_cc_properties`` (:262-271), ``ccs_to_tensors``
+(:274-306, full enumeration), ``convert_CC_to_graphs`` (:324-338) and
+``convert_graphs_to_CCs`` (:341-404), these two on the cleaned graphs of
+``eval.graphs`` in place of networkx graphs; all without the molecule
+attributes.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -110,6 +113,56 @@ def CC_to_incidence_matrices(
     return [X, A, F]
 
 
+def cc_from_incidence(incidence_matrices: Sequence[np.ndarray], d_min: int,
+                      d_max: int) -> CombinatorialComplex:
+    """[X (N, F), A (N, N), F (E, K)] -> CC: a node per nonzero row of X
+    (attributes ``label_j``), an edge per nonzero A[i, j] above the
+    diagonal (``label``), a rank-2 cell per nonzero column of F, labelled
+    with the entry of largest magnitude (``label``)."""
+    CC = CombinatorialComplex()
+    mats = [np.asarray(m) for m in incidence_matrices]
+    if not mats:
+        return CC
+    X = mats[0]
+    N = X.shape[0]
+    for i in np.flatnonzero(X.any(1)):
+        CC.add_cell((int(i),), rank=0,
+                    **{f"label_{j}": float(X[i, j]) for j in range(X.shape[1])})
+    if len(mats) == 1:
+        return CC
+    A = mats[1]
+    if A.ndim > 2:
+        raise NotImplementedError("multi-channel adjacencies (molecules) are not ported")
+    for i, j in zip(*np.nonzero(np.triu(A, 1))):
+        CC.add_cell((int(i), int(j)), rank=1, label=float(A[i, j]))
+    if len(mats) == 2:
+        return CC
+    F = mats[2]
+    cells = get_spec(N, d_min, d_max).cells
+    for col in np.flatnonzero(F.any(0)):
+        row = int(np.argmax(np.abs(F[:, col])))
+        CC.add_cell(frozenset(cells[col]), 2, label=float(F[row, col]))
+    if len(mats) == 3:
+        return CC
+    raise NotImplementedError("Combinatorial Complexes of dimension > 2 not implemented")
+
+
+def pad_adjs(ori_adj: np.ndarray, node_number: int) -> np.ndarray:
+    """Zero-pad an adjacency matrix to node_number."""
+    a = np.asarray(ori_adj)
+    if not a.size:
+        return np.zeros((node_number, node_number), dtype=np.float32)
+    ori_len = a.shape[-1]
+    if ori_len > node_number:
+        raise ValueError(
+            f"Original number of nodes {ori_len} is greater (>) than the "
+            f"desired number of nodes after padding {node_number}"
+        )
+    out = np.zeros((node_number, node_number), dtype=a.dtype)
+    out[:ori_len, :ori_len] = a
+    return out
+
+
 def pad_rank2(
     ori_rank2: np.ndarray, node_number: int, d_min: int, d_max: int
 ) -> np.ndarray:
@@ -138,6 +191,43 @@ def pad_rank2(
     out = np.zeros((big.num_edges, big.num_cells), dtype=np.float32)
     out[np.ix_(row_map, col_map)] = r
     return out
+
+
+def get_global_cc_properties(ccs: List[CombinatorialComplex]) -> Tuple[int, int, int]:
+    """(max_node_num, d_min, d_max) over a CC list."""
+    max_node_num = max(len(cc.cells.hyperedge_dict.get(0, [])) for cc in ccs)
+    sizes = [[len(c) for c in cc.cells.hyperedge_dict.get(2, [])] for cc in ccs]
+    return max_node_num, min(min(s) for s in sizes), max(max(s) for s in sizes)
+
+
+def ccs_to_tensors(cc_list: List[CombinatorialComplex], max_node_num: Optional[int] = None,
+                   d_min: Optional[int] = None, d_max: Optional[int] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """CCs -> (adjs (B, N, N), rank2 (B, E, K)) float32, each CC's own
+    incidence padded to max_node_num (default: the list's properties)."""
+    if max_node_num is None or d_min is None or d_max is None:
+        max_node_num, d_min, d_max = get_global_cc_properties(cc_list)
+    adjs, rank2s = [], []
+    for cc in cc_list:
+        _, adj, rank2 = CC_to_incidence_matrices(cc, d_min, d_max)
+        adjs.append(pad_adjs(adj, max_node_num))
+        rank2s.append(pad_rank2(rank2, max_node_num, d_min, d_max))
+    return np.asarray(adjs, dtype=np.float32), np.asarray(rank2s, dtype=np.float32)
+
+
+def convert_CC_to_graphs(ccs: List[CombinatorialComplex]) -> List[Graph]:
+    """CCs -> their 1-skeleton graphs: every rank-0 cell a node (isolated
+    ones too), in ascending label order, and every rank-1 cell an edge."""
+    graphs = []
+    for cc in ccs:
+        nodes = sorted({v for node in cc.cells.hyperedge_dict.get(0, {}) for v in node})
+        row = {v: i for i, v in enumerate(nodes)}
+        adj = np.zeros((len(nodes), len(nodes)), np.int64)
+        for edge in cc.cells.hyperedge_dict.get(1, {}):
+            u, v = (row[w] for w in edge)
+            adj[u, v] = adj[v, u] = 1
+        graphs.append(Graph(adj, np.asarray(nodes, np.int64)))
+    return graphs
 
 
 def convert_graphs_to_CCs(

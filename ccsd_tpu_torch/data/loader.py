@@ -11,6 +11,9 @@ features, split and batch order exactly.  ``community_small_adjs`` and
 grid recipes (ccsd_tpu/data/generators.py:20-48, 77-84, 87-113, 196-225)
 with numpy and the standard library only, graph for graph and edge for
 edge the graphs ``gen_graph_list`` gives after ``np.random.seed(seed)``.
+A CC dataset (community_small_CC) is its graph recipe's adjacencies and
+the rank-2 incidence of their lift (``lifted_rank2``), as the JAX package
+lifts and pads them (generators.py:244-255, loader.py:270-300).
 """
 
 from __future__ import annotations
@@ -206,6 +209,7 @@ def grid_adjs(num: int, seed: Union[int, np.random.RandomState], max_node_num: i
 # package's generate_dataset makes them (generators.py:196-225)
 GENERATED = {
     "community_small": (community_small_adjs, {}, 100),
+    "community_small_CC": (community_small_adjs, {}, 100),
     "grid_small": (grid_adjs, {"m_range": range(4, 8), "n_range": range(4, 8)}, 100),
     "grid": (grid_adjs, {"m_range": range(10, 20), "n_range": range(10, 20)}, 100),
 }
@@ -216,3 +220,18 @@ def generated_adjs(data: str, seed: int, max_node_num: int) -> np.ndarray:
     and padded to ``max_node_num``."""
     recipe, params, num = GENERATED[data]
     return recipe(num, seed, max_node_num, **params)
+
+
+def lifted_rank2(adjs: np.ndarray, data) -> np.ndarray:
+    """(M, E, K) rank-2 incidences of the graphs ``adjs`` lifted by the
+    config's ``data.lifting_procedure`` (with ``basic`` kwargs: paths of 3
+    nodes from every node of the largest graph), each padded to
+    ``data.max_node_num`` with cells of ``data.d_min``..``data.d_max``
+    nodes."""
+    from ccsd_tpu_torch.data.cc_codec import ccs_to_tensors, convert_graphs_to_CCs
+    from ccsd_tpu_torch.eval.graphs import adjs_to_graphs
+
+    ccs = convert_graphs_to_CCs(adjs_to_graphs(adjs),
+                                lifting_procedure=data.lifting_procedure,
+                                lifting_procedure_kwargs=data.get("lifting_procedure_kwargs"))
+    return ccs_to_tensors(ccs, int(data.max_node_num), int(data.d_min), int(data.d_max))[1]

@@ -1,14 +1,17 @@
 """Score wrapper and the denoising score-matching (DSM) loss of the graph
 score networks.
 
-Port of ``get_score_fn`` (ccsd_tpu/diffusion/losses.py:49-73): VP and subVP
-scale the network output by -1/std(t); VE returns it as it is.  And of
-``get_sde_loss_fn`` (:102-163), split in two: :meth:`SDELoss.draw` draws t
-and the masked noise of x and the adjacency from an explicit
-``torch.Generator`` (t, then z_x, then z_adj), and :meth:`SDELoss.losses`
-takes the draws as arguments, so a test can feed it the JAX package's.
-The networks are arguments of the call, as the JAX loss takes their
+Port of ``get_score_fn`` and ``get_score_fn_cc`` (ccsd_tpu/diffusion/
+losses.py:49-100): VP and subVP scale the network output by -1/std(t); VE
+returns it as it is.  And of ``get_sde_loss_fn`` (:102-163) and
+``get_sde_loss_fn_cc`` (:166-240), each split in two: ``draw`` draws t and
+the masked noise from an explicit ``torch.Generator`` (t, then z_x, then
+z_adj, then in CC mode z_rank2, the JAX key order), and ``losses`` takes
+the draws as arguments, so a test can feed it the JAX package's.  The
+networks are arguments of the call, as the JAX loss takes their
 parameters, so one loss serves the trained networks and their EMA copies.
+The CC networks are called with keywords (``rank2=``, ``flags=``):
+ScoreNetworkX takes the rank-2 tensor and ignores it.
 """
 
 from __future__ import annotations
@@ -18,7 +21,15 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ccsd_tpu_torch.diffusion.sde import SDE, VESDE, _bcast, is_vp_like
-from ccsd_tpu_torch.ops.masks import gen_noise, mask_adjs, mask_x, node_flags
+from ccsd_tpu_torch.ops.cells import ComplexSpec
+from ccsd_tpu_torch.ops.masks import (
+    gen_noise,
+    gen_noise_rank2,
+    mask_adjs,
+    mask_rank2,
+    mask_x,
+    node_flags,
+)
 
 
 def get_score_fn(sde: SDE, model) -> Callable:
@@ -33,6 +44,24 @@ def get_score_fn(sde: SDE, model) -> Callable:
 
         def score_fn(x, adj, flags, t):
             return model(x, adj, flags)
+
+    else:
+        raise NotImplementedError(f"SDE class {type(sde).__name__} not supported.")
+    return score_fn
+
+
+def get_score_fn_cc(sde: SDE, model) -> Callable:
+    """CC score function (x, adj, rank2, flags, t) -> score."""
+    if is_vp_like(sde):
+
+        def score_fn(x, adj, rank2, flags, t):
+            out = model(x, adj, rank2=rank2, flags=flags)
+            return -out / _bcast(sde.marginal_std(t), out)
+
+    elif isinstance(sde, VESDE):
+
+        def score_fn(x, adj, rank2, flags, t):
+            return model(x, adj, rank2=rank2, flags=flags)
 
     else:
         raise NotImplementedError(f"SDE class {type(sde).__name__} not supported.")
@@ -69,6 +98,16 @@ class SDELoss:
         z_adj = gen_noise(adj, flags, sym=True, generator=generator)
         return t, z_x, z_adj
 
+    def _dsm(self, sde: SDE, score: torch.Tensor, std: torch.Tensor, z: torch.Tensor,
+             v: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """Per-sample DSM loss of one object (ccsd_tpu/diffusion/losses.py:
+        146-161): |score std + z|², or |score + z / std|² g(t)² with
+        likelihood weighting."""
+        if not self.likelihood_weighting:
+            return _reduce(torch.square(score * _bcast(std, score) + z), self.reduce_mean)
+        g2 = sde.sde(torch.zeros_like(v), t)[1] ** 2
+        return _reduce(torch.square(score + z / _bcast(std, z)), self.reduce_mean) * g2
+
     def losses(self, model_x, model_adj, x: torch.Tensor, adj: torch.Tensor,
                t: torch.Tensor, z_x: torch.Tensor, z_adj: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -83,24 +122,64 @@ class SDELoss:
         score_x = get_score_fn(sde_x, model_x)(perturbed_x, perturbed_adj, flags, t)
         score_adj = get_score_fn(sde_adj, model_adj)(perturbed_x, perturbed_adj, flags, t)
 
-        if not self.likelihood_weighting:
-            lx = _reduce(torch.square(score_x * _bcast(std_x, score_x) + z_x),
-                         self.reduce_mean)
-            la = _reduce(torch.square(score_adj * _bcast(std_adj, score_adj) + z_adj),
-                         self.reduce_mean)
-        else:
-            g2_x = sde_x.sde(torch.zeros_like(x), t)[1] ** 2
-            lx = _reduce(torch.square(score_x + z_x / _bcast(std_x, z_x)),
-                         self.reduce_mean) * g2_x
-            g2_adj = sde_adj.sde(torch.zeros_like(adj), t)[1] ** 2
-            la = _reduce(torch.square(score_adj + z_adj / _bcast(std_adj, z_adj)),
-                         self.reduce_mean) * g2_adj
+        lx = self._dsm(sde_x, score_x, std_x, z_x, x, t)
+        la = self._dsm(sde_adj, score_adj, std_adj, z_adj, adj, t)
         return lx.mean(), la.mean()
 
     def __call__(self, model_x, model_adj, x: torch.Tensor, adj: torch.Tensor,
                  generator: Optional[torch.Generator] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.losses(model_x, model_adj, x, adj, *self.draw(x, adj, generator))
+
+
+class SDELossCC(SDELoss):
+    """DSM loss for (X, A, F): ``loss(model_x, model_adj, model_rank2, x,
+    adj, rank2, generator) -> (loss_x, loss_adj, loss_rank2)``, each the
+    batch mean.  The rank-2 noise is masked by ``mask_rank2`` and not
+    symmetrised; the perturbed rank-2 tensor is masked the same way."""
+
+    def __init__(self, sde_x: SDE, sde_adj: SDE, sde_rank2: SDE, spec: ComplexSpec,
+                 reduce_mean: bool = False, likelihood_weighting: bool = False,
+                 eps: float = 1e-5):
+        super().__init__(sde_x, sde_adj, reduce_mean, likelihood_weighting, eps)
+        self.sde_rank2, self.spec = sde_rank2, spec
+
+    def draw(self, x: torch.Tensor, adj: torch.Tensor, rank2: torch.Tensor,
+             generator: Optional[torch.Generator] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(t, z_x, z_adj, z_rank2), drawn in that order."""
+        t, z_x, z_adj = super().draw(x, adj, generator)
+        z_rank2 = gen_noise_rank2(rank2, self.spec, node_flags(adj), generator=generator)
+        return t, z_x, z_adj, z_rank2
+
+    def losses(self, model_x, model_adj, model_rank2, x: torch.Tensor, adj: torch.Tensor,
+               rank2: torch.Tensor, t: torch.Tensor, z_x: torch.Tensor,
+               z_adj: torch.Tensor, z_rank2: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The losses at given draws (ccsd_tpu/diffusion/losses.py:182-238)."""
+        sde_x, sde_adj, sde_r2 = self.sde_x, self.sde_adj, self.sde_rank2
+        flags = node_flags(adj)
+        mean_x, std_x = sde_x.marginal_prob(x, t)
+        px = mask_x(mean_x + _bcast(std_x, x) * z_x, flags)
+        mean_adj, std_adj = sde_adj.marginal_prob(adj, t)
+        padj = mask_adjs(mean_adj + _bcast(std_adj, adj) * z_adj, flags)
+        mean_r2, std_r2 = sde_r2.marginal_prob(rank2, t)
+        pr2 = mask_rank2(mean_r2 + _bcast(std_r2, rank2) * z_rank2, self.spec, flags)
+
+        scores = [get_score_fn_cc(sde, m)(px, padj, pr2, flags, t)
+                  for sde, m in ((sde_x, model_x), (sde_adj, model_adj),
+                                 (sde_r2, model_rank2))]
+        lx = self._dsm(sde_x, scores[0], std_x, z_x, x, t)
+        la = self._dsm(sde_adj, scores[1], std_adj, z_adj, adj, t)
+        lr = self._dsm(sde_r2, scores[2], std_r2, z_rank2, rank2, t)
+        return lx.mean(), la.mean(), lr.mean()
+
+    def __call__(self, model_x, model_adj, model_rank2, x: torch.Tensor,
+                 adj: torch.Tensor, rank2: torch.Tensor,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return self.losses(model_x, model_adj, model_rank2, x, adj, rank2,
+                           *self.draw(x, adj, rank2, generator))
 
 
 def get_sde_loss_fn(sde_x: SDE, sde_adj: SDE, reduce_mean: bool = False,

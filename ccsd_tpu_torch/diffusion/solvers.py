@@ -1,21 +1,25 @@
-"""Predictor-corrector reverse-diffusion sampler, graph mode.
+"""Predictor-corrector reverse-diffusion sampler, graph and CC mode.
 
-Port of the graph branch of ccsd_tpu/diffusion/solvers.py:56-145 and
-:193-298.  The JAX ``lax.scan`` becomes a Python loop over
+Port of ccsd_tpu/diffusion/solvers.py:56-145 and :193-360 (the graph and
+the CC branch of ``get_pc_sampler``).  The JAX ``lax.scan`` becomes a Python loop over
 ``torch.linspace(T, eps, N)``; noise comes from one ``torch.Generator``.
 Semantics kept exactly:
 
   * corrector then predictor in each step; the adjacency update sees the
-    pre-update ``_x`` (solvers.py:267-281);
+    pre-update ``_x`` (solvers.py:267-281); in CC mode the rank-2 update
+    sees the pre-update x and adjacency, and x's sees the current
+    adjacency and rank-2 tensor (:314-345);
   * Euler-Maruyama and reverse-diffusion predictors; Langevin and None
     correctors;
   * the Langevin step size couples the batch through the batch mean of
     per-sample L2 norms, accumulated in f32 (solvers.py:56-74);
   * with ``denoise`` the sampler returns the last step's means.
 
-Noise is drawn in the JAX package's call order (corrector x, corrector adj,
-predictor x, predictor adj), so a test that feeds both packages one noise
-sequence compares like with like.
+Noise is drawn in the JAX package's call order (corrector x, corrector adj
+[, corrector rank2], predictor x, predictor adj [, predictor rank2]), so a
+test that feeds both packages one noise sequence compares like with like.
+The rank-2 noise and prior are masked by ``mask_rank2`` and not
+symmetrised.
 """
 
 from __future__ import annotations
@@ -26,13 +30,15 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import torch
 
 from ccsd_tpu_torch.diffusion.sde import SDE, _bcast, reverse_discretize, reverse_sde
-from ccsd_tpu_torch.ops.masks import gen_noise, mask_adjs, mask_x
+from ccsd_tpu_torch.ops.cells import ComplexSpec
+from ccsd_tpu_torch.ops.masks import gen_noise, gen_noise_rank2, mask_adjs, mask_rank2, mask_x
 
 
 class SamplerOutput(NamedTuple):
     x: torch.Tensor
     adj: torch.Tensor
     n_model_evals: int
+    rank2: Optional[torch.Tensor] = None
 
 
 def _batch_norm_mean(v: torch.Tensor) -> torch.Tensor:
@@ -52,12 +58,14 @@ def _langevin_step(sde: SDE, score, v, noise, t, snr, scale_eps):
     return v, v_mean
 
 
-def _noise_for(obj: str, v, flags, generator):
+def _noise_for(obj: str, v, flags, generator, spec=None):
+    if obj == "rank2":
+        return gen_noise_rank2(v, spec, flags, generator=generator)
     return gen_noise(v, flags, sym=(obj == "adj"), generator=generator)
 
 
 def _make_corrector(corrector: str, obj: str, sde: SDE, snr, scale_eps,
-                    n_steps: int):
+                    n_steps: int, spec: Optional[ComplexSpec] = None):
     """(generator, score_eval, v, flags, t) -> (v, v_mean)."""
     if corrector == "None":
         return lambda generator, score_eval, v, flags, t: (v, v)
@@ -70,21 +78,22 @@ def _make_corrector(corrector: str, obj: str, sde: SDE, snr, scale_eps,
         v_mean = v
         for _ in range(n_steps):
             score = score_eval(v)
-            noise = _noise_for(obj, v, flags, generator)
+            noise = _noise_for(obj, v, flags, generator, spec)
             v, v_mean = _langevin_step(sde, score, v, noise, t, snr, scale_eps)
         return v, v_mean
 
     return update
 
 
-def _make_predictor(predictor: str, obj: str, sde: SDE, probability_flow: bool):
+def _make_predictor(predictor: str, obj: str, sde: SDE, probability_flow: bool,
+                    spec: Optional[ComplexSpec] = None):
     """(generator, score_eval, v, flags, t) -> (v, v_mean)."""
     if predictor == "Euler":
         rev = reverse_sde(sde, probability_flow)
 
         def update(generator, score_eval, v, flags, t):
             dt = -1.0 / sde.N
-            z = _noise_for(obj, v, flags, generator)
+            z = _noise_for(obj, v, flags, generator, spec)
             drift, diffusion = rev(v, t, score_eval(v))
             v_mean = v + drift * dt
             return v_mean + _bcast(diffusion, v) * math.sqrt(-dt) * z, v_mean
@@ -95,7 +104,7 @@ def _make_predictor(predictor: str, obj: str, sde: SDE, probability_flow: bool):
 
         def update(generator, score_eval, v, flags, t):
             f, G = rev(v, t, score_eval(v))
-            z = _noise_for(obj, v, flags, generator)
+            z = _noise_for(obj, v, flags, generator, spec)
             v_mean = v - f
             return v_mean + _bcast(G, v) * z, v_mean
 
@@ -118,8 +127,15 @@ def get_pc_sampler(
     probability_flow: bool = False,
     denoise: bool = True,
     eps: float = 1e-3,
+    is_cc: bool = False,
+    sde_rank2: Optional[SDE] = None,
+    shape_rank2: Optional[Sequence[int]] = None,
+    spec: Optional[ComplexSpec] = None,
 ) -> Callable:
-    """Build ``sampler(score_fn_x, score_fn_adj, init_flags, generator)``.
+    """Build ``sampler(score_fn_x, score_fn_adj, init_flags, generator)``,
+    or with ``is_cc`` (and ``sde_rank2``, ``shape_rank2``, ``spec``)
+    ``sampler(score_fn_x, score_fn_adj, score_fn_rank2, init_flags,
+    generator)``.
 
     Everything runs on the device of ``init_flags`` and of the generator.
     """
@@ -160,4 +176,50 @@ def get_pc_sampler(
             n_model_evals=diff_steps * (n_steps + 1),
         )
 
-    return sampler
+    if not is_cc:
+        return sampler
+    if sde_rank2 is None or shape_rank2 is None or spec is None:
+        raise ValueError("CC sampling needs sde_rank2, shape_rank2 and spec")
+    shape_rank2 = tuple(shape_rank2)
+    corr_r2 = _make_corrector(corrector, "rank2", sde_rank2, snr, scale_eps, n_steps, spec)
+    pred_r2 = _make_predictor(predictor, "rank2", sde_rank2, probability_flow, spec)
+
+    @torch.no_grad()
+    def sampler_cc(score_fn_x, score_fn_adj, score_fn_rank2, init_flags: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> SamplerOutput:
+        flags = init_flags
+        dev = flags.device
+        x = mask_x(sde_x.prior_sampling(shape_x, generator, dev), flags)
+        adj = mask_adjs(sde_adj.prior_sampling_sym(shape_adj, generator, dev), flags)
+        rank2 = mask_rank2(sde_rank2.prior_sampling(shape_rank2, generator, dev), spec, flags)
+        timesteps = torch.linspace(sde_adj.T, eps, diff_steps, device=dev)
+        x_mean, adj_mean, rank2_mean = x, adj, rank2
+        for i in range(diff_steps):
+            vec_t = timesteps[i].expand(shape_adj[0])
+
+            _x, _adj = x, adj
+            x, _ = corr_x(generator, lambda v: score_fn_x(v, adj, rank2, flags, vec_t),
+                          x, flags, vec_t)
+            adj, _ = corr_adj(generator, lambda v: score_fn_adj(_x, v, rank2, flags, vec_t),
+                              adj, flags, vec_t)
+            rank2, _ = corr_r2(generator,
+                               lambda v: score_fn_rank2(_x, _adj, v, flags, vec_t),
+                               rank2, flags, vec_t)
+
+            _x, _adj = x, adj
+            x, x_mean = pred_x(generator, lambda v: score_fn_x(v, adj, rank2, flags, vec_t),
+                               x, flags, vec_t)
+            adj, adj_mean = pred_adj(
+                generator, lambda v: score_fn_adj(_x, v, rank2, flags, vec_t),
+                adj, flags, vec_t)
+            rank2, rank2_mean = pred_r2(
+                generator, lambda v: score_fn_rank2(_x, _adj, v, flags, vec_t),
+                rank2, flags, vec_t)
+        return SamplerOutput(
+            x=x_mean if denoise else x,
+            adj=adj_mean if denoise else adj,
+            n_model_evals=diff_steps * (n_steps + 1),
+            rank2=rank2_mean if denoise else rank2,
+        )
+
+    return sampler_cc

@@ -1,6 +1,9 @@
-"""Model registry and config -> hyperparameter marshalling (graph mode).
+"""Model registry and config -> hyperparameter marshalling, graph and CC
+mode.
 
-Port of ccsd_tpu/models/registry.py:28-66 and :95-166.  A model definition
+Port of ccsd_tpu/models/registry.py:28-66 and :95-200 (the CC branch for
+ScoreNetworkA_CC and ScoreNetworkF; the ``*_Base_CC`` networks and
+ScoreNetworkX_GMH are not ported).  A model definition
 may carry ``fused`` (``model.fused`` in a training config, or ``with_fused``
 at sampling time), which picks the channel-folded implementation of the
 same function with the same parameters, and the fused path's lowering
@@ -14,14 +17,18 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ccsd_tpu_torch.models.score_a import ScoreNetworkA
+from ccsd_tpu_torch.models.score_a_cc import ScoreNetworkA_CC
+from ccsd_tpu_torch.models.score_f import ScoreNetworkF
 from ccsd_tpu_torch.models.score_x import ScoreNetworkX
 
-MODELS = {"ScoreNetworkX": ScoreNetworkX, "ScoreNetworkA": ScoreNetworkA}
+MODELS = {"ScoreNetworkX": ScoreNetworkX, "ScoreNetworkA": ScoreNetworkA,
+          "ScoreNetworkA_CC": ScoreNetworkA_CC, "ScoreNetworkF": ScoreNetworkF}
 
 # the ported models whose definitions accept the channel-folded ``fused``
 # path (the JAX set, ccsd_tpu/models/registry.py:31-37, less what is not
-# ported yet)
-FUSED_CAPABLE = {"ScoreNetworkA"}
+# ported yet: ScoreNetworkX_GMH, ScoreNetworkA_Base_CC, and ScoreNetworkF,
+# whose slab-unrolled form is still to port, so it runs unfused here)
+FUSED_CAPABLE = {"ScoreNetworkA", "ScoreNetworkA_CC"}
 
 
 def with_fused(defs: Dict[str, Dict[str, Any]], enable: bool = True,
@@ -60,12 +67,13 @@ def load_model(params: Dict[str, Any],
 
 
 def load_model_params(config, is_cc: bool = False) -> Tuple[Dict[str, Any], ...]:
-    """Per-model hyperparameter dicts of a graph config."""
-    if is_cc or config.get("is_cc", False):
-        raise NotImplementedError("CC mode is not ported yet")
+    """Per-model hyperparameter dicts: (x, adj) of a graph config, (x, adj,
+    rank2) of a CC one."""
+    is_cc = bool(is_cc or config.get("is_cc", False))
     cm = config.model
+    max_node_num = config.data.max_node_num
     params_x = {
-        "is_cc": False,
+        "is_cc": is_cc,
         "model_type": cm.x,
         "max_feat_num": config.data.max_feat_num,
         "depth": cm.depth,
@@ -73,10 +81,10 @@ def load_model_params(config, is_cc: bool = False) -> Tuple[Dict[str, Any], ...]
         "use_bn": cm.use_bn,
     }
     params_adj = {
-        "is_cc": False,
+        "is_cc": is_cc,
         "model_type": cm.adj,
         "max_feat_num": config.data.max_feat_num,
-        "max_node_num": config.data.max_node_num,
+        "max_node_num": max_node_num,
         "nhid": cm.nhid,
         "num_layers": cm.num_layers,
         "num_linears": cm.num_linears,
@@ -93,4 +101,33 @@ def load_model_params(config, is_cc: bool = False) -> Tuple[Dict[str, Any], ...]
         for pd in (params_x, params_adj):
             if pd["model_type"] in FUSED_CAPABLE:
                 pd["fused"] = True
-    return params_x, params_adj
+    if not is_cc:
+        return params_x, params_adj
+
+    d_min, d_max = config.data.d_min, config.data.d_max
+    if cm.adj == "ScoreNetworkA_CC":
+        params_adj.update(
+            d_min=d_min, d_max=d_max, nhid_h=cm.nhid_h,
+            num_layers_h=cm.num_layers_h, num_linears_h=cm.num_linears_h,
+            c_hid_h=cm.c_hid_h, c_final_h=cm.c_final_h, adim_h=cm.adim_h,
+            num_heads_h=cm.num_heads_h, conv_hodge=cm.conv_hodge,
+        )
+    params_rank2 = {
+        "is_cc": is_cc,
+        "model_type": cm.rank2,
+        "num_layers_mlp": cm.num_layers_mlp,
+        "num_layers": cm.num_layers_h,
+        "num_linears": cm.num_linears_h,
+        "nhid": cm.nhid_h,
+        "c_hid": cm.c_hid_h,
+        "c_final": cm.c_final_h,
+        "cnum": cm.cnum,
+        "max_node_num": max_node_num,
+        "d_min": d_min,
+        "d_max": d_max,
+        "use_hodge_mask": cm.use_hodge_mask,
+        "use_bn": cm.use_bn,
+    }
+    if cm.get("fused") and params_rank2["model_type"] in FUSED_CAPABLE:
+        params_rank2["fused"] = True
+    return params_x, params_adj, params_rank2

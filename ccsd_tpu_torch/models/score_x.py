@@ -1,6 +1,7 @@
 """Score network for the node-feature tensor X.
 
-Port of ccsd_tpu/models/score_x.py:22-64 (ScoreNetworkX).
+Port of ccsd_tpu/models/score_x.py:22-64 (ScoreNetworkX).  In CC mode it
+takes the rank-2 tensor and ignores it, as the JAX ``apply`` does.
 """
 
 from __future__ import annotations
@@ -21,8 +22,6 @@ class ScoreNetworkX(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         check_no_bn(use_bn)
-        if is_cc:
-            raise NotImplementedError("CC mode is not ported yet")
         self.max_feat_num, self.depth, self.nhid = max_feat_num, depth, nhid
         self.layers = nn.ModuleList(
             DenseGCNConv(max_feat_num if k == 0 else nhid, nhid,
@@ -34,7 +33,8 @@ class ScoreNetworkX(nn.Module):
                          generator=generator)
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor,
-                flags: Optional[torch.Tensor] = None) -> torch.Tensor:
+                flags: Optional[torch.Tensor] = None,
+                rank2: Optional[torch.Tensor] = None) -> torch.Tensor:
         xs = [x]
         h = x
         for layer in self.layers:

@@ -1,9 +1,9 @@
 """Static combinatorial-complex index structures.
 
 Port of ccsd_tpu/ops/cells.py: ``rank2_dim``, ``edge_index``,
-``ComplexSpec`` (its index maps; the masks of the dense-CC models come with
-that slice), ``get_spec`` (full enumeration only) and
-``n_nodes_from_edges``.  Conventions (those of the reference):
+``ComplexSpec`` (the index maps, and the edge endpoints and cell membership
+the rank-2 masks of ``ops/masks.py`` gather with), ``get_spec`` (full
+enumeration only) and ``n_nodes_from_edges``.  Conventions (those of the reference):
 
 * edges are the C(N,2) 2-subsets of [0..N) in ``itertools.combinations``
   (lexicographic) order -> row index of the rank-2 incidence matrix;
@@ -55,6 +55,14 @@ class ComplexSpec:
     def edge_uv(self) -> np.ndarray:
         return edge_index(self.N)
 
+    @property
+    def edge_u(self) -> np.ndarray:
+        return self.edge_uv[:, 0]
+
+    @property
+    def edge_v(self) -> np.ndarray:
+        return self.edge_uv[:, 1]
+
     @functools.cached_property
     def cells(self) -> list[tuple[int, ...]]:
         """All rank-2 cells in column order."""
@@ -73,6 +81,14 @@ class ComplexSpec:
             frozenset((int(u), int(v))): i
             for i, (u, v) in enumerate(self.edge_uv)
         }
+
+    @functools.cached_property
+    def cell_mask(self) -> np.ndarray:
+        """(K, N) float32 0/1: cell column j holds node n."""
+        M = np.zeros((self.num_cells, self.N), dtype=np.float32)
+        for j, c in enumerate(self.cells):
+            M[j, list(c)] = 1.0
+        return M
 
 
 @functools.lru_cache(maxsize=16)

@@ -1,15 +1,23 @@
-"""Flag masking, noise generation and tensor powers for graphs.
+"""Flag masking, noise generation and tensor powers for graphs and
+rank-2 complexes.
 
-Port of the graph part of ccsd_tpu/ops/masks.py:26-109 and
+Port of ccsd_tpu/ops/masks.py:26-170 (the graph part, and the static-
+universe rank-2 masks and noise) and :223-235 (``mask_hodge_adjs``), and
 ``default_mask`` (ccsd_tpu/ops/hodge.py:23-25).  Noise comes from an
-explicit ``torch.Generator`` in place of a JAX PRNG key.
+explicit ``torch.Generator`` in place of a JAX PRNG key.  The rank-2 masks
+gather with the spec's edge endpoints and multiply by its cell membership,
+held on each device once (``spec_tensor``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
+
+from ccsd_tpu_torch.ops.cells import ComplexSpec
 
 
 def mask_x(x: torch.Tensor, flags: Optional[torch.Tensor]) -> torch.Tensor:
@@ -72,3 +80,67 @@ def default_mask(n: int, device=None) -> torch.Tensor:
     return torch.ones((n, n), dtype=torch.float32, device=device) - torch.eye(
         n, dtype=torch.float32, device=device
     )
+
+
+# --------------------------------------------------------------- complexes ---
+
+@functools.lru_cache(maxsize=64)
+def spec_tensor(spec: ComplexSpec, name: str, device: torch.device) -> torch.Tensor:
+    """``spec.<name>`` (``edge_u``, ``edge_v`` as int64 indices,
+    ``cell_mask`` as float32) on ``device``, made once per device."""
+    a = np.asarray(getattr(spec, name))
+    dtype = torch.float32 if a.dtype.kind == "f" else torch.int64
+    return torch.as_tensor(a, dtype=dtype).to(device)
+
+
+def edge_flags(spec: ComplexSpec, flags: torch.Tensor) -> torch.Tensor:
+    """(B, E): 1 where both endpoints of the edge row are present."""
+    u = spec_tensor(spec, "edge_u", flags.device)
+    v = spec_tensor(spec, "edge_v", flags.device)
+    return flags[:, u] * flags[:, v]
+
+
+def cell_flags(spec: ComplexSpec, flags: torch.Tensor) -> torch.Tensor:
+    """(B, K): 1 where every node of the cell column is present (the count
+    of absent member nodes, one product with the (K, N) membership, is 0)."""
+    M = spec_tensor(spec, "cell_mask", flags.device).to(flags.dtype)
+    missing = (1.0 - flags) @ M.T
+    return (missing < 0.5).to(flags.dtype)
+
+
+def rank2_flags(spec: ComplexSpec, flags: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(edge flags (B, E), cell flags (B, K))."""
+    return edge_flags(spec, flags), cell_flags(spec, flags)
+
+
+def mask_rank2(rank2: torch.Tensor, spec: ComplexSpec,
+               flags: Optional[torch.Tensor]) -> torch.Tensor:
+    """Zero the rows of absent edges and the columns of cells with an absent
+    node.  rank2: (B, E, K) or (B, C, E, K)."""
+    if flags is None:
+        return rank2
+    fl, fr = (f.to(rank2.dtype) for f in rank2_flags(spec, flags))
+    if rank2.dim() == 4:
+        fl, fr = fl[:, None, :], fr[:, None, :]
+    return rank2 * fl[..., :, None] * fr[..., None, :]
+
+
+def gen_noise_rank2(x: torch.Tensor, spec: ComplexSpec, flags: Optional[torch.Tensor],
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Gaussian noise shaped like x, masked by ``mask_rank2`` (not
+    symmetrised)."""
+    z = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+    return mask_rank2(z, spec, flags)
+
+
+def mask_hodge_adjs(hodge_adjs: torch.Tensor, spec: ComplexSpec,
+                    flags: Optional[torch.Tensor]) -> torch.Tensor:
+    """Zero the rows and columns of absent edges.  hodge_adjs: (B, E, E) or
+    (B, C, E, E)."""
+    if flags is None:
+        return hodge_adjs
+    f = edge_flags(spec, flags).to(hodge_adjs.dtype)
+    if hodge_adjs.dim() == 4:
+        f = f[:, None, :]
+    return hodge_adjs * f[..., :, None] * f[..., None, :]

@@ -1,7 +1,8 @@
-"""Graph sampler: weights -> PC reverse diffusion -> quantized graphs -> MMD.
+"""Graph and CC sampler: weights -> PC reverse diffusion -> quantized
+graphs (and rank-2 incidences) -> MMD.
 
-Port of the graph path of ccsd_tpu/sampling/sampler.py:210-433, without
-the trajectory figures.  As in the JAX package (:220-223), the models are
+Port of ccsd_tpu/sampling/sampler.py:210-433, graph and dense CC mode,
+without the trajectory figures, the mesh and the S4 solver.  As in the JAX package (:220-223), the models are
 built by ``with_fused(defs, sample.fused, fast=sample.fast)``, both on by
 default: ScoreNetworkA takes the channel-folded path with bf16 head scores
 and the ``blocksum`` final layer; ``sample.fused: false`` gives the unfused
@@ -21,6 +22,18 @@ the test split: the four graph MMDs (``mmd``) and, where
 graphs go to ``<folder>/samples/<data>/samples.npz`` (adjacency, x,
 flags), the port's counterpart of the JAX sampler's ``samples.pkl`` of
 networkx graphs.
+
+In CC mode (``is_cc``: ScoreNetworkX, ScoreNetworkA_CC, ScoreNetworkF) the
+reverse diffusion also carries the rank-2 incidence; each kept sample's
+quantized (x, adjacency, rank-2) becomes a CC (``cc_from_incidence``), its
+1-skeleton graph (``convert_CC_to_graphs``) is scored by the graph MMDs
+against the test split's, and the CCs by ``eval_CC_list`` against the test
+graphs lifted by the config's ``data.lifting_procedure`` (``cc_mmd``);
+``samples.npz`` adds the rank-2 incidences (uint8).  ``sample.score_dtype``
+resolves as in the JAX package (:103-113, :300-302): bf16 by default for
+the CC datasets it cleared (community_small_CC, ego_small_CC), else f32.
+The bf16 score networks are not ported, so a resolved bf16 raises
+``NotImplementedError`` rather than running f32 silently.
 """
 
 from __future__ import annotations
@@ -34,16 +47,20 @@ import numpy as np
 import torch
 
 from ccsd_tpu_torch import resolve_device
-from ccsd_tpu_torch.data.cc_codec import convert_graphs_to_CCs
+from ccsd_tpu_torch.data.cc_codec import (
+    cc_from_incidence,
+    convert_CC_to_graphs,
+    convert_graphs_to_CCs,
+)
 from ccsd_tpu_torch.data.loader import init_flags
-from ccsd_tpu_torch.diffusion.losses import get_score_fn
+from ccsd_tpu_torch.diffusion.losses import get_score_fn, get_score_fn_cc
 from ccsd_tpu_torch.diffusion.sde import load_sde
 from ccsd_tpu_torch.diffusion.solvers import get_pc_sampler
 from ccsd_tpu_torch.eval.cc_stats import eval_CC_list
 from ccsd_tpu_torch.eval.graphs import adjs_to_graphs
 from ccsd_tpu_torch.eval.stats import eval_graph_list, load_eval_settings
 from ccsd_tpu_torch.models.registry import load_model, load_model_params, with_fused
-from ccsd_tpu_torch.ops.cells import rank2_dim
+from ccsd_tpu_torch.ops.cells import get_spec, rank2_dim
 from ccsd_tpu_torch.ops.masks import quantize
 from ccsd_tpu_torch.training.checkpoint import (
     ckpt_path,
@@ -58,7 +75,22 @@ from ccsd_tpu_torch.utils.from_jax import load_jax_params
 from ccsd_tpu_torch.utils.logger import Logger
 
 NAMES = ("x", "adj")
+NAMES_CC = ("x", "adj", "rank2")
 CC_EVAL_MAX_CELLS = 200_000  # sample.cc_eval_max_cells when absent, as in JAX
+# the CC datasets whose bf16 score networks the JAX package cleared, and so
+# samples in bf16 by default (ccsd_tpu/sampling/sampler.py:96-100)
+BF16_SCORE_CLEARED = {"community_small_CC", "ego_small_CC"}
+
+
+def check_score_dtype(cfg, configt, is_cc: bool) -> None:
+    """Resolve ``sample.score_dtype`` as the JAX sampler does (f32 or bf16)
+    and raise on bf16: the port has no bf16 score networks."""
+    default = "bf16" if is_cc and str(configt.data.data) in BF16_SCORE_CLEARED else "f32"
+    name = str(cfg.sample.get("score_dtype", default)).lower()
+    if name in ("bf16", "bfloat16"):
+        raise NotImplementedError(
+            f"sample.score_dtype resolves to bf16 for {configt.data.data}; the bf16 score "
+            "networks are not ported: set sample.score_dtype: f32")
 
 
 def worker_kwargs_from_config(data_cfg) -> Dict[str, Any]:
@@ -99,7 +131,7 @@ def sampling_rounds(batch_size: int, num_test: int, divide_batch=None,
 
 
 class Sampler:
-    """Graph sampler.
+    """Graph or CC sampler (``config.is_cc``).
 
     ``config`` holds the ``sampler`` and ``sample`` sections, plus either
     ``ckpt`` (a port or JAX checkpoint under ``<folder>/checkpoints/<data>/``)
@@ -118,8 +150,8 @@ class Sampler:
         self.test_adjs = None if test_adjs is None else np.asarray(test_adjs, np.float32)
         self.device = resolve_device(device)
         self.logger = Logger(verbose=log)
-        if config.get("is_cc", False):
-            raise NotImplementedError("CC sampling is not ported yet")
+        self.is_cc = bool(config.get("is_cc", False))
+        self.names = NAMES_CC if self.is_cc else NAMES
 
     def load_models(self):
         """(train config, {name: module on the device}, source of the weights)."""
@@ -141,9 +173,9 @@ class Sampler:
                 path = ckpt_path(folder, data, str(name))
                 ckpt = load_ckpt_file(path)
             configt = AttrDict(ckpt["model_config"])
-            defs = defs_of({n: ckpt[f"params_{n}"] for n in NAMES})
+            defs = defs_of({n: ckpt[f"params_{n}"] for n in self.names})
             models = {}
-            for n in NAMES:
+            for n in self.names:
                 m = load_model(defs[n])
                 if port:
                     m.load_state_dict(state_dict_from_ckpt(ckpt, n, m, use_ema))
@@ -154,8 +186,8 @@ class Sampler:
         else:
             configt = cfg
             g = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
-            defs = defs_of(dict(zip(NAMES, load_model_params(cfg))))
-            models = {n: load_model(defs[n], generator=g) for n in NAMES}
+            defs = defs_of(dict(zip(self.names, load_model_params(cfg))))
+            models = {n: load_model(defs[n], generator=g) for n in self.names}
             source = f"seeded init (seed {int(cfg.get('seed', 0))})"
         models = {n: m.to(self.device).eval() for n, m in models.items()}
         return configt, models, source
@@ -167,7 +199,8 @@ class Sampler:
         numpy (``adj``, ``x``, ``flags``), ``finite``, ``sampling_time`` and
         ``steps_per_s`` of the sampling loop, and with a test split and
         ``sample.eval`` on, ``mmd``, ``cc_mmd`` (or None) and
-        ``eval_seconds``."""
+        ``eval_seconds``.  CC mode adds the quantized ``rank2`` (uint8), the
+        kept CCs (``ccs``) and ``cells_per_cc``, their mean rank-2 cells."""
         cfg = self.config
         configt, models, source = self.load_models()
         test = self.test_adjs
@@ -178,8 +211,15 @@ class Sampler:
         if num_samples is not None:
             n = int(num_samples)
             n_rounds = max(1, math.ceil(n / batch_size))
+        check_score_dtype(cfg, configt, self.is_cc)
         N = int(configt.data.max_node_num)
-        sdes = {k: load_sde(configt.sde[k]) for k in NAMES}
+        sdes = {k: load_sde(configt.sde[k]) for k in self.names}
+        cc_kw = {}
+        if self.is_cc:
+            d = configt.data
+            spec = get_spec(N, int(d.d_min), int(d.d_max))
+            cc_kw = dict(is_cc=True, sde_rank2=sdes["rank2"], spec=spec,
+                         shape_rank2=(batch_size, spec.num_edges, spec.num_cells))
         sampling_fn = get_pc_sampler(
             sdes["x"], sdes["adj"],
             (batch_size, N, int(configt.data.max_feat_num)), (batch_size, N, N),
@@ -187,23 +227,27 @@ class Sampler:
             snr=cfg.sampler.snr, scale_eps=cfg.sampler.scale_eps,
             n_steps=cfg.sampler.n_steps,
             probability_flow=cfg.sample.probability_flow,
-            denoise=cfg.sample.noise_removal, eps=cfg.sample.eps,
+            denoise=cfg.sample.noise_removal, eps=cfg.sample.eps, **cc_kw,
         )
-        score_fns = [get_score_fn(sdes[k], models[k]) for k in NAMES]
+        score = get_score_fn_cc if self.is_cc else get_score_fn
+        score_fns = [score(sdes[k], models[k]) for k in self.names]
 
         seed = int(cfg.sample.get("seed", 42))
         gen = torch.Generator(device=self.device).manual_seed(seed)
         rng = np.random.default_rng(seed)
-        xs, adjs, flags_all = [], [], []
+        xs, adjs, rank2s, flags_all = [], [], [], []
         finite = True
         t0 = time.perf_counter()
         for _ in range(n_rounds):
             flags = torch.from_numpy(init_flags(self.train_adjs, batch_size, rng))
             out = sampling_fn(*score_fns, flags.to(self.device), gen)
             # quantize maps NaN to 1, so finiteness is read before it
-            finite &= bool(out.x.isfinite().all() and out.adj.isfinite().all())
+            outs = [out.x, out.adj] + ([out.rank2] if self.is_cc else [])
+            finite &= all(bool(v.isfinite().all()) for v in outs)
             adjs.append(quantize(out.adj).cpu().numpy())
             xs.append(out.x.cpu().numpy())
+            if self.is_cc:
+                rank2s.append(quantize(out.rank2).to(torch.uint8).cpu().numpy())
             flags_all.append(flags.numpy())
         seconds = time.perf_counter() - t0
         results = {
@@ -216,17 +260,59 @@ class Sampler:
             "weights": source,
             "device": str(self.device),
         }
+        ccs = None
+        if self.is_cc:
+            d = configt.data
+            results["rank2"] = np.concatenate(rank2s)[:n]
+            results["cells_per_cc"] = float(results["rank2"].any(1).sum(1).mean())
+            ccs = [cc_from_incidence([x, a, r], int(d.d_min), int(d.d_max))
+                   for x, a, r in zip(results["x"], results["adj"], results["rank2"])]
+            results["ccs"] = ccs
         if test is not None and cfg.sample.get("eval", True):
             t0 = time.perf_counter()
-            results.update(self.evaluate(test, results["adj"]))
+            results.update(self.evaluate(test, results["adj"], ccs))
             results["eval_seconds"] = time.perf_counter() - t0
         self.save_samples(results)
         return results
 
-    def evaluate(self, test_adjs: np.ndarray, adjs: np.ndarray) -> Dict[str, Any]:
-        """``mmd`` and ``cc_mmd`` (None where the config has no lift or the
-        lift is intractable) of ``adjs`` against ``test_adjs``, logged as
-        the JAX sampler logs them."""
+    def lift(self, adjs: np.ndarray) -> list:
+        """The CCs of the graphs ``adjs`` by the config's lift, over the
+        config's ``max_node_num`` nodes."""
+        d = self.config.data
+        return convert_graphs_to_CCs(
+            adjs_to_graphs(adjs), lifting_procedure=d.lifting_procedure,
+            lifting_procedure_kwargs=d.get("lifting_procedure_kwargs"),
+            max_nb_nodes=d.max_node_num)
+
+    def evaluate(self, test_adjs: np.ndarray, adjs: np.ndarray,
+                 ccs: Optional[list] = None) -> Dict[str, Any]:
+        """``mmd`` and ``cc_mmd`` of ``adjs`` against ``test_adjs``, logged as
+        the JAX sampler logs them.  Graph mode: ``cc_mmd`` is the lifted-CC
+        MMDs (None where the config has no lift or the lift is
+        intractable).  CC mode: the generated CCs ``ccs`` (default: the
+        lift of ``adjs``) against the test graphs' lift, and ``mmd`` of
+        their 1-skeletons."""
+        cfg = self.config
+        if self.is_cc:
+            methods, kernels = load_eval_settings()
+            test_ccs = self.lift(test_adjs)
+            ccs = self.lift(adjs) if ccs is None else ccs
+            out: Dict[str, Any] = {
+                "mmd": eval_graph_list(convert_CC_to_graphs(test_ccs),
+                                       convert_CC_to_graphs(ccs),
+                                       methods=methods, kernels=kernels),
+                "cc_mmd": eval_CC_list(test_ccs, ccs, worker_kwargs_from_config(cfg.data),
+                                       cc_nb_eval=cfg.sample.get("cc_nb_eval", 1000)),
+            }
+        else:
+            out = self._evaluate_graphs(test_adjs, adjs)
+        for k, v in out["mmd"].items():
+            self.logger.log(f"{k:9s} : {v:.6f}")
+        for k, v in (out["cc_mmd"] or {}).items():
+            self.logger.log(f"{k:24s} : {v:.6f}")
+        return out
+
+    def _evaluate_graphs(self, test_adjs: np.ndarray, adjs: np.ndarray) -> Dict[str, Any]:
         cfg = self.config
         test_graphs, graphs = adjs_to_graphs(test_adjs), adjs_to_graphs(adjs)
         methods, kernels = load_eval_settings()
@@ -249,20 +335,17 @@ class Sampler:
                 convert_graphs_to_CCs(graphs, **lift_kw),
                 worker_kwargs_from_config(cfg.data),
                 cc_nb_eval=cfg.sample.get("cc_nb_eval", 1000))
-        for k, v in out["mmd"].items():
-            self.logger.log(f"{k:9s} : {v:.6f}")
-        for k, v in (out["cc_mmd"] or {}).items():
-            self.logger.log(f"{k:24s} : {v:.6f}")
         return out
 
     def save_samples(self, results: Dict[str, Any]) -> str:
-        """The kept graphs to ``<folder>/samples/<data>/samples.npz``,
-        written whole or not at all."""
+        """The kept graphs (and rank-2 incidences) to
+        ``<folder>/samples/<data>/samples.npz``, written whole or not at all."""
         cfg = self.config
         out_dir = os.path.join(cfg.get("folder", "./"), "samples", str(cfg.data.data))
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, "samples.npz")
         tmp = os.path.join(out_dir, f"samples.{os.getpid()}.tmp.npz")
-        np.savez(tmp, adj=results["adj"], x=results["x"], flags=results["flags"])
+        extra = {"rank2": results["rank2"]} if "rank2" in results else {}
+        np.savez(tmp, adj=results["adj"], x=results["x"], flags=results["flags"], **extra)
         os.replace(tmp, path)
         return path

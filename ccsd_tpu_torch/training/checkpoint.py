@@ -6,13 +6,14 @@ The port's checkpoint (``<folder>/checkpoints/<data>/<name>.pth``) is a
 ``{x,adj}_state_dict`` and ``ema_{x,adj}`` (``{decay, num_updates,
 shadow_params}``), plus what a run needs to resume as it would have gone
 on: ``{x,adj}_opt_state``, ``epoch``, ``step``, ``history`` and the state
-of the data order and noise generators (``rng``).  It holds tensors,
+of the data order and noise generators (``rng``).  A CC run adds the same
+four entries for ``rank2`` (ScoreNetworkF).  It holds tensors,
 numbers, strings and plain containers only, so it loads with
 ``weights_only=True``.
 
 A JAX ``.ckpt.pkl`` (ccsd_tpu/training/checkpoint.py:31-43) is a pickle of
 numpy-ified pytrees: ``{model_config, params_{x,adj}, {x,adj}_params,
-{x,adj}_opt_state, ema_{x,adj}}``.  The EMA entry is a
+{x,adj}_opt_state, ema_{x,adj}}`` (and ``rank2``'s in CC mode).  The EMA entry is a
 ``ccsd_tpu.training.ema.EMAState`` and the optimizer entries are optax state
 NamedTuples, so a plain ``pickle.load`` would import jax, optax and
 ccsd_tpu.  :class:`_Unpickler` maps every class of those packages onto
@@ -57,7 +58,7 @@ def ckpt_path(folder: str, dataset: str, name: str) -> str:
 
 
 def params_from_ckpt(ckpt: Dict[str, Any], name: str, use_ema: bool):
-    """The parameter tree of model ``name`` ('x' or 'adj'): its EMA shadow
+    """The parameter tree of model ``name`` ('x', 'adj', 'rank2'): its EMA shadow
     when ``use_ema``, else the raw parameters (ccsd_tpu sampler.py:146-155)."""
     if use_ema:
         return ckpt[f"ema_{name}"][EMA_SHADOW]

@@ -1,11 +1,11 @@
-"""Joint training of the graph score networks (ScoreNetworkX and
-ScoreNetworkA).
+"""Joint training of the score networks: ScoreNetworkX and ScoreNetworkA
+in graph mode, ScoreNetworkX, ScoreNetworkA_CC and ScoreNetworkF in CC mode.
 
-Port of the graph path of ccsd_tpu/training/trainer.py:55-445 on one
-device, without the mesh, the two-stage trainer, ``train_scanned``,
-``remat``, ``profile_dir``, the wandb tracker and the learning-curve plot.
-Per batch: both networks' DSM losses, one backward of their sum (each loss
-reaches only its own network), then per network the optimizer
+Port of ccsd_tpu/training/trainer.py:55-445 on one device, without the
+mesh, the two-stage trainer, ``train_scanned``, ``remat``, ``profile_dir``,
+the wandb tracker and the learning-curve plot.  Per batch: every network's
+DSM loss, one backward of their sum (each loss reaches only its own
+network), then per network the optimizer
 (``training/optim.py``) and the EMA (``training/ema.py``).  Per epoch: the
 test loss under the EMA weights, without gradients.  Every
 ``print_interval`` epochs (and the first) a log line; every
@@ -37,17 +37,26 @@ import numpy as np
 import torch
 
 from ccsd_tpu_torch import resolve_device
-from ccsd_tpu_torch.data.loader import GENERATED, ArrayDataset, generated_adjs, init_features, split
-from ccsd_tpu_torch.diffusion.losses import get_sde_loss_fn
+from ccsd_tpu_torch.data.loader import (
+    GENERATED,
+    ArrayDataset,
+    generated_adjs,
+    init_features,
+    lifted_rank2,
+    split,
+)
+from ccsd_tpu_torch.diffusion.losses import SDELossCC, get_sde_loss_fn
 from ccsd_tpu_torch.diffusion.sde import load_sde
 from ccsd_tpu_torch.kernels.gcn import WHOLE_GRAPH_N
 from ccsd_tpu_torch.models.registry import load_model, load_model_params
+from ccsd_tpu_torch.ops.cells import get_spec
 from ccsd_tpu_torch.training.checkpoint import load_port_ckpt, port_ckpt_path, save_port_ckpt
 from ccsd_tpu_torch.training.ema import EMA
 from ccsd_tpu_torch.training.optim import Optimizer
 from ccsd_tpu_torch.utils.logger import Logger, set_log
 
 NAMES = ("x", "adj")
+NAMES_CC = ("x", "adj", "rank2")
 
 
 def dataset_adjs(config, adjs: Optional[np.ndarray] = None) -> np.ndarray:
@@ -64,14 +73,14 @@ def dataset_adjs(config, adjs: Optional[np.ndarray] = None) -> np.ndarray:
 
 
 class Trainer:
-    """Trainer of the graph score networks on one device (CUDA unless
-    ``device`` says otherwise)."""
+    """Trainer of the score networks on one device (CUDA unless ``device``
+    says otherwise)."""
 
     def __init__(self, config, device=None, adjs: Optional[np.ndarray] = None,
                  log: bool = True):
-        if config.get("is_cc", False):
-            raise NotImplementedError("CC training is not ported yet")
         self.config = config
+        self.is_cc = bool(config.get("is_cc", False))
+        self.names = names = NAMES_CC if self.is_cc else NAMES
         self.device = resolve_device(device)
         N = int(config.data.max_node_num)
         if self.device.type == "cuda" and N > WHOLE_GRAPH_N:
@@ -91,29 +100,36 @@ class Trainer:
         # data: features, split and batch order as the JAX package makes them
         a = dataset_adjs(config, adjs)
         x = init_features(config.data.init, a, int(config.data.max_feat_num))
+        arrays = (x, a) + ((lifted_rank2(a, config.data),) if self.is_cc else ())
         tr, te = split(len(a), float(config.data.test_split))
         bs = int(config.data.batch_size)
-        self.train_loader = ArrayDataset((x[tr], a[tr]), bs, seed=self.seed)
-        self.test_loader = ArrayDataset((x[te], a[te]), bs, seed=self.seed)
+        self.train_loader = ArrayDataset([v[tr] for v in arrays], bs, seed=self.seed)
+        self.test_loader = ArrayDataset([v[te] for v in arrays], bs, seed=self.seed)
 
         # networks, their EMA copies for evaluation, optimizers, EMAs
-        self.model_param_defs = dict(zip(NAMES, load_model_params(config)))
+        self.model_param_defs = dict(zip(names, load_model_params(config)))
         g = torch.Generator().manual_seed(self.seed)
         self.models = {n: load_model(self.model_param_defs[n], generator=g).to(self.device)
-                       for n in NAMES}
+                       for n in names}
         self.eval_models = {n: copy.deepcopy(m).eval() for n, m in self.models.items()}
         for m in self.eval_models.values():
             m.requires_grad_(False)
-        self.sdes = {n: load_sde(config.sde[n]) for n in NAMES}
-        self.loss_fn = get_sde_loss_fn(self.sdes["x"], self.sdes["adj"],
-                                       reduce_mean=tc.reduce_mean, eps=tc.eps)
+        self.sdes = {n: load_sde(config.sde[n]) for n in names}
+        if self.is_cc:
+            d = config.data
+            self.loss_fn = SDELossCC(*self.sdes.values(),
+                                     get_spec(N, int(d.d_min), int(d.d_max)),
+                                     reduce_mean=tc.reduce_mean, eps=tc.eps)
+        else:
+            self.loss_fn = get_sde_loss_fn(self.sdes["x"], self.sdes["adj"],
+                                           reduce_mean=tc.reduce_mean, eps=tc.eps)
         self.optimizers = {
             n: Optimizer(self.models[n].parameters(), lr=tc.lr,
                          weight_decay=tc.weight_decay, grad_norm=tc.grad_norm,
                          lr_schedule=tc.lr_schedule, lr_decay=tc.lr_decay,
                          steps_per_epoch=len(self.train_loader))
-            for n in NAMES}
-        self.emas = {n: EMA(self.models[n], tc.ema) for n in NAMES}
+            for n in names}
+        self.emas = {n: EMA(self.models[n], tc.ema) for n in names}
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self.epoch = 0
         self.step = 0
@@ -128,25 +144,26 @@ class Trainer:
     def _batch(self, batch):
         return tuple(torch.from_numpy(b).to(self.device) for b in batch)
 
-    def train_step(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-        """One update of both networks; returns the (loss_x, loss_adj)
-        tensor, left on the device."""
+    def train_step(self, *batch: torch.Tensor) -> torch.Tensor:
+        """One update of every network from a (x, adj[, rank2]) batch;
+        returns the losses' tensor, in ``names`` order, left on the device."""
         for opt in self.optimizers.values():
             opt.zero_grad()
-        lx, la = self.loss_fn(self.models["x"], self.models["adj"], x, adj, self.generator)
-        (lx + la).backward()
-        for n in NAMES:
+        losses = self.loss_fn(*self.models.values(), *batch, self.generator)
+        total = losses[0]
+        for loss in losses[1:]:
+            total = total + loss
+        total.backward()
+        for n in self.names:
             self.optimizers[n].step()
             self.emas[n].update(self.models[n])
         self.step += 1
-        return torch.stack([lx, la]).detach()
+        return torch.stack(losses).detach()
 
     @torch.no_grad()
-    def eval_step(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+    def eval_step(self, *batch: torch.Tensor) -> torch.Tensor:
         """The test losses under the EMA weights."""
-        lx, la = self.loss_fn(self.eval_models["x"], self.eval_models["adj"], x, adj,
-                              self.generator)
-        return torch.stack([lx, la])
+        return torch.stack(self.loss_fn(*self.eval_models.values(), *batch, self.generator))
 
     def train(self) -> str:
         """Train from ``self.epoch`` to ``train.num_epochs``; returns the
@@ -159,7 +176,7 @@ class Trainer:
             for m in self.models.values():
                 m.train()
             train_losses = [self.train_step(*self._batch(b)) for b in self.train_loader]
-            for n in NAMES:
+            for n in self.names:
                 self.emas[n].copy_to(self.eval_models[n])
             test_losses = [self.eval_step(*self._batch(b)) for b in self.test_loader]
             mean_train = torch.stack(train_losses).mean(0).tolist()
@@ -169,8 +186,8 @@ class Trainer:
             self.epoch = epoch + 1
 
             if epoch % tc.print_interval == tc.print_interval - 1 or epoch == 0:
-                parts_te = " | ".join(f"test {n}: {v:.3e}" for n, v in zip(NAMES, mean_test))
-                parts_tr = " | ".join(f"train {n}: {v:.3e}" for n, v in zip(NAMES, mean_train))
+                parts_te = " | ".join(f"test {n}: {v:.3e}" for n, v in zip(self.names, mean_test))
+                parts_tr = " | ".join(f"train {n}: {v:.3e}" for n, v in zip(self.names, mean_train))
                 self.logger.log(f"[EPOCH {epoch + 1:04d}] {parts_te} | {parts_tr} | "
                                 f"{time.perf_counter() - t0:.2f}s")
             if epoch % tc.save_interval == tc.save_interval - 1:
@@ -196,7 +213,7 @@ class Trainer:
                    "rng": {"train_order": self.train_loader.rng.bit_generator.state,
                            "test_order": self.test_loader.rng.bit_generator.state,
                            "noise": self.generator.get_state()}}
-        for n in NAMES:
+        for n in self.names:
             payload[f"params_{n}"] = dict(self.model_param_defs[n])
             payload[f"{n}_state_dict"] = self.models[n].state_dict()
             payload[f"ema_{n}"] = self.emas[n].state_dict()
@@ -211,7 +228,7 @@ class Trainer:
         # device, and Adam keeps its step counts on the host, as a fresh run
         # does (a step count on the card would cost a sync a parameter)
         ckpt = load_port_ckpt(path, map_location="cpu")
-        for n in NAMES:
+        for n in self.names:
             self.models[n].load_state_dict(ckpt[f"{n}_state_dict"])
             self.optimizers[n].load_state_dict(ckpt[f"{n}_opt_state"])
             self.emas[n].load_state_dict(ckpt[f"ema_{n}"])

@@ -1,12 +1,15 @@
 """Load a JAX parameter tree into the port's modules.
 
-The tree is the nested dict/list of numpy arrays that ``ScoreNetworkX.init``
-/ ``ScoreNetworkA.init`` of ccsd_tpu return (or that a ``.ckpt.pkl`` holds).
-This is the exact inverse of ccsd_tpu/utils/torch_convert.py:59-85:
+The tree is the nested dict/list of numpy arrays that the ``init`` of
+ccsd_tpu's ScoreNetworkX, ScoreNetworkA, ScoreNetworkA_CC or ScoreNetworkF
+returns (or that a ``.ckpt.pkl`` holds).  This is the exact inverse of
+ccsd_tpu/utils/torch_convert.py:59-85, :116-149 and :152-203:
 
   * a Linear's ``w`` (in, out) becomes ``nn.Linear.weight`` (out, in);
-  * a DenseGCNConv ``weight`` (in, out) and ``bias`` are copied as they are;
-  * an MLP of one layer maps onto ``linear``, a deeper one onto ``linears.{i}``.
+  * a DenseGCNConv or DenseHCNConv ``weight`` (in, out) and ``bias`` are
+    copied as they are;
+  * an MLP of one layer maps onto ``linear``, a deeper one onto ``linears.{i}``;
+  * a HodgeAttention's ``q``/``k`` map onto ``ccnn_q``/``ccnn_k``.
 """
 
 from __future__ import annotations
@@ -19,8 +22,16 @@ from torch import nn
 
 from ccsd_tpu_torch.models.attention import Attention, AttentionLayer
 from ccsd_tpu_torch.models.gcn import DenseGCNConv
+from ccsd_tpu_torch.models.hodge_nn import (
+    DenseHCNConv,
+    HodgeAdjAttentionLayer,
+    HodgeAttention,
+    HodgeNetworkLayer,
+)
 from ccsd_tpu_torch.models.nn import MLP
 from ccsd_tpu_torch.models.score_a import ScoreNetworkA
+from ccsd_tpu_torch.models.score_a_cc import ScoreNetworkA_CC
+from ccsd_tpu_torch.models.score_f import ScoreNetworkF
 from ccsd_tpu_torch.models.score_x import ScoreNetworkX
 
 SD = Dict[str, np.ndarray]
@@ -41,7 +52,7 @@ def _gcn(tree: dict, p: str, sd: SD) -> None:
 
 
 def _walk(m: nn.Module, tree: Any, p: str, sd: SD) -> None:
-    if isinstance(m, DenseGCNConv):
+    if isinstance(m, (DenseGCNConv, DenseHCNConv)):
         _gcn(tree, p, sd)
     elif isinstance(m, MLP):
         _mlp(m, tree, p, sd)
@@ -53,9 +64,21 @@ def _walk(m: nn.Module, tree: Any, p: str, sd: SD) -> None:
             _walk(a, tree["attn"][i], f"{p}attn.{i}.", sd)
         _walk(m.mlp, tree["mlp"], f"{p}mlp.", sd)
         _walk(m.multi_channel, tree["multi_channel"], f"{p}multi_channel.", sd)
-    elif isinstance(m, (ScoreNetworkX, ScoreNetworkA)):
+    elif isinstance(m, HodgeAttention):
+        _walk(m.ccnn_q, tree["q"], f"{p}ccnn_q.", sd)
+        _walk(m.ccnn_k, tree["k"], f"{p}ccnn_k.", sd)
+    elif isinstance(m, HodgeAdjAttentionLayer):
+        for i, a in enumerate(m.attn):
+            _walk(a, tree["attn"][i], f"{p}attn.{i}.", sd)
+        _walk(m.mlp_value, tree["mlp_value"], f"{p}mlp_value.", sd)
+        _walk(m.mlp_attention, tree["mlp_attention"], f"{p}mlp_attention.", sd)
+    elif isinstance(m, HodgeNetworkLayer):
+        _walk(m.layer, tree["layer"], f"{p}layer.", sd)
+    elif isinstance(m, (ScoreNetworkX, ScoreNetworkA, ScoreNetworkA_CC, ScoreNetworkF)):
         for k, layer in enumerate(m.layers):
             _walk(layer, tree["layers"][k], f"{p}layers.{k}.", sd)
+        for k, layer in enumerate(getattr(m, "layers_hodge", ())):
+            _walk(layer, tree["layers_hodge"][k], f"{p}layers_hodge.{k}.", sd)
         _walk(m.final, tree["final"], f"{p}final.", sd)
     else:
         raise NotImplementedError(f"No JAX loader for {type(m).__name__}")

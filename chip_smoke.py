@@ -89,6 +89,25 @@ Phases, each printing one line of its own results:
               MMD must be finite, every MMD of the test split against itself
               exactly 0, and each run's launch counts those phase 5 asserts;
               prints each path's eight MMDs and the host's eval seconds.
+   cc_models -- community_small_CC's three networks at full width
+              (ScoreNetworkX; ScoreNetworkA_CC unfused and fused, whose
+              graph branch runs the attention kernels; ScoreNetworkF) at B =
+              CC_NET_B on the card against a float64 CPU copy, within the
+              larger of phase 4's tolerance and CC_F32_FACTOR times the CPU
+              f32 copy's distance, with exact launch counts per call.
+   cc_train -- community_small_CC (N = 20, E = 190, K = 1140) through
+              ``Trainer`` on the lift of community_small's 100 graphs,
+              CC_TRAIN_EPOCHS epochs in two calls (the checkpoint at the
+              half kept aside): losses of the three networks finite and
+              falling, exact launches an epoch, train steps/s, peak device
+              memory; a run resumed at the half equals the uninterrupted one.
+   cc_sample -- that checkpoint through ``Sampler`` by the JAX protocol (20
+              test graphs, one round of 128, 1000 Euler + Langevin steps,
+              ``sample.score_dtype: f32``) on both paths: exact launches,
+              0/1 symmetric adjacency, rank-2 entries only on present edges
+              and cells, finite graph and CC MMDs, cells per CC, steps/s
+              and peak memory; the config at its default score dtype
+              (bf16, not ported) must raise.
 7. timing  -- CUDA-event times of each kernel and its plain version at the
               path's shapes and layouts (device time from a CUDA-graph
               replay, and the time of an eager host loop), beside the
@@ -183,6 +202,15 @@ GRID_NET_B = 2
 # grid_small's training run, cut from the config's 5000 epochs to fit the
 # smoke's time limit (ten train and three test batches an epoch)
 GRID_SMALL_EPOCHS = 100
+# community_small_CC: its networks on the card against float64 at this
+# batch (the CPU's float64 forward of the K = 1140 Hodge ops stays short);
+# the bound scales with the CPU f32 copy's own distance, as grid's does
+CC_CONFIG = "community_small_CC"
+CC_NET_B = 16
+CC_F32_FACTOR = 4.0
+# its training run, cut from the config's 5000 epochs (one train batch of
+# 80 and one test batch of 20 an epoch)
+CC_TRAIN_EPOCHS = 200
 
 
 class PhaseError(RuntimeError):
@@ -1556,6 +1584,225 @@ def phase_grid_small_eval(ckpt):
     return out
 
 
+# -------------------------------------------------------------------- CC --
+
+def cc_inputs(config, B, seed):
+    """(x, adj, rank2, flags) of B community_small_CC-sized samples: the
+    lift of B of its graphs (incidence 0/1) plus Gaussian noise, as a
+    diffusion state at a middle t, all masked by the graphs' flags."""
+    import numpy as np
+    import torch
+    from ccsd_tpu_torch.data.loader import generated_adjs, init_features, lifted_rank2
+    from ccsd_tpu_torch.ops.cells import get_spec
+    from ccsd_tpu_torch.ops.masks import mask_adjs, mask_rank2, mask_x
+
+    d = config.data
+    N = int(d.max_node_num)
+    adjs = generated_adjs(CC_CONFIG, seed, N)[:B]
+    spec = get_spec(N, int(d.d_min), int(d.d_max))
+    rng = np.random.default_rng(seed)
+    flags = torch.from_numpy((adjs.sum(-1) > 0).astype(np.float32))
+
+    def noisy(a, scale=0.3):
+        return torch.from_numpy((a + scale * rng.standard_normal(a.shape)).astype(np.float32))
+
+    x = mask_x(noisy(init_features(d.init, adjs, int(d.max_feat_num))), flags)
+    adj = mask_adjs(sym(noisy(np.triu(adjs, 1))), flags)
+    rank2 = mask_rank2(noisy(lifted_rank2(adjs, d)), spec, flags)
+    return x, adj, rank2, flags
+
+
+def phase_cc_models(dev):
+    """community_small_CC's networks (seeded weights) on the card against a
+    float64 CPU copy, with exact launch counts per call; returns each
+    network's launches."""
+    import copy
+
+    import torch
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.models.registry import load_model, load_model_params, with_fused
+    from ccsd_tpu_torch.utils.config import get_config
+
+    c = get_config(CC_CONFIG, seed=0, folder=HERE)
+    defs = dict(zip(("x", "adj", "rank2"), load_model_params(c)))
+    g = torch.Generator().manual_seed(4)
+    base = {n: load_model(d, generator=g) for n, d in defs.items()}
+    x, adj, rank2, flags = cc_inputs(c, CC_NET_B, 6)
+    depth, L = int(c.model.depth), int(c.model.num_layers)
+    out = {}
+    for name, net, d, expect in (
+            ("ScoreNetworkX", "x", defs["x"], {"gcn_aggregate": depth}),
+            ("ScoreNetworkA_CC unfused", "adj", defs["adj"], {"gmh_attention": L}),
+            ("ScoreNetworkA_CC fused", "adj", with_fused(defs)["adj"],
+             {"channel_agg": L, "gmh_scores": L}),
+            ("ScoreNetworkF", "rank2", with_fused(defs)["rank2"], {})):
+        model = load_model(d).eval()
+        model.load_state_dict(base[net].state_dict())
+        card = copy.deepcopy(model).to(dev)
+        reset_launches()
+        with torch.no_grad():
+            got = card(x.to(dev), adj.to(dev), rank2=rank2.to(dev), flags=flags.to(dev))
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in LAUNCHES.items() if v}
+            cpu32 = model(x, adj, rank2=rank2, flags=flags).double()
+            ref = model.double()(x.double(), adj.double(), rank2=rank2.double(),
+                                 flags=flags.double())
+        check(launched == expect, f"{CC_CONFIG} {name}: launches {launched}, expected {expect}")
+        cpu_err = (cpu32 - ref).abs().max().item()
+        tol = dict(MODEL_TOL, atol=max(MODEL_TOL["atol"], CC_F32_FACTOR * cpu_err))
+        abs_err, rel_err, ok = compare(got.cpu().double(), ref, tol)
+        say("cc_models", model=f"{CC_CONFIG} {name}", shape="x".join(map(str, got.shape)),
+            launches=json.dumps(launched), max_abs_err=f"{abs_err:.3e}",
+            max_rel_err=f"{rel_err:.3e}", max_abs_ref=f"{ref.abs().max().item():.3e}",
+            cpu_f32_max_abs_err=f"{cpu_err:.3e}", tol=json.dumps(tol), ok=ok)
+        check(ok, f"{CC_CONFIG} {name} on the card disagrees with the CPU copy")
+        out[f"{CC_CONFIG} {name}"] = launched
+    return out
+
+
+def cc_train_config(folder, name, epochs):
+    return train_config(folder, name, epochs, data=CC_CONFIG)
+
+
+def phase_cc_train():
+    """community_small_CC through ``Trainer`` for CC_TRAIN_EPOCHS epochs, in
+    two calls, and a run resumed at the half; returns (launches, checkpoint
+    name)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.training.trainer import Trainer
+    from ccsd_tpu_torch.utils.config import get_config
+
+    folder = os.path.join(HERE, "build", "smoke_cc")
+    shutil.rmtree(folder, ignore_errors=True)
+    config = cc_train_config(folder, "smoke", CC_TRAIN_EPOCHS)
+    published = int(get_config(CC_CONFIG, seed=0, folder=HERE).train.num_epochs)
+    trainer = Trainer(config)
+    check(trainer.device.type == "cuda" and trainer.names == ("x", "adj", "rank2"),
+          f"the CC trainer runs {trainer.names} on {trainer.device}")
+    check([len(trainer.train_loader), len(trainer.test_loader)] == [1, 1],
+          f"an epoch of {CC_CONFIG} is not one train and one test batch")
+    depth, L = int(config.model.depth), int(config.model.num_layers)
+    per_epoch = {"gcn_aggregate": 2 * depth, "gmh_attention": 2 * L,
+                 "gcn_aggregate_bwd": depth, "gmh_attention_bwd": L}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.config.train.num_epochs = CC_TRAIN_EPOCHS // 2
+    name = trainer.train()
+    mid = trainer.checkpoint_path(f"{name}_mid")
+    shutil.copyfile(trainer.checkpoint_path(f"{name}_final"), mid)
+    trainer.config.train.num_epochs = CC_TRAIN_EPOCHS
+    trainer.train()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    expect = {k: CC_TRAIN_EPOCHS * per_epoch.get(k, 0) for k in LAUNCHES}
+    check(launches == expect, f"{CC_CONFIG} train: launches {launches}, expected exactly "
+                              f"{expect}")
+    hist, test = np.asarray(trainer.history["train"]), np.asarray(trainer.history["test"])
+    first, end = hist[0], hist[-10:].mean(axis=0)
+    say("cc_train", epochs=trainer.epoch, cut=f"{CC_TRAIN_EPOCHS} of {published}",
+        steps=trainer.step, seconds=f"{seconds:.3f}",
+        **{f"loss_{n}": f"{first[i]:.4f}->{hist[-1][i]:.4f}"
+           for i, n in enumerate(trainer.names)},
+        **{f"test_loss_{n}": f"{test[0][i]:.4f}->{test[-1][i]:.4f}"
+           for i, n in enumerate(trainer.names)},
+        launches_per_epoch=json.dumps({k: v // CC_TRAIN_EPOCHS for k, v in launches.items()
+                                       if v}),
+        peak_memory_gib=f"{peak / 2**30:.3f}")
+    say("train_steps_per_s", config=CC_CONFIG, steps_per_s=f"{trainer.step / seconds:.2f}",
+        card=repr(smi_name_power()))
+    check(np.isfinite(hist).all() and np.isfinite(test).all(), "non-finite CC training losses")
+    check(bool((end < first).all()), f"CC losses did not fall: epoch 1 {first}, last ten {end}")
+
+    resumed = Trainer(cc_train_config(folder, "smoke_resumed", CC_TRAIN_EPOCHS))
+    resumed.load_checkpoint(f"{name}_mid")
+    resumed.train()
+    for n in trainer.names:
+        for (k, a), b in zip(trainer.models[n].state_dict().items(),
+                             resumed.models[n].state_dict().values()):
+            check(torch.equal(a, b), f"resumed {n}.{k} differs from the uninterrupted run")
+        for a, b in zip(trainer.emas[n].shadow_params, resumed.emas[n].shadow_params):
+            check(torch.equal(a, b), f"resumed EMA of {n} differs from the uninterrupted run")
+    check(resumed.history == trainer.history, "resumed CC losses differ from the uninterrupted "
+                                              "run")
+    say("cc_train_resume", resumed_from_epoch=CC_TRAIN_EPOCHS // 2, to=resumed.epoch,
+        equals_uninterrupted=True)
+    return launches, f"{name}_final"
+
+
+def phase_cc_sample(ckpt):
+    """The cc_train checkpoint by the JAX protocol on both paths at
+    ``sample.score_dtype: f32``, with its gates; the default (bf16) must
+    raise; returns {path: launches}."""
+    import numpy as np
+    import torch
+    from ccsd_tpu_torch.data.loader import generated_adjs, split
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.ops.cells import get_spec
+    from ccsd_tpu_torch.sampling.sampler import Sampler
+
+    folder = os.path.join(HERE, "build", "smoke_cc")
+    cfg = cc_train_config(folder, "smoke", CC_TRAIN_EPOCHS)
+    adjs = generated_adjs(CC_CONFIG, int(cfg.get("seed", 42)), int(cfg.data.max_node_num))
+    tr, te = split(len(adjs), float(cfg.data.test_split))
+    cfg.ckpt = ckpt
+    try:
+        Sampler(cfg, adjs[tr], adjs[te]).sample()
+        raised = False
+    except NotImplementedError as e:
+        raised = "sample.score_dtype" in str(e)
+    check(raised, f"{CC_CONFIG} at its default score dtype (bf16) did not raise")
+    spec = get_spec(int(cfg.data.max_node_num), int(cfg.data.d_min), int(cfg.data.d_max))
+    out = {}
+    for fused in (True, False):
+        path = "default (sample.fused on)" if fused else "sample.fused: false"
+        cfg = cc_train_config(folder, "smoke", CC_TRAIN_EPOCHS)
+        cfg.ckpt, cfg.sample.fused, cfg.sample.score_dtype = ckpt, fused, "f32"
+        sampler = Sampler(cfg, adjs[tr], adjs[te])
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        res = sampler.sample()
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        expect = sample_launches(cfg, fused)
+        check(launches == expect, f"{CC_CONFIG} {path}: launches {launches}, expected exactly "
+                                  f"{expect}")
+        adj, rank2, flags = res["adj"], res["rank2"], res["flags"]
+        N = int(cfg.data.max_node_num)
+        check(res["device"].startswith("cuda") and res["finite"],
+              f"{CC_CONFIG} {path}: device {res['device']}, finite {res['finite']}")
+        check(adj.shape == (len(adjs[te]), N, N)
+              and rank2.shape == (len(adjs[te]), spec.num_edges, spec.num_cells),
+              f"{CC_CONFIG} {path}: adj {adj.shape}, rank2 {rank2.shape}")
+        check(set(np.unique(adj)) <= {0.0, 1.0} and np.array_equal(adj, adj.transpose(0, 2, 1))
+              and not adj[:, np.arange(N), np.arange(N)].any(),
+              f"{CC_CONFIG} {path}: adjacency not 0/1, symmetric, zero-diagonal")
+        live_e = flags[:, spec.edge_u] * flags[:, spec.edge_v]
+        live_c = (1 - flags) @ spec.cell_mask.T < 0.5
+        check(set(np.unique(rank2)) <= {0, 1} and not rank2[live_e == 0].any()
+              and not rank2.transpose(0, 2, 1)[~live_c].any(),
+              f"{CC_CONFIG} {path}: rank-2 entries on absent edges or cells")
+        mmds = {**res["mmd"], **res["cc_mmd"]}
+        check(len(mmds) == 8 and all(math.isfinite(v) for v in mmds.values()),
+              f"{CC_CONFIG} {path}: MMDs {mmds}")
+        say("cc_sample", path=repr(path), weights=repr(res["weights"]), graphs=len(adjs[te]),
+            batch=int(cfg.data.batch_size), steps=int(cfg.sde.adj.num_scales),
+            steps_per_s=f"{res['steps_per_s']:.2f}",
+            sampling_seconds=f"{res['sampling_time']:.3f}",
+            mean_edges=f"{adj.sum((1, 2)).mean() / 2:.3f}",
+            cells_per_cc=f"{res['cells_per_cc']:.3f}", mmd=json.dumps(res["mmd"]),
+            cc_mmd=json.dumps(res["cc_mmd"]), eval_seconds=f"{res['eval_seconds']:.3f}",
+            peak_memory_gib=f"{peak / 2**30:.3f}", card=repr(smi_name_power()),
+            launches=json.dumps(launches))
+        out[f"{CC_CONFIG} sample {'default' if fused else 'unfused'}"] = launches
+    return out
+
+
 def timing_specs():
     """(kernel, source, the TPU kernels it replaces, shape key, inputs,
     {variant: (kernel fn, plain fn[, a change of the inputs])} with the
@@ -1875,6 +2122,9 @@ def main(argv) -> int:
         grid_adjs = generated_adjs(GRID_CONFIG, 0, 361)
         runs.update(timed("grid_sample", phase_sample, grid_adjs, GRID_CONFIG, 8,
                           "grid_sample", grid_small_ckpt_path(gs_ckpt)))
+        runs.update(timed("cc_models", phase_cc_models, dev))
+        runs[f"{CC_CONFIG} train"], cc_ckpt = timed("cc_train", phase_cc_train)
+        runs.update(timed("cc_sample", phase_cc_sample, cc_ckpt))
         from ccsd_tpu_torch.kernels import LAUNCHES
 
         launches = {k: {p: run.get(k, 0) for p, run in runs.items()} for k in LAUNCHES}

@@ -1,15 +1,21 @@
 """End-to-end quality run of the port: train -> sample -> MMD, on
-community_small or grid_small.
+community_small, grid_small or community_small_CC.
 
-Trains ScoreNetworkX and ScoreNetworkA with ``config/<config>.yaml`` as
-published (5000 epochs) on the JAX package's graphs of that dataset
-(``generated_adjs(config, seed)``: 100 graphs, 80 train, 20 test), then
+Trains the config's networks (ScoreNetworkX and ScoreNetworkA; for
+community_small_CC also ScoreNetworkA_CC and ScoreNetworkF on the graphs'
+lift) with ``config/<config>.yaml`` as published (5000 epochs) on the JAX
+package's graphs of that dataset (``generated_adjs(config, seed)``: 100
+graphs, 80 train, 20 test), then
 samples the final checkpoint by the JAX sampler's protocol (20 graphs, 1000
 steps; community_small: one round of 128, Euler + Langevin, the raw
 weights; grid_small: three rounds of 8, Reverse + Langevin, the EMA
 weights, as each config says) at each sampling seed, on the default (fused
 fast) path and with ``sample.fused: false``, and scores each run against
-the test split: the four graph MMDs and the four lifted-CC MMDs.  Prints
+the test split: the four graph MMDs and the four lifted-CC MMDs (CC mode:
+the four CC MMDs of the generated complexes, and their cells per CC).
+Every run samples at ``sample.score_dtype: f32``: the JAX package's f32
+rows are the bar, and its bf16 default for community_small_CC is not
+ported.  Prints
 one JSON line per run, the number of graphs in which the two paths'
 samples differ at each seed, then per path the mean, min and max of each
 MMD over the seeds, the train split scored against the test split (the
@@ -19,11 +25,21 @@ against 1.5 times the worst of the JAX package's rows for the config
 only for a run of the published epochs: a shorter one (``--epochs``, or
 ``--train-seconds``, which trains in chunks of 500 epochs and stops before
 the next chunk, at the last chunk's pace, would end past that many seconds
-of training) is a cut, reported beside the bounds but not held to them.
+since the script started) is a cut: one stopped by ``--train-seconds`` is
+not scored (it prints the checkpoint to resume), one of fewer ``--epochs``
+is scored beside the bounds but not held to them.  ``--eval-at E ...`` also samples and scores the run when it
+reaches epoch E (the checkpoint at E is the one a run of E epochs gives:
+the learning-rate decay and the EMA do not depend on the total), and
+``--resume NAME`` continues the run saved as ``<folder>/checkpoints/<data>/
+NAME.pth`` (bit for bit); ``--ckpt NAME`` trains nothing and scores that
+checkpoint (a port ``.pth`` or a JAX ``.ckpt.pkl`` under the same
+directory, so the port's sampler can score the JAX package's networks).  Each scored run also prints the degree histogram
+of its graphs' non-isolated nodes beside the test split's.
 
     python3 scripts/port_quality_run.py [--config community_small|grid_small] \
-        [--epochs 5000] [--train-seconds S] [--seed 42] [--sample-seeds 12 42 1234] \
-        [--folder build/quality_run] [--device cuda]
+        [--epochs 5000] [--train-seconds S] [--eval-at 500] [--resume NAME | --ckpt NAME] \
+        [--seed 42] [--sample-seeds 12 42 1234] [--folder build/quality_run] \
+        [--device cuda]
 
 Runs on CUDA (the kernels) unless ``--device cpu`` (the plain path, a
 rehearsal at a few epochs: the 1000 steps take about 2 minutes a run
@@ -68,6 +84,18 @@ JAX_ROWS = {
         "jax_scanned_trainer": {"degree": 0.0073, "cluster": 0.042, "orbit": 0.024,
                                 "spectral": 0.193},
     },
+    # community_small_CC, f32 score networks: its scanned trainer from
+    # scratch ("community_small_CC from scratch", BASELINE.md:464-467), the
+    # reference's shipped checkpoint ("Quality parity", :43) and the same
+    # checkpoint on the fused path (:64-65)
+    "community_small_CC": {
+        "jax_scanned_trainer": {"degree": 0.151, "cluster": 0.059, "orbit": 0.026,
+                                "spectral": 0.227},
+        "reference_checkpoint": {"degree": 0.094, "cluster": 0.062, "orbit": 0.025,
+                                 "spectral": 0.226},
+        "reference_checkpoint_fused": {"degree": 0.095, "cluster": 0.063, "orbit": 0.026,
+                                       "spectral": 0.226},
+    },
 }
 BOUND_FACTOR = 1.5
 CHUNK_EPOCHS = 500  # --train-seconds trains in chunks of this many epochs
@@ -94,13 +122,72 @@ def emit(**kv) -> None:
     print(json.dumps(kv), flush=True)
 
 
+def degree_hist(adjs: np.ndarray) -> list:
+    """Share of the non-isolated nodes with each degree 1, 2, ... (index 0
+    stays 0: the JAX evaluator drops isolated nodes from generated graphs,
+    and no test graph has one)."""
+    deg = np.asarray(adjs).sum(-1).astype(np.int64).ravel()
+    counts = np.bincount(deg[deg > 0], minlength=2)
+    return (counts / max(1, counts.sum())).round(6).tolist()
+
+
+def score(config, name, train, test, sample_seeds, device, epochs, published, where,
+          bounds) -> bool:
+    """Sample the checkpoint ``name`` at each seed on both paths, print a
+    line per run, the paths compared and a summary per path; returns
+    whether the means are inside the bounds (or the run is a cut)."""
+    held = epochs is not None and epochs >= published
+    runs = {p: [] for p in PATHS}
+    graphs = {}  # (path, seed) -> the kept adjacencies
+    for path, fused in PATHS.items():
+        for s in sample_seeds:
+            cfg = AttrDict(config.to_dict())
+            cfg.ckpt, cfg.sample.seed, cfg.sample.fused = name, s, fused
+            res = Sampler(cfg, train, test, device=device, log=False).sample()
+            if not res["finite"]:
+                raise RuntimeError(f"{path}, seed {s}: non-finite sampler output")
+            cells = {"cells_per_cc": res["cells_per_cc"]} if "cells_per_cc" in res else {}
+            runs[path].append({**res["mmd"], **res["cc_mmd"], **cells})
+            graphs[path, s] = res["adj"]
+            emit(run="sample", path=path, sample_seed=s, epochs=epochs,
+                 weights=res["weights"], graphs=int(res["adj"].shape[0]),
+                 mmd=res["mmd"], cc_mmd=res["cc_mmd"], **cells,
+                 degree_hist=degree_hist(res["adj"]),
+                 steps_per_s=res["steps_per_s"], sampling_seconds=res["sampling_time"],
+                 eval_seconds=res["eval_seconds"], card=where)
+
+    # the same seed gives both paths the same flags and noise: count the
+    # graphs the fused fast path's bf16 head scores changed
+    a, b = PATHS
+    emit(run="paths_compared", epochs=epochs, graphs_that_differ={
+        s: int((graphs[a, s] != graphs[b, s]).any((1, 2)).sum()) for s in sample_seeds})
+    ok = True
+    for path, rows in runs.items():
+        keys = list(rows[0])
+        vals = {k: [r[k] for r in rows] for k in keys}
+        mean = {k: float(np.mean(v)) for k, v in vals.items()}
+        within = {k: mean[k] <= bounds[k] for k in bounds}
+        ok &= all(within.values()) or not held
+        emit(run="summary", config=str(config.data.data), path=path,
+             sample_seeds=sample_seeds, mean=mean, min={k: min(v) for k, v in vals.items()},
+             max={k: max(v) for k, v in vals.items()}, bounds=bounds, within_bounds=within,
+             held_to_bounds=held, epochs=epochs, published_epochs=published)
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="community_small", choices=sorted(JAX_ROWS))
     ap.add_argument("--epochs", type=int, default=None, help="default: the config's")
     ap.add_argument("--train-seconds", type=float, default=None,
                     help="train in chunks of 500 epochs within this many seconds")
-    ap.add_argument("--seed", type=int, default=42, help="dataset, weights and data order")
+    ap.add_argument("--eval-at", type=int, nargs="*", default=[],
+                    help="also sample and score the run at these epochs")
+    ap.add_argument("--resume", default=None, help="continue the run saved as NAME")
+    ap.add_argument("--ckpt", default=None, help="score the checkpoint NAME; no training")
+    ap.add_argument("--train-seed", type=int, default=None,
+                    help="weights, data order and noise of the training (default: --seed)")
+    ap.add_argument("--seed", type=int, default=42, help="dataset (and the training, without --train-seed)")
     ap.add_argument("--sample-seeds", type=int, nargs="+", default=[12, 42, 1234])
     ap.add_argument("--folder", default=os.path.join(ROOT, "build", "quality_run"))
     ap.add_argument("--device", default=None, help="default: cuda")
@@ -110,6 +197,9 @@ def main(argv=None) -> int:
 
     config = AttrDict(get_config(args.config, args.seed, ROOT).to_dict())
     config.folder = args.folder
+    config.sample.score_dtype = "f32"
+    if args.train_seed is not None:  # another training of the same dataset
+        config.seed = args.train_seed
     published = int(config.train.num_epochs)
     if args.epochs is not None:
         config.train.num_epochs = config.train.save_interval = args.epochs
@@ -117,69 +207,52 @@ def main(argv=None) -> int:
     adjs = generated_adjs(args.config, args.seed, int(config.data.max_node_num))
     tr, te = split(len(adjs), float(config.data.test_split))
     train, test = adjs[tr], adjs[te]
+    emit(run="test_split", graphs=len(test), degree_hist=degree_hist(test))
 
+    if args.ckpt:
+        score(config, args.ckpt, train, test, args.sample_seeds, args.device,
+              None, published, where, BOUNDS)  # its epochs are not known here
+        return 0
     trainer = Trainer(config, device=args.device, adjs=adjs)
+    if args.resume:
+        trainer.load_checkpoint(args.resume)
     t0 = time.perf_counter()
     target = int(config.train.num_epochs)
-    chunk = CHUNK_EPOCHS if args.train_seconds else target
-    while trainer.epoch < target:
-        t_chunk = time.perf_counter()
-        config.train.num_epochs = min(target, trainer.epoch + chunk)
-        name = trainer.train()
-        spent, last = time.perf_counter() - t0, time.perf_counter() - t_chunk
-        if args.train_seconds and spent + last > args.train_seconds:
+    stops = sorted({e for e in args.eval_at if trainer.epoch < e < target} | {target})
+    name = trainer.train() if trainer.epoch >= target else None  # a resume at the end
+    for stop in stops:
+        chunk = CHUNK_EPOCHS if args.train_seconds else stop
+        while trainer.epoch < stop:
+            t_chunk = time.perf_counter()
+            config.train.num_epochs = min(stop, trainer.epoch + chunk)
+            name = trainer.train()
+            spent, last = time.perf_counter() - t0, time.perf_counter() - t_chunk
+            if args.train_seconds and spent + last > args.train_seconds:
+                break
+        if trainer.epoch < stop or stop == target:
             break
+        emit(run="train", config=args.config, epochs=trainer.epoch, steps=trainer.step,
+             seconds=time.perf_counter() - t0, train_steps_per_s=trainer.steps_per_s)
+        score(config, f"{name}_final", train, test, args.sample_seeds, args.device,
+              trainer.epoch, published, where, BOUNDS)
     if trainer.epoch < target:
         emit(run="train_cut", epochs=trainer.epoch, published_epochs=published,
-             train_seconds=args.train_seconds,
-             note=f"the next {CHUNK_EPOCHS} epochs would not fit")
-    held = trainer.epoch >= published
+             train_seconds=args.train_seconds, resume=f"{name}_final",
+             ckpt=trainer.checkpoint_path(f"{name}_final"),
+             note=f"the next {CHUNK_EPOCHS} epochs would not fit; not scored: resume it")
+        return 0
     hist = np.asarray(trainer.history["train"])
     emit(run="train", config=args.config, epochs=trainer.epoch, published_epochs=published,
          steps=trainer.step,
          seconds=time.perf_counter() - t0, train_steps_per_s=trainer.steps_per_s,
-         loss_x=[hist[0][0], hist[-1][0]], loss_adj=[hist[0][1], hist[-1][1]],
+         **{f"loss_{n}": [hist[0][i], hist[-1][i]] for i, n in enumerate(trainer.names)},
          ckpt=trainer.checkpoint_path(f"{name}_final"), card=where)
-
-    runs = {p: [] for p in PATHS}
-    graphs = {}  # (path, seed) -> the kept adjacencies
-    for path, fused in PATHS.items():
-        for s in args.sample_seeds:
-            cfg = AttrDict(config.to_dict())
-            cfg.ckpt, cfg.sample.seed, cfg.sample.fused = f"{name}_final", s, fused
-            res = Sampler(cfg, train, test, device=args.device, log=False).sample()
-            if not res["finite"]:
-                raise RuntimeError(f"{path}, seed {s}: non-finite sampler output")
-            runs[path].append({**res["mmd"], **res["cc_mmd"]})
-            graphs[path, s] = res["adj"]
-            emit(run="sample", path=path, sample_seed=s, weights=res["weights"],
-                 graphs=int(res["adj"].shape[0]),
-                 mmd=res["mmd"], cc_mmd=res["cc_mmd"], steps_per_s=res["steps_per_s"],
-                 sampling_seconds=res["sampling_time"], eval_seconds=res["eval_seconds"],
-                 card=where)
-
-    # the same seed gives both paths the same flags and noise: count the
-    # graphs the fused fast path's bf16 head scores changed
-    a, b = PATHS
-    emit(run="paths_compared", graphs_that_differ={
-        s: int((graphs[a, s] != graphs[b, s]).any((1, 2)).sum()) for s in args.sample_seeds})
+    ok = score(config, f"{name}_final", train, test, args.sample_seeds, args.device,
+               trainer.epoch, published, where, BOUNDS)
 
     floor = Sampler(config, train, test, device=args.device, log=False).evaluate(test, train)
     emit(run="train_vs_test", graphs=[len(train), len(test)], mmd=floor["mmd"],
          cc_mmd=floor["cc_mmd"])
-
-    ok = True
-    for path, rows in runs.items():
-        keys = list(rows[0])
-        vals = {k: [r[k] for r in rows] for k in keys}
-        mean = {k: float(np.mean(v)) for k, v in vals.items()}
-        within = {k: mean[k] <= BOUNDS[k] for k in BOUNDS}
-        ok &= all(within.values()) or not held
-        emit(run="summary", config=args.config, path=path, sample_seeds=args.sample_seeds,
-             mean=mean, min={k: min(v) for k, v in vals.items()},
-             max={k: max(v) for k, v in vals.items()}, bounds=BOUNDS, within_bounds=within,
-             held_to_bounds=held, epochs=trainer.epoch,
-             published_epochs=published)
     emit(run="jax_rows", rows=JAX_ROWS[args.config],
          note="the JAX package's MMDs (BASELINE.md), on a TPU")
     return 0 if ok else 1

@@ -46,6 +46,8 @@ def test_import_guard_covers_every_kernel_module():
     assert {"chip_smoke.py", "ccsd_tpu_torch/kernels/channel_agg.py",
             "ccsd_tpu_torch/kernels/gmh_scores.py", "ccsd_tpu_torch/eval/stats.py",
             "ccsd_tpu_torch/eval/orbits/__init__.py", "ccsd_tpu_torch/data/cc_codec.py",
+            "ccsd_tpu_torch/ops/hodge.py", "ccsd_tpu_torch/models/hodge_nn.py",
+            "ccsd_tpu_torch/models/score_a_cc.py", "ccsd_tpu_torch/models/score_f.py",
             "scripts/port_quality_run.py"} <= rel
 
 
