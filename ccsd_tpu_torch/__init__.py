@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of ccsd_tpu for NVIDIA Hopper (H100).
 
 The graph training and sampling paths of ``config/community_small.yaml``
-and the grid family, and the dense CC mode of
-``config/community_small_CC.yaml``, run here, with every Pallas kernel of
+and the grid family, the dense CC mode of
+``config/community_small_CC.yaml`` and the two-stage CC model of
+``config/community_small_CC_two_stage.yaml``, run here, with every Pallas kernel of
 the JAX package replaced by a hand-written CUDA C++ kernel for ``sm_90a``
 (``ccsd_tpu_torch/csrc``), and the two on the training path given backward
 kernels of their own; the Hodge ops of CC mode are plain PyTorch, as they

@@ -32,7 +32,15 @@ run, for one; ``--ckpt NAME`` sets it, and ``--score-dtype`` sets
 three networks on the graphs and their lift, and samples CCs: its JSON
 line adds ``cells_per_cc`` (its ``cc_mmd`` holds the CC MMDs), and
 ``--out`` the rank-2 incidences.  Its default ``sample.score_dtype`` is
-bf16, which is not ported: pass ``--score-dtype f32``.
+bf16, which is not ported: pass ``--score-dtype f32``.  A two-stage
+config (``--config community_small_CC_two_stage``: ``train.two_stage`` and
+``sample.two_stage``) trains with ``TwoStageTrainer`` (one full-batch step
+an epoch, no test loss) and samples with ``TwoStageSampler`` (graphs, the
+bridge, then F over each graph's candidate cells); its JSON line adds
+``cells_per_cc``, each round's ``k_max``, each stage's steps/s and
+finiteness and stage 2's margin to overflow (``stage2_finite_steps``,
+``stage2_max_abs``: an overflowed F quantizes to every candidate), and
+``--num-samples`` sets ``sample.n_samples``.
 """
 
 from __future__ import annotations
@@ -65,8 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     from ccsd_tpu_torch.data.loader import split
-    from ccsd_tpu_torch.sampling.sampler import Sampler
-    from ccsd_tpu_torch.training.trainer import Trainer, dataset_adjs
+    from ccsd_tpu_torch.sampling.sampler import get_sampler_from_config
+    from ccsd_tpu_torch.training.trainer import dataset_adjs, get_trainer_from_config
     from ccsd_tpu_torch.utils.config import get_config
 
     config = get_config(args.config, args.seed, args.folder)
@@ -79,7 +87,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     except ValueError:
         raise SystemExit(f"--train-adjs is required for {config.data.data}")
     if args.type == "train":
-        trainer = Trainer(config, device=args.device, adjs=adjs)
+        trainer = get_trainer_from_config(config, device=args.device, adjs=adjs)
         if args.resume:
             trainer.load_checkpoint(args.resume)
         name = trainer.train()
@@ -89,7 +97,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(json.dumps({
             "epochs": trainer.epoch,
             "steps": trainer.step,
-            **{f"{k}_loss_{n}": v for k in ("train", "test") for n, v in zip(names, last[k])},
+            **{f"{k}_loss_{n}": v for k in last for n, v in zip(names, last[k])},
             "steps_per_s": trainer.steps_per_s,
             "ckpt": f"{name}_final",
             "ckpt_path": trainer.checkpoint_path(f"{name}_final"),
@@ -97,11 +105,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         }))
         return 0
     tr, te = split(len(adjs), float(config.data.test_split))
-    res = Sampler(config, adjs[tr], adjs[te], device=args.device).sample(args.num_samples)
+    sampler = get_sampler_from_config(config, adjs[tr], adjs[te], device=args.device)
+    res = sampler.sample(args.num_samples)
     if args.out:
         extra = {"rank2": res["rank2"]} if "rank2" in res else {}
         np.savez(args.out, adj=res["adj"], x=res["x"], flags=res["flags"], **extra)
-    cc = {"cells_per_cc": res["cells_per_cc"]} if "cells_per_cc" in res else {}
+    cc = {k: res[k] for k in ("cells_per_cc", "k_max", "stage1_steps_per_s",
+                              "stage2_steps_per_s", "finite_stages", "stage2_finite_steps",
+                              "stage2_max_abs", "rank2_counts") if k in res}
     print(json.dumps({
         "samples": int(res["adj"].shape[0]),
         "finite": res["finite"],

@@ -11,9 +11,10 @@ features, split and batch order exactly.  ``community_small_adjs`` and
 grid recipes (ccsd_tpu/data/generators.py:20-48, 77-84, 87-113, 196-225)
 with numpy and the standard library only, graph for graph and edge for
 edge the graphs ``gen_graph_list`` gives after ``np.random.seed(seed)``.
-A CC dataset (community_small_CC) is its graph recipe's adjacencies and
-the rank-2 incidence of their lift (``lifted_rank2``), as the JAX package
-lifts and pads them (generators.py:244-255, loader.py:270-300).
+A CC dataset (community_small_CC, grid_small_CC) is its graph recipe's
+adjacencies and the rank-2 incidence of their lift (``lifted_rank2``), as
+the JAX package lifts and pads them (generators.py:244-255,
+loader.py:270-300).
 """
 
 from __future__ import annotations
@@ -211,6 +212,7 @@ GENERATED = {
     "community_small": (community_small_adjs, {}, 100),
     "community_small_CC": (community_small_adjs, {}, 100),
     "grid_small": (grid_adjs, {"m_range": range(4, 8), "n_range": range(4, 8)}, 100),
+    "grid_small_CC": (grid_adjs, {"m_range": range(4, 8), "n_range": range(4, 8)}, 100),
     "grid": (grid_adjs, {"m_range": range(10, 20), "n_range": range(10, 20)}, 100),
 }
 

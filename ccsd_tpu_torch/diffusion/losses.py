@@ -11,7 +11,11 @@ the draws as arguments, so a test can feed it the JAX package's.  The
 networks are arguments of the call, as the JAX loss takes their
 parameters, so one loss serves the trained networks and their EMA copies.
 The CC networks are called with keywords (``rank2=``, ``flags=``):
-ScoreNetworkX takes the rank-2 tensor and ignores it.
+ScoreNetworkX takes the rank-2 tensor and ignores it.  The two-stage
+model's stage 2 has its score function over a per-sample candidate-cell
+universe (``get_score_fn_rank2_dynamic``, :242-268) and its DSM loss of F
+alone (``Rank2DynamicLoss``, :271-310), which draws t, then the masked
+noise, from its own generator.
 """
 
 from __future__ import annotations
@@ -25,8 +29,10 @@ from ccsd_tpu_torch.ops.cells import ComplexSpec
 from ccsd_tpu_torch.ops.masks import (
     gen_noise,
     gen_noise_rank2,
+    gen_noise_rank2_dynamic,
     mask_adjs,
     mask_rank2,
+    mask_rank2_dynamic,
     mask_x,
     node_flags,
 )
@@ -62,6 +68,27 @@ def get_score_fn_cc(sde: SDE, model) -> Callable:
 
         def score_fn(x, adj, rank2, flags, t):
             return model(x, adj, rank2=rank2, flags=flags)
+
+    else:
+        raise NotImplementedError(f"SDE class {type(sde).__name__} not supported.")
+    return score_fn
+
+
+def get_score_fn_rank2_dynamic(sde: SDE, model, dyn) -> Callable:
+    """Stage-2 score function (rank2, flags, t) -> score of ScoreNetworkF
+    over the per-sample universe ``dyn`` (``diffusion.two_stage.
+    DynamicCells``: member (B, K, N), valid (B, K))."""
+    dyn = (dyn.member, dyn.valid)
+    if is_vp_like(sde):
+
+        def score_fn(rank2, flags, t):
+            out = model(None, None, rank2, flags=flags, dyn=dyn)
+            return -out / _bcast(sde.marginal_std(t), out)
+
+    elif isinstance(sde, VESDE):
+
+        def score_fn(rank2, flags, t):
+            return model(None, None, rank2, flags=flags, dyn=dyn)
 
     else:
         raise NotImplementedError(f"SDE class {type(sde).__name__} not supported.")
@@ -186,3 +213,48 @@ def get_sde_loss_fn(sde_x: SDE, sde_adj: SDE, reduce_mean: bool = False,
                     likelihood_weighting: bool = False, eps: float = 1e-5) -> SDELoss:
     """DSM loss for (X, A) (ccsd_tpu/diffusion/losses.py:109-163)."""
     return SDELoss(sde_x, sde_adj, reduce_mean, likelihood_weighting, eps)
+
+
+class Rank2DynamicLoss:
+    """DSM loss of F alone over per-sample candidate universes, the
+    two-stage model's stage 2: ``loss(model_rank2, rank2, flags, member,
+    valid, generator) -> loss``, the batch mean."""
+
+    def __init__(self, sde_rank2: SDE, spec: ComplexSpec, reduce_mean: bool = False,
+                 eps: float = 1e-5):
+        self.sde, self.spec = sde_rank2, spec
+        self.reduce_mean, self.eps = reduce_mean, eps
+
+    def draw(self, rank2: torch.Tensor, flags: torch.Tensor, member: torch.Tensor,
+             valid: torch.Tensor, generator: Optional[torch.Generator] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(t (B,), z): t uniform in [eps, T), then Gaussian noise masked by
+        ``mask_rank2_dynamic``."""
+        u = torch.rand((rank2.shape[0],), generator=generator, dtype=rank2.dtype,
+                       device=rank2.device)
+        t = u * (self.sde.T - self.eps) + self.eps
+        z = gen_noise_rank2_dynamic(rank2, self.spec, member, valid, flags, generator)
+        return t, z
+
+    def losses(self, model, rank2: torch.Tensor, flags: torch.Tensor, member: torch.Tensor,
+               valid: torch.Tensor, t: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """The loss at given draws (ccsd_tpu/diffusion/losses.py:287-308)."""
+        mean, std = self.sde.marginal_prob(rank2, t)
+        perturbed = mask_rank2_dynamic(mean + _bcast(std, rank2) * z, self.spec, member,
+                                       valid, flags)
+        out = model(None, None, perturbed, flags=flags, dyn=(member, valid))
+        score = -out / _bcast(std, out) if is_vp_like(self.sde) else out
+        return _reduce(torch.square(score * _bcast(std, score) + z), self.reduce_mean).mean()
+
+    def __call__(self, model, rank2: torch.Tensor, flags: torch.Tensor, member: torch.Tensor,
+                 valid: torch.Tensor, generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        return self.losses(model, rank2, flags, member, valid,
+                           *self.draw(rank2, flags, member, valid, generator))
+
+
+def get_rank2_dynamic_loss_fn(sde_rank2: SDE, spec: ComplexSpec, reduce_mean: bool = False,
+                              eps: float = 1e-5) -> Rank2DynamicLoss:
+    """DSM loss of F over per-sample universes (ccsd_tpu/diffusion/losses.py:
+    271-310)."""
+    return Rank2DynamicLoss(sde_rank2, spec, reduce_mean, eps)

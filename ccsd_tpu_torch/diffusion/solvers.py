@@ -47,10 +47,16 @@ def _batch_norm_mean(v: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(v.reshape(v.shape[0], -1), dim=-1).mean()
 
 
-def _langevin_step(sde: SDE, score, v, noise, t, snr, scale_eps):
-    """One Langevin MCMC correction of tensor v given its score and noise."""
+def _langevin_step(sde: SDE, score, v, noise, t, snr, scale_eps,
+                   grad_floor: Optional[float] = None):
+    """One Langevin MCMC correction of tensor v given its score and noise.
+    ``grad_floor`` bounds the score's norm below (the two-stage sampler's
+    stage 2, whose batch may have no candidate cell at all: the step is
+    then 0 rather than NaN)."""
     alpha = sde.alpha_of_t(t)
     grad_norm = _batch_norm_mean(score)
+    if grad_floor is not None:
+        grad_norm = grad_norm.clamp(min=grad_floor)
     noise_norm = _batch_norm_mean(noise)
     step_size = (snr * noise_norm / grad_norm) ** 2 * 2 * alpha
     v_mean = v + _bcast(step_size, v).to(v.dtype) * score

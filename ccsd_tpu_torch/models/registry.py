@@ -3,7 +3,9 @@ mode.
 
 Port of ccsd_tpu/models/registry.py:28-66 and :95-200 (the CC branch for
 ScoreNetworkA_CC and ScoreNetworkF; the ``*_Base_CC`` networks and
-ScoreNetworkX_GMH are not ported).  A model definition
+ScoreNetworkX_GMH are not ported).  A CC config whose adjacency model is
+the graph ScoreNetworkA (the two-stage model's) gets the graph X and A
+definitions, marked ``is_cc``, beside its ScoreNetworkF.  A model definition
 may carry ``fused`` (``model.fused`` in a training config, or ``with_fused``
 at sampling time), which picks the channel-folded implementation of the
 same function with the same parameters, and the fused path's lowering
@@ -26,9 +28,8 @@ MODELS = {"ScoreNetworkX": ScoreNetworkX, "ScoreNetworkA": ScoreNetworkA,
 
 # the ported models whose definitions accept the channel-folded ``fused``
 # path (the JAX set, ccsd_tpu/models/registry.py:31-37, less what is not
-# ported yet: ScoreNetworkX_GMH, ScoreNetworkA_Base_CC, and ScoreNetworkF,
-# whose slab-unrolled form is still to port, so it runs unfused here)
-FUSED_CAPABLE = {"ScoreNetworkA", "ScoreNetworkA_CC"}
+# ported yet: ScoreNetworkX_GMH and ScoreNetworkA_Base_CC)
+FUSED_CAPABLE = {"ScoreNetworkA", "ScoreNetworkA_CC", "ScoreNetworkF"}
 
 
 def with_fused(defs: Dict[str, Dict[str, Any]], enable: bool = True,

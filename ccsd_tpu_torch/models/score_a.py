@@ -6,7 +6,9 @@ AttentionLayer path (models/attention.py); ``final_impl`` the first layer of
 the final MLP: ``"concat"`` applies it to the channels-last concat of every
 layer's adjacency channels, ``"blocksum"`` applies the matching weight slice
 to each block and sums (score_a.py:194-212; the same function, without the
-concat).  The parameters are the same under every setting.
+concat).  The parameters are the same under every setting.  ``is_cc``
+(the two-stage model's graph ScoreNetworkA) changes nothing: the score
+depends on x and the adjacency only.
 """
 
 from __future__ import annotations
@@ -31,8 +33,6 @@ class ScoreNetworkA(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         check_no_bn(use_bn)
-        if is_cc:
-            raise NotImplementedError("CC mode is not ported yet")
         if final_impl not in ("concat", "blocksum"):
             raise ValueError(f"unknown final_impl {final_impl!r}")
         self.max_node_num, self.c_init, self.final_impl = max_node_num, c_init, final_impl

@@ -2,7 +2,9 @@
 rank-2 complexes.
 
 Port of ccsd_tpu/ops/masks.py:26-170 (the graph part, and the static-
-universe rank-2 masks and noise) and :223-235 (``mask_hodge_adjs``), and
+universe rank-2 masks and noise), :172-221 (the rank-2 masks and noise
+over a per-sample candidate-cell universe, the two-stage model's) and
+:223-235 (``mask_hodge_adjs``), and
 ``default_mask`` (ccsd_tpu/ops/hodge.py:23-25).  Noise comes from an
 explicit ``torch.Generator`` in place of a JAX PRNG key.  The rank-2 masks
 gather with the spec's edge endpoints and multiply by its cell membership,
@@ -132,6 +134,40 @@ def gen_noise_rank2(x: torch.Tensor, spec: ComplexSpec, flags: Optional[torch.Te
     symmetrised)."""
     z = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
     return mask_rank2(z, spec, flags)
+
+
+def cell_flags_dynamic(member: torch.Tensor, valid: torch.Tensor,
+                       flags: torch.Tensor) -> torch.Tensor:
+    """(B, K) flags of a per-sample cell universe: 1 where the slot is
+    valid and every member node is present.  member: (B, K, N) 0/1; valid:
+    (B, K) 0/1 (padding slots 0)."""
+    missing = torch.einsum("bn,bkn->bk", 1.0 - flags, member)
+    return (missing < 0.5).to(flags.dtype) * valid
+
+
+def mask_rank2_dynamic(rank2: torch.Tensor, spec: ComplexSpec, member: torch.Tensor,
+                       valid: torch.Tensor, flags: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mask (B, E, K) or (B, C, E, K) rank-2 tensors over a per-sample
+    universe: the edge rows by the static spec, the columns by
+    ``cell_flags_dynamic``; with no flags, the columns by ``valid`` only."""
+    if flags is None:
+        fr = valid.to(rank2.dtype)
+        if rank2.dim() == 4:
+            fr = fr[:, None, :]
+        return rank2 * fr[..., None, :]
+    fl = edge_flags(spec, flags).to(rank2.dtype)
+    fr = cell_flags_dynamic(member, valid, flags).to(rank2.dtype)
+    if rank2.dim() == 4:
+        fl, fr = fl[:, None, :], fr[:, None, :]
+    return rank2 * fl[..., :, None] * fr[..., None, :]
+
+
+def gen_noise_rank2_dynamic(x: torch.Tensor, spec: ComplexSpec, member: torch.Tensor,
+                            valid: torch.Tensor, flags: Optional[torch.Tensor],
+                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Gaussian noise shaped like x, masked by ``mask_rank2_dynamic``."""
+    z = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+    return mask_rank2_dynamic(z, spec, member, valid, flags)
 
 
 def mask_hodge_adjs(hodge_adjs: torch.Tensor, spec: ComplexSpec,

@@ -2,7 +2,9 @@
 graphs (and rank-2 incidences) -> MMD.
 
 Port of ccsd_tpu/sampling/sampler.py:210-433, graph and dense CC mode,
-without the trajectory figures, the mesh and the S4 solver.  As in the JAX package (:220-223), the models are
+without the trajectory figures, the mesh and the S4 solver;
+``get_sampler_from_config`` hands a ``sample.two_stage`` config to
+``sampling/two_stage_sampler.py``.  As in the JAX package (:220-223), the models are
 built by ``with_fused(defs, sample.fused, fast=sample.fast)``, both on by
 default: ScoreNetworkA takes the channel-folded path with bf16 head scores
 and the ``blocksum`` final layer; ``sample.fused: false`` gives the unfused
@@ -153,8 +155,10 @@ class Sampler:
         self.is_cc = bool(config.get("is_cc", False))
         self.names = NAMES_CC if self.is_cc else NAMES
 
-    def load_models(self):
-        """(train config, {name: module on the device}, source of the weights)."""
+    def load_models(self, read=None):
+        """(train config, {name: module on the device}, source of the
+        weights).  ``read``: what ``read_checkpoint`` gave for the config,
+        to load a checkpoint the caller has read already."""
         cfg = self.config
         name = cfg.get("ckpt")
 
@@ -163,15 +167,8 @@ class Sampler:
                               fast=bool(cfg.sample.get("fast", True)))
 
         if name:
-            folder, data = cfg.get("folder", "./"), str(cfg.data.data)
             use_ema = bool(cfg.sample.get("use_ema", False))
-            path = port_ckpt_path(folder, data, str(name))
-            port = os.path.exists(path)
-            if port:
-                ckpt = load_port_ckpt(path, map_location="cpu")
-            else:
-                path = ckpt_path(folder, data, str(name))
-                ckpt = load_ckpt_file(path)
+            ckpt, path, port = read or read_checkpoint(cfg)
             configt = AttrDict(ckpt["model_config"])
             defs = defs_of({n: ckpt[f"params_{n}"] for n in self.names})
             models = {}
@@ -186,7 +183,7 @@ class Sampler:
         else:
             configt = cfg
             g = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
-            defs = defs_of(dict(zip(self.names, load_model_params(cfg))))
+            defs = defs_of(dict(zip(self.names, load_model_params(cfg, is_cc=self.is_cc))))
             models = {n: load_model(defs[n], generator=g) for n in self.names}
             source = f"seeded init (seed {int(cfg.get('seed', 0))})"
         models = {n: m.to(self.device).eval() for n, m in models.items()}
@@ -284,14 +281,14 @@ class Sampler:
             lifting_procedure_kwargs=d.get("lifting_procedure_kwargs"),
             max_nb_nodes=d.max_node_num)
 
-    def evaluate(self, test_adjs: np.ndarray, adjs: np.ndarray,
-                 ccs: Optional[list] = None) -> Dict[str, Any]:
+    def evaluate(self, test_adjs: np.ndarray, adjs: Optional[np.ndarray],
+                 ccs: Optional[list] = None, cc_eval: bool = True) -> Dict[str, Any]:
         """``mmd`` and ``cc_mmd`` of ``adjs`` against ``test_adjs``, logged as
         the JAX sampler logs them.  Graph mode: ``cc_mmd`` is the lifted-CC
         MMDs (None where the config has no lift or the lift is
         intractable).  CC mode: the generated CCs ``ccs`` (default: the
         lift of ``adjs``) against the test graphs' lift, and ``mmd`` of
-        their 1-skeletons."""
+        their 1-skeletons; ``cc_eval`` off leaves ``cc_mmd`` None."""
         cfg = self.config
         if self.is_cc:
             methods, kernels = load_eval_settings()
@@ -302,7 +299,8 @@ class Sampler:
                                        convert_CC_to_graphs(ccs),
                                        methods=methods, kernels=kernels),
                 "cc_mmd": eval_CC_list(test_ccs, ccs, worker_kwargs_from_config(cfg.data),
-                                       cc_nb_eval=cfg.sample.get("cc_nb_eval", 1000)),
+                                       cc_nb_eval=cfg.sample.get("cc_nb_eval", 1000))
+                if cc_eval else None,
             }
         else:
             out = self._evaluate_graphs(test_adjs, adjs)
@@ -349,3 +347,24 @@ class Sampler:
         np.savez(tmp, adj=results["adj"], x=results["x"], flags=results["flags"], **extra)
         os.replace(tmp, path)
         return path
+
+
+def read_checkpoint(cfg):
+    """(the checkpoint ``cfg.ckpt`` names under ``cfg.folder``, its path,
+    whether it is the port's ``.pth``; else the JAX ``.ckpt.pkl``)."""
+    folder, data, name = cfg.get("folder", "./"), str(cfg.data.data), str(cfg.ckpt)
+    path = port_ckpt_path(folder, data, name)
+    if os.path.exists(path):
+        return load_port_ckpt(path, map_location="cpu"), path, True
+    path = ckpt_path(folder, data, name)
+    return load_ckpt_file(path), path, False
+
+
+def get_sampler_from_config(config, *args, **kwargs) -> Sampler:
+    """``TwoStageSampler`` where ``sample.two_stage`` is set, else
+    ``Sampler`` (ccsd_tpu/sampling/sampler.py:474-478)."""
+    if config.sample.get("two_stage"):
+        from ccsd_tpu_torch.sampling.two_stage_sampler import TwoStageSampler
+
+        return TwoStageSampler(config, *args, **kwargs)
+    return Sampler(config, *args, **kwargs)

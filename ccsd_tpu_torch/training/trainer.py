@@ -1,9 +1,10 @@
 """Joint training of the score networks: ScoreNetworkX and ScoreNetworkA
 in graph mode, ScoreNetworkX, ScoreNetworkA_CC and ScoreNetworkF in CC mode.
 
-Port of ccsd_tpu/training/trainer.py:55-445 on one device, without the
-mesh, the two-stage trainer, ``train_scanned``, ``remat``, ``profile_dir``,
-the wandb tracker and the learning-curve plot.  Per batch: every network's
+Port of ccsd_tpu/training/trainer.py:55-455 on one device, without the
+mesh, ``train_scanned``, ``remat``, ``profile_dir``, the wandb tracker and
+the learning-curve plot; ``get_trainer_from_config`` hands a
+``train.two_stage`` config to ``training/two_stage_trainer.py``.  Per batch: every network's
 DSM loss, one backward of their sum (each loss reaches only its own
 network), then per network the optimizer
 (``training/optim.py``) and the EMA (``training/ema.py``).  Per epoch: the
@@ -239,3 +240,13 @@ class Trainer:
         self.test_loader.rng.bit_generator.state = rng["test_order"]
         self.generator.set_state(rng["noise"])
         self.logger.log(f"Resumed training state from {path} (epoch {self.epoch})")
+
+
+def get_trainer_from_config(config, **kwargs):
+    """``TwoStageTrainer`` where ``train.two_stage`` is set, else
+    ``Trainer`` (ccsd_tpu/training/trainer.py:448-455)."""
+    if config.train.get("two_stage"):
+        from ccsd_tpu_torch.training.two_stage_trainer import TwoStageTrainer
+
+        return TwoStageTrainer(config, **kwargs)
+    return Trainer(config, **kwargs)

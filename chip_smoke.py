@@ -108,6 +108,24 @@ Phases, each printing one line of its own results:
               and cells, finite graph and CC MMDs, cells per CC, steps/s
               and peak memory; the config at its default score dtype
               (bf16, not ported) must raise.
+   ts_models -- the two-stage model's ScoreNetworkF (community_small_CC_
+              two_stage) in its slab form over per-sample universes
+              bridged from TS_NET_B community_small_CC graphs, on the card
+              against a float64 CPU copy (the bound as cc_models'), with no
+              hand kernel launched.
+   ts_train -- ``TwoStageTrainer`` at full width (one full-batch step of
+              the 80 training CCs an epoch) for TS_TRAIN_EPOCHS epochs:
+              three finite, falling losses, exact launches an epoch, train
+              steps/s, K_max and peak memory.
+   ts_sample -- that checkpoint through ``TwoStageSampler`` by the JAX
+              protocol (one round of 128, all kept; 1000 Euler + Langevin
+              steps in each stage) on both graph paths: exact launches
+              (stage 2 launches none), rank-2 entries only in valid slots
+              and on rows of present nodes (with the count of those on
+              edges absent from the generated adjacency), decoded cells on
+              present nodes, finite graph and CC MMDs; prints each stage's
+              steps/s, K_max, cells per CC, peak memory and stage 2's
+              margin to overflow (its steps while finite, its largest |F|).
 7. timing  -- CUDA-event times of each kernel and its plain version at the
               path's shapes and layouts (device time from a CUDA-graph
               replay, and the time of an eager host loop), beside the
@@ -211,6 +229,13 @@ CC_F32_FACTOR = 4.0
 # its training run, cut from the config's 5000 epochs (one train batch of
 # 80 and one test batch of 20 an epoch)
 CC_TRAIN_EPOCHS = 200
+# the two-stage model (community_small_CC_two_stage): its F network over
+# universes bridged from TS_NET_B graphs against float64 (bound as
+# cc_models'), and its training run, cut from the config's 3000 epochs (one
+# full-batch step of the 80 training CCs an epoch, no test loss)
+TS_CONFIG = "community_small_CC_two_stage"
+TS_NET_B = 16
+TS_TRAIN_EPOCHS = 100
 
 
 class PhaseError(RuntimeError):
@@ -1635,7 +1660,8 @@ def phase_cc_models(dev):
             ("ScoreNetworkA_CC unfused", "adj", defs["adj"], {"gmh_attention": L}),
             ("ScoreNetworkA_CC fused", "adj", with_fused(defs)["adj"],
              {"channel_agg": L, "gmh_scores": L}),
-            ("ScoreNetworkF", "rank2", with_fused(defs)["rank2"], {})):
+            ("ScoreNetworkF unfused", "rank2", defs["rank2"], {}),
+            ("ScoreNetworkF fused", "rank2", with_fused(defs)["rank2"], {})):
         model = load_model(d).eval()
         model.load_state_dict(base[net].state_dict())
         card = copy.deepcopy(model).to(dev)
@@ -1800,6 +1826,192 @@ def phase_cc_sample(ckpt):
             peak_memory_gib=f"{peak / 2**30:.3f}", card=repr(smi_name_power()),
             launches=json.dumps(launches))
         out[f"{CC_CONFIG} sample {'default' if fused else 'unfused'}"] = launches
+    return out
+
+
+# ------------------------------------------------------------- two-stage --
+
+def phase_ts_models(dev):
+    """The two-stage F network (seeded weights) over per-sample universes
+    bridged from TS_NET_B community_small_CC graphs, through the slab form,
+    on the card against a float64 CPU copy: no hand kernel launches."""
+    import copy
+
+    import numpy as np
+    import torch
+    from ccsd_tpu_torch.data.loader import generated_adjs
+    from ccsd_tpu_torch.diffusion.two_stage import dynamic_cells_from_adjs, incidence_from_dynamic
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.models.registry import load_model, load_model_params
+    from ccsd_tpu_torch.ops.cells import get_spec
+    from ccsd_tpu_torch.ops.masks import mask_rank2_dynamic
+    from ccsd_tpu_torch.utils.config import get_config
+
+    c = get_config(TS_CONFIG, seed=0, folder=HERE)
+    d = c.data
+    N = int(d.max_node_num)
+    spec = get_spec(N, int(d.d_min), int(d.d_max))
+    adjs = generated_adjs(CC_CONFIG, 6, N)[:TS_NET_B]
+    dyn = dynamic_cells_from_adjs(adjs, int(d.d_min), int(d.d_max), None,
+                                  lifting_procedure=d.lifting_procedure, path_length=int(d.d_max))
+    flags = torch.from_numpy((adjs.sum(-1) > 0).astype(np.float32))
+    rng = np.random.default_rng(6)
+    clean = incidence_from_dynamic(torch.from_numpy(adjs), spec, dyn)
+    rank2 = mask_rank2_dynamic(
+        clean + 0.3 * torch.from_numpy(rng.standard_normal(clean.shape).astype(np.float32)),
+        spec, dyn.member, dyn.valid, flags)
+    model = load_model(load_model_params(c, is_cc=True)[2],
+                       generator=torch.Generator().manual_seed(4)).eval()
+    card = copy.deepcopy(model).to(dev)
+    ddyn = dyn.to(dev)
+    reset_launches()
+    with torch.no_grad():
+        got = card(None, None, rank2.to(dev), flags=flags.to(dev),
+                   dyn=(ddyn.member, ddyn.valid))
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in LAUNCHES.items() if v}
+        cpu32 = model(None, None, rank2, flags=flags, dyn=(dyn.member, dyn.valid)).double()
+        ref = model.double()(None, None, rank2.double(), flags=flags.double(),
+                             dyn=(dyn.member.double(), dyn.valid.double()))
+    check(not launched, f"{TS_CONFIG} ScoreNetworkF launched {launched}")
+    cpu_err = (cpu32 - ref).abs().max().item()
+    tol = dict(MODEL_TOL, atol=max(MODEL_TOL["atol"], CC_F32_FACTOR * cpu_err))
+    abs_err, rel_err, ok = compare(got.cpu().double(), ref, tol)
+    say("ts_models", model=f"{TS_CONFIG} ScoreNetworkF (dynamic universe)",
+        shape="x".join(map(str, got.shape)), k_max=dyn.k_max,
+        valid_slots=int(dyn.valid.sum()), max_abs_err=f"{abs_err:.3e}",
+        max_rel_err=f"{rel_err:.3e}", max_abs_ref=f"{ref.abs().max().item():.3e}",
+        cpu_f32_max_abs_err=f"{cpu_err:.3e}", tol=json.dumps(tol), ok=ok)
+    check(ok, f"{TS_CONFIG} ScoreNetworkF on the card disagrees with the CPU copy")
+
+
+def ts_train_config(folder, name, epochs):
+    return train_config(folder, name, epochs, data=TS_CONFIG)
+
+
+def phase_ts_train():
+    """``TwoStageTrainer`` at full width for TS_TRAIN_EPOCHS epochs: three
+    finite, falling losses and exact launches an epoch; returns (launches,
+    checkpoint name)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.training.trainer import get_trainer_from_config
+    from ccsd_tpu_torch.utils.config import get_config
+
+    folder = os.path.join(HERE, "build", "smoke_ts")
+    shutil.rmtree(folder, ignore_errors=True)
+    config = ts_train_config(folder, "smoke", TS_TRAIN_EPOCHS)
+    published = int(get_config(TS_CONFIG, seed=0, folder=HERE).train.num_epochs)
+    trainer = get_trainer_from_config(config)
+    check(type(trainer).__name__ == "TwoStageTrainer" and trainer.device.type == "cuda",
+          f"{TS_CONFIG} trains with {type(trainer).__name__} on {trainer.device}")
+    depth, L = int(config.model.depth), int(config.model.num_layers)
+    per_epoch = {"gcn_aggregate": depth, "gmh_attention": L,
+                 "gcn_aggregate_bwd": depth, "gmh_attention_bwd": L}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    name = trainer.train()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    expect = {k: TS_TRAIN_EPOCHS * per_epoch.get(k, 0) for k in LAUNCHES}
+    check(launches == expect, f"{TS_CONFIG} train: launches {launches}, expected exactly "
+                              f"{expect}")
+    hist = np.asarray(trainer.history["train"])
+    first, end = hist[0], hist[-10:].mean(axis=0)
+    say("ts_train", epochs=trainer.epoch, cut=f"{TS_TRAIN_EPOCHS} of {published}",
+        steps=trainer.step, train_ccs=len(trainer.train_ccs), k_max=trainer.k_max,
+        seconds=f"{seconds:.3f}",
+        **{f"loss_{n}": f"{first[i]:.4f}->{end[i]:.4f}" for i, n in enumerate(trainer.names)},
+        launches_per_epoch=json.dumps({k: v // TS_TRAIN_EPOCHS for k, v in launches.items()
+                                       if v}),
+        peak_memory_gib=f"{peak / 2**30:.3f}")
+    say("train_steps_per_s", config=TS_CONFIG, steps_per_s=f"{trainer.step / seconds:.2f}",
+        card=repr(smi_name_power()))
+    check(np.isfinite(hist).all(), "non-finite two-stage training losses")
+    check(bool((end < first).all()),
+          f"two-stage losses did not fall: epoch 1 {first}, last ten {end}")
+    return launches, f"{name}_final"
+
+
+def phase_ts_sample(ckpt):
+    """The ts_train checkpoint through ``TwoStageSampler`` by the JAX
+    protocol (20 test CCs: one round of 128, every CC kept; 1000 Euler +
+    Langevin steps in each stage) on both graph paths: exact launches (the
+    graph path's; stage 2 launches none), rank-2 entries in valid slots on
+    rows of present nodes only, decoded cells on present nodes, finite
+    graph and CC MMDs; prints stage 2's margin to overflow (its steps
+    while finite, its largest |F|); returns {path: launches}."""
+    import numpy as np
+    import torch
+    from ccsd_tpu_torch.data.loader import generated_adjs, split
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.ops.cells import get_spec
+    from ccsd_tpu_torch.sampling.sampler import get_sampler_from_config
+
+    folder = os.path.join(HERE, "build", "smoke_ts")
+    out = {}
+    for fused in (True, False):
+        path = "default (sample.fused on)" if fused else "sample.fused: false"
+        cfg = ts_train_config(folder, "smoke", TS_TRAIN_EPOCHS)
+        cfg.ckpt, cfg.sample.fused = ckpt, fused
+        d = cfg.data
+        N = int(d.max_node_num)
+        spec = get_spec(N, int(d.d_min), int(d.d_max))
+        adjs = generated_adjs(CC_CONFIG, int(cfg.get("seed", 42)), N)
+        tr, te = split(len(adjs), float(d.test_split))
+        sampler = get_sampler_from_config(cfg, adjs[tr], adjs[te])
+        check(type(sampler).__name__ == "TwoStageSampler",
+              f"{TS_CONFIG} samples with {type(sampler).__name__}")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        res = sampler.sample()
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        expect = sample_launches(cfg, fused)
+        check(launches == expect, f"{TS_CONFIG} {path}: launches {launches}, expected exactly "
+                                  f"{expect}")
+        B = int(d.batch_size)
+        adj, flags = res["adj"], res["flags"]
+        check(res["device"].startswith("cuda") and res["finite"],
+              f"{TS_CONFIG} {path}: device {res['device']}, finite {res['finite']}")
+        check(len(res["ccs"]) == B and adj.shape == (B, N, N),
+              f"{TS_CONFIG} {path}: {len(res['ccs'])} CCs, adj {adj.shape}")
+        check(set(np.unique(adj)) <= {0.0, 1.0} and np.array_equal(adj, adj.transpose(0, 2, 1))
+              and not adj[:, np.arange(N), np.arange(N)].any(),
+              f"{TS_CONFIG} {path}: adjacency not 0/1, symmetric, zero-diagonal")
+        (rank2,), (valid,) = res["rank2_rounds"], res["valid_rounds"]
+        live_e = flags[:, spec.edge_u] * flags[:, spec.edge_v]
+        edge_in_adj = adj[:, spec.edge_u, spec.edge_v]
+        nz = rank2 != 0
+        check(not nz.transpose(0, 2, 1)[valid == 0].any() and not nz[live_e == 0].any(),
+              f"{TS_CONFIG} {path}: rank-2 entries outside valid slots or on absent nodes")
+        off_adj = int(nz[edge_in_adj == 0].sum())
+        for b, cc in enumerate(res["ccs"]):
+            for cell in cc.cells.hyperedge_dict.get(2, {}):
+                check(all(flags[b, n] for n in cell),
+                      f"{TS_CONFIG} {path}: CC {b} has cell {sorted(cell)} on an absent node")
+        mmds = {**res["mmd"], **res["cc_mmd"]}
+        check(len(mmds) == 8 and all(math.isfinite(v) for v in mmds.values()),
+              f"{TS_CONFIG} {path}: MMDs {mmds}")
+        say("ts_sample", path=repr(path), weights=repr(res["weights"]), ccs=len(res["ccs"]),
+            test_ccs=len(adjs[te]), steps=int(cfg.sde.adj.num_scales), k_max=res["k_max"],
+            stage1_steps_per_s=f"{res['stage1_steps_per_s']:.2f}",
+            stage2_steps_per_s=f"{res['stage2_steps_per_s']:.2f}",
+            stage_seconds=json.dumps({k: round(v, 3) for k, v in res["stage_seconds"].items()}),
+            mean_edges=f"{adj.sum((1, 2)).mean() / 2:.3f}",
+            stage2_finite_steps=res["stage2_finite_steps"],
+            stage2_max_abs=f"{res['stage2_max_abs']:.6g}",
+            cells_per_cc=f"{res['cells_per_cc']:.3f}", rank2_nonzeros=int(nz.sum()),
+            rank2_nonzeros_off_adj=off_adj, mmd=json.dumps(res["mmd"]),
+            cc_mmd=json.dumps(res["cc_mmd"]), eval_seconds=f"{res['eval_seconds']:.3f}",
+            peak_memory_gib=f"{peak / 2**30:.3f}", card=repr(smi_name_power()),
+            launches=json.dumps(launches))
+        out[f"{TS_CONFIG} sample {'default' if fused else 'unfused'}"] = launches
     return out
 
 
@@ -2125,6 +2337,9 @@ def main(argv) -> int:
         runs.update(timed("cc_models", phase_cc_models, dev))
         runs[f"{CC_CONFIG} train"], cc_ckpt = timed("cc_train", phase_cc_train)
         runs.update(timed("cc_sample", phase_cc_sample, cc_ckpt))
+        timed("ts_models", phase_ts_models, dev)
+        runs[f"{TS_CONFIG} train"], ts_ckpt = timed("ts_train", phase_ts_train)
+        runs.update(timed("ts_sample", phase_ts_sample, ts_ckpt))
         from ccsd_tpu_torch.kernels import LAUNCHES
 
         launches = {k: {p: run.get(k, 0) for p, run in runs.items()} for k in LAUNCHES}

@@ -1,18 +1,27 @@
 """End-to-end quality run of the port: train -> sample -> MMD, on
-community_small, grid_small or community_small_CC.
+community_small, grid_small, community_small_CC, or the two-stage CC
+model (community_small_CC_two_stage, grid_small_CC_two_stage).
 
 Trains the config's networks (ScoreNetworkX and ScoreNetworkA; for
 community_small_CC also ScoreNetworkA_CC and ScoreNetworkF on the graphs'
-lift) with ``config/<config>.yaml`` as published (5000 epochs) on the JAX
-package's graphs of that dataset (``generated_adjs(config, seed)``: 100
-graphs, 80 train, 20 test), then
+lift; the two-stage configs the graph networks and the dynamic-universe F
+through ``TwoStageTrainer``) with ``config/<config>.yaml`` as published
+(5000 epochs; community_small_CC_two_stage 3000) on the JAX package's
+graphs of that dataset (``generated_adjs(data, seed)``: 100 graphs, 80
+train, 20 test), then
 samples the final checkpoint by the JAX sampler's protocol (20 graphs, 1000
 steps; community_small: one round of 128, Euler + Langevin, the raw
 weights; grid_small: three rounds of 8, Reverse + Langevin, the EMA
 weights, as each config says) at each sampling seed, on the default (fused
 fast) path and with ``sample.fused: false``, and scores each run against
 the test split: the four graph MMDs and the four lifted-CC MMDs (CC mode:
-the four CC MMDs of the generated complexes, and their cells per CC).
+the four CC MMDs of the generated complexes, and their cells per CC; the
+two-stage configs sample through ``TwoStageSampler``, which keeps every
+generated CC, and print each stage's steps/s, each round's K_max and
+stage 2's margin to overflow: the steps its F stayed finite and its
+largest finite |F|; a run whose F overflowed has its CC MMDs and cells
+per CC not measured, since ``quantize`` maps NaN to 1 and every candidate
+would become a cell).
 Every run samples at ``sample.score_dtype: f32``: the JAX package's f32
 rows are the bar, and its bf16 default for community_small_CC is not
 ported.  Prints
@@ -20,8 +29,9 @@ one JSON line per run, the number of graphs in which the two paths'
 samples differ at each seed, then per path the mean, min and max of each
 MMD over the seeds, the train split scored against the test split (the
 data's own MMD floor), and the check of each path's mean graph MMDs
-against 1.5 times the worst of the JAX package's rows for the config
-(``BASELINE.md``); exits 1 if a mean misses its bound.  The bound holds
+(and, for the two-stage configs, the Hodge MMD) against 1.5 times the
+worst of the JAX package's rows for the config (``BASELINE.md``); exits 1
+if a mean misses its bound or was not measured.  The bound holds
 only for a run of the published epochs: a shorter one (``--epochs``, or
 ``--train-seconds``, which trains in chunks of 500 epochs and stops before
 the next chunk, at the last chunk's pace, would end past that many seconds
@@ -36,14 +46,15 @@ checkpoint (a port ``.pth`` or a JAX ``.ckpt.pkl`` under the same
 directory, so the port's sampler can score the JAX package's networks).  Each scored run also prints the degree histogram
 of its graphs' non-isolated nodes beside the test split's.
 
-    python3 scripts/port_quality_run.py [--config community_small|grid_small] \
+    python3 scripts/port_quality_run.py [--config community_small|grid_small|...] \
         [--epochs 5000] [--train-seconds S] [--eval-at 500] [--resume NAME | --ckpt NAME] \
         [--seed 42] [--sample-seeds 12 42 1234] [--folder build/quality_run] \
-        [--device cuda]
+        [--device cuda] [--matmul-precision highest|high]
 
 Runs on CUDA (the kernels) unless ``--device cpu`` (the plain path, a
 rehearsal at a few epochs: the 1000 steps take about 2 minutes a run
-there).  Checkpoints and logs go under ``--folder``.
+there); ``--matmul-precision high`` lets cuBLAS take TF32 for f32 matmuls
+in training and sampling, and every printed ``card`` says so.  Checkpoints and logs go under ``--folder``.
 Imports torch, numpy and ccsd_tpu_torch only.
 """
 
@@ -60,10 +71,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 from ccsd_tpu_torch.data.loader import generated_adjs, split  # noqa: E402
-from ccsd_tpu_torch.sampling.sampler import Sampler  # noqa: E402
-from ccsd_tpu_torch.training.trainer import Trainer  # noqa: E402
+from ccsd_tpu_torch.sampling.sampler import Sampler, get_sampler_from_config  # noqa: E402
+from ccsd_tpu_torch.training.trainer import get_trainer_from_config  # noqa: E402
 from ccsd_tpu_torch.utils.config import AttrDict, get_config  # noqa: E402
 
 # the JAX package's rows (degree, cluster, orbit, spectral; BASELINE.md),
@@ -96,6 +108,19 @@ JAX_ROWS = {
         "reference_checkpoint_fused": {"degree": 0.095, "cluster": 0.063, "orbit": 0.026,
                                        "spectral": 0.226},
     },
+    # the two-stage model trained from scratch, with its Hodge MMD
+    # ("Two-stage open-universe model", BASELINE.md:73-80; grid_small_CC's
+    # one checkpoint at sampling seeds 12 and 7, :106-117)
+    "community_small_CC_two_stage": {
+        "jax_two_stage": {"degree": 0.071, "cluster": 0.045, "orbit": 0.026,
+                          "spectral": 0.183, "hodge_laplacian_spectrum": 0.091},
+    },
+    "grid_small_CC_two_stage": {
+        "jax_two_stage_seed_12": {"degree": 0.062, "cluster": 0.014, "orbit": 0.017,
+                                  "spectral": 0.172, "hodge_laplacian_spectrum": 0.090},
+        "jax_two_stage_seed_7": {"degree": 0.015, "cluster": 0.025, "orbit": 0.015,
+                                 "spectral": 0.174, "hodge_laplacian_spectrum": 0.109},
+    },
 }
 BOUND_FACTOR = 1.5
 CHUNK_EPOCHS = 500  # --train-seconds trains in chunks of this many epochs
@@ -103,10 +128,9 @@ PATHS = {"default": True, "sample.fused: false": False}
 
 
 def bounds(name: str) -> dict:
-    """1.5 times the worst of the config's JAX rows, per graph MMD."""
-    rows = JAX_ROWS[name].values()
-    return {k: BOUND_FACTOR * max(r[k] for r in rows)
-            for k in ("degree", "cluster", "orbit", "spectral")}
+    """1.5 times the worst of the config's JAX rows, per MMD they give."""
+    rows = list(JAX_ROWS[name].values())
+    return {k: BOUND_FACTOR * max(r[k] for r in rows) for k in rows[0]}
 
 
 def card() -> str:
@@ -131,11 +155,13 @@ def degree_hist(adjs: np.ndarray) -> list:
     return (counts / max(1, counts.sum())).round(6).tolist()
 
 
-def score(config, name, train, test, sample_seeds, device, epochs, published, where,
-          bounds) -> bool:
+def score(config, config_name, name, train, test, sample_seeds, device, epochs, published,
+          where, bounds) -> bool:
     """Sample the checkpoint ``name`` at each seed on both paths, print a
     line per run, the paths compared and a summary per path; returns
-    whether the means are inside the bounds (or the run is a cut)."""
+    whether every bounded mean was measured and is inside its bound (or the
+    run is a cut).  A two-stage run whose F overflowed has its CC MMDs and
+    cells per CC not measured."""
     held = epochs is not None and epochs >= published
     runs = {p: [] for p in PATHS}
     graphs = {}  # (path, seed) -> the kept adjacencies
@@ -143,11 +169,22 @@ def score(config, name, train, test, sample_seeds, device, epochs, published, wh
         for s in sample_seeds:
             cfg = AttrDict(config.to_dict())
             cfg.ckpt, cfg.sample.seed, cfg.sample.fused = name, s, fused
-            res = Sampler(cfg, train, test, device=device, log=False).sample()
-            if not res["finite"]:
+            res = get_sampler_from_config(cfg, train, test, device=device, log=False).sample()
+            stages = res.get("finite_stages", {"stage1": res["finite"]})
+            if not stages["stage1"]:
                 raise RuntimeError(f"{path}, seed {s}: non-finite sampler output")
-            cells = {"cells_per_cc": res["cells_per_cc"]} if "cells_per_cc" in res else {}
-            runs[path].append({**res["mmd"], **res["cc_mmd"], **cells})
+            cells = {k: res[k] for k in ("cells_per_cc", "k_max", "stage1_steps_per_s",
+                                         "stage2_steps_per_s", "finite_stages",
+                                         "stage2_finite_steps", "stage2_max_abs") if k in res}
+            if not stages.get("stage2", True):
+                # quantize maps an overflowed F's NaN to 1, as in the JAX
+                # package: every candidate becomes a cell, so the CC MMDs
+                # and cells per CC would score the graphs' own lift
+                res["cc_mmd"] = {k: None for k in res["cc_mmd"]}
+                cells["cells_per_cc"] = None
+            row = {**res["mmd"], **res["cc_mmd"],
+                   **{k: v for k, v in cells.items() if k not in ("k_max", "finite_stages")}}
+            runs[path].append(row)
             graphs[path, s] = res["adj"]
             emit(run="sample", path=path, sample_seed=s, epochs=epochs,
                  weights=res["weights"], graphs=int(res["adj"].shape[0]),
@@ -163,14 +200,17 @@ def score(config, name, train, test, sample_seeds, device, epochs, published, wh
         s: int((graphs[a, s] != graphs[b, s]).any((1, 2)).sum()) for s in sample_seeds})
     ok = True
     for path, rows in runs.items():
-        keys = list(rows[0])
-        vals = {k: [r[k] for r in rows] for k in keys}
+        # an MMD that any seed could not measure has no mean
+        vals = {k: [r[k] for r in rows] for k in rows[0]
+                if all(r[k] is not None for r in rows)}
         mean = {k: float(np.mean(v)) for k, v in vals.items()}
-        within = {k: mean[k] <= bounds[k] for k in bounds}
-        ok &= all(within.values()) or not held
-        emit(run="summary", config=str(config.data.data), path=path,
+        within = {k: mean[k] <= bounds[k] for k in bounds if k in mean}
+        not_measured = sorted(set(rows[0]) - set(vals))
+        ok &= (all(within.values()) and len(within) == len(bounds)) or not held
+        emit(run="summary", config=config_name, path=path,
              sample_seeds=sample_seeds, mean=mean, min={k: min(v) for k, v in vals.items()},
-             max={k: max(v) for k, v in vals.items()}, bounds=bounds, within_bounds=within,
+             max={k: max(v) for k, v in vals.items()}, not_measured=not_measured,
+             bounds=bounds, within_bounds=within,
              held_to_bounds=held, epochs=epochs, published_epochs=published)
     return ok
 
@@ -191,9 +231,15 @@ def main(argv=None) -> int:
     ap.add_argument("--sample-seeds", type=int, nargs="+", default=[12, 42, 1234])
     ap.add_argument("--folder", default=os.path.join(ROOT, "build", "quality_run"))
     ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--matmul-precision", default="highest", choices=["highest", "high"],
+                    help="high: TF32 in the cuBLAS matmuls on the card (the hand kernels "
+                         "stay f32), nearer the TPU's default f32 matmul precision")
     args = ap.parse_args(argv)
     on_cpu = args.device == "cpu"
     where = "cpu (plain path)" if on_cpu else card()
+    torch.set_float32_matmul_precision(args.matmul_precision)
+    if args.matmul_precision != "highest":
+        where += f", matmul precision {args.matmul_precision}"
 
     config = AttrDict(get_config(args.config, args.seed, ROOT).to_dict())
     config.folder = args.folder
@@ -204,16 +250,16 @@ def main(argv=None) -> int:
     if args.epochs is not None:
         config.train.num_epochs = config.train.save_interval = args.epochs
     BOUNDS = bounds(args.config)
-    adjs = generated_adjs(args.config, args.seed, int(config.data.max_node_num))
+    adjs = generated_adjs(str(config.data.data), args.seed, int(config.data.max_node_num))
     tr, te = split(len(adjs), float(config.data.test_split))
     train, test = adjs[tr], adjs[te]
     emit(run="test_split", graphs=len(test), degree_hist=degree_hist(test))
 
     if args.ckpt:
-        score(config, args.ckpt, train, test, args.sample_seeds, args.device,
+        score(config, args.config, args.ckpt, train, test, args.sample_seeds, args.device,
               None, published, where, BOUNDS)  # its epochs are not known here
         return 0
-    trainer = Trainer(config, device=args.device, adjs=adjs)
+    trainer = get_trainer_from_config(config, device=args.device, adjs=adjs)
     if args.resume:
         trainer.load_checkpoint(args.resume)
     t0 = time.perf_counter()
@@ -233,8 +279,8 @@ def main(argv=None) -> int:
             break
         emit(run="train", config=args.config, epochs=trainer.epoch, steps=trainer.step,
              seconds=time.perf_counter() - t0, train_steps_per_s=trainer.steps_per_s)
-        score(config, f"{name}_final", train, test, args.sample_seeds, args.device,
-              trainer.epoch, published, where, BOUNDS)
+        score(config, args.config, f"{name}_final", train, test, args.sample_seeds,
+              args.device, trainer.epoch, published, where, BOUNDS)
     if trainer.epoch < target:
         emit(run="train_cut", epochs=trainer.epoch, published_epochs=published,
              train_seconds=args.train_seconds, resume=f"{name}_final",
@@ -247,8 +293,8 @@ def main(argv=None) -> int:
          seconds=time.perf_counter() - t0, train_steps_per_s=trainer.steps_per_s,
          **{f"loss_{n}": [hist[0][i], hist[-1][i]] for i, n in enumerate(trainer.names)},
          ckpt=trainer.checkpoint_path(f"{name}_final"), card=where)
-    ok = score(config, f"{name}_final", train, test, args.sample_seeds, args.device,
-               trainer.epoch, published, where, BOUNDS)
+    ok = score(config, args.config, f"{name}_final", train, test, args.sample_seeds,
+               args.device, trainer.epoch, published, where, BOUNDS)
 
     floor = Sampler(config, train, test, device=args.device, log=False).evaluate(test, train)
     emit(run="train_vs_test", graphs=[len(train), len(test)], mmd=floor["mmd"],

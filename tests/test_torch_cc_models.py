@@ -156,9 +156,8 @@ def test_load_model_params_match_jax():
     jfused = jwith_fused(dict(zip(("x", "adj", "rank2"), jdefs)))
     assert fused["adj"] == jfused["adj"]  # fused, f32 scores, concat final layer
     assert "scores_impl" not in fused["adj"] and "final_impl" not in fused["adj"]
-    assert "fused" not in fused["rank2"] and jfused["rank2"]["fused"] is True
-    with pytest.raises(NotImplementedError, match="slab-unrolled"):
-        load_model(dict(defs[2], fused=True))
+    assert fused["rank2"] == jfused["rank2"] and fused["rank2"]["fused"] is True
+    assert load_model(fused["rank2"]).fused
 
 
 def _networks(name, fused, num_layers_h=1, seed=0):

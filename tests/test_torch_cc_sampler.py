@@ -243,8 +243,8 @@ def tame_rank2_head(monkeypatch):
     inf within two steps, whose NaN quantizes to 1 everywhere."""
     load = Sampler.load_models
 
-    def tamed(self):
-        configt, models, source = load(self)
+    def tamed(self, *args):
+        configt, models, source = load(self, *args)
         if "rank2" in models:
             with torch.no_grad():
                 models["rank2"].final.linear.weight.mul_(0.01)

@@ -86,11 +86,14 @@ def test_grid_equals_gen_graph_list(name, seed, global_np_random):
 
 
 def test_generated_datasets_are_the_jax_recipes():
-    assert set(GENERATED) == {"community_small", "community_small_CC", "grid_small", "grid"}
+    assert set(GENERATED) == {"community_small", "community_small_CC", "grid_small",
+                              "grid_small_CC", "grid"}
     np.testing.assert_array_equal(generated_adjs("community_small", 7, 20),
                                   community_small_adjs(100, 7, 20))
     # the CC dataset's graphs are community_small's (their lift: test_torch_cc_ops.py)
     np.testing.assert_array_equal(generated_adjs("community_small_CC", 7, 20),
                                   community_small_adjs(100, 7, 20))
+    np.testing.assert_array_equal(generated_adjs("grid_small_CC", 7, 49),
+                                  generated_adjs("grid_small", 7, 49))
     with pytest.raises(ValueError, match="max_node_num=20"):
         grid_adjs(1, 0, 20, [5], [5])

@@ -185,9 +185,9 @@ def test_with_fused_defs_match_jax(enable, fast):
     # setdefault: a definition that names its lowering keeps it
     named = {"adj": {**pdefs["adj"], "scores_impl": "mulreduce"}}
     assert with_fused(named, enable, fast) == jwith_fused(named, enable, fast)
-    # ScoreNetworkA_CC joined with CC mode; ScoreNetworkF's fused form is
-    # not ported, so the port leaves it unfused where the JAX one fuses it
-    assert FUSED_CAPABLE == {"ScoreNetworkA", "ScoreNetworkA_CC"}
+    # ScoreNetworkA_CC joined with CC mode, ScoreNetworkF's slab-unrolled
+    # form with the two-stage model
+    assert FUSED_CAPABLE == {"ScoreNetworkA", "ScoreNetworkA_CC", "ScoreNetworkF"}
 
 
 def test_model_fused_in_a_training_config_matches_jax():

@@ -48,7 +48,10 @@ def test_import_guard_covers_every_kernel_module():
             "ccsd_tpu_torch/eval/orbits/__init__.py", "ccsd_tpu_torch/data/cc_codec.py",
             "ccsd_tpu_torch/ops/hodge.py", "ccsd_tpu_torch/models/hodge_nn.py",
             "ccsd_tpu_torch/models/score_a_cc.py", "ccsd_tpu_torch/models/score_f.py",
-            "scripts/port_quality_run.py"} <= rel
+            "scripts/port_quality_run.py",
+            "ccsd_tpu_torch/diffusion/two_stage.py",
+            "ccsd_tpu_torch/training/two_stage_trainer.py",
+            "ccsd_tpu_torch/sampling/two_stage_sampler.py"} <= rel
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -73,7 +76,9 @@ def test_every_module_imports_with_jax_blocked():
             "ccsd_tpu_torch.eval.graphs", "ccsd_tpu_torch.eval.stats",
             "ccsd_tpu_torch.eval.orbits", "ccsd_tpu_torch.eval.cc_stats",
             "ccsd_tpu_torch.data.complex", "ccsd_tpu_torch.data.lifts",
-            "ccsd_tpu_torch.data.cc_codec", "ccsd_tpu_torch.ops.cells"} <= set(mods)
+            "ccsd_tpu_torch.data.cc_codec", "ccsd_tpu_torch.ops.cells",
+            "ccsd_tpu_torch.diffusion.two_stage", "ccsd_tpu_torch.training.two_stage_trainer",
+            "ccsd_tpu_torch.sampling.two_stage_sampler"} <= set(mods)
     script = (
         "import importlib, sys\n"
         f"for m in {FORBIDDEN!r}:\n    sys.modules[m] = None\n"
