@@ -354,6 +354,65 @@ __device__ __forceinline__ void adj_grad_rows(const float* __restrict__ gN, int 
   }
 }
 
+// ------------------------------------------------ tiled designs (N > 64)
+//
+// Above N = 64 a block holds one row tile R = [r0, r0 + nr) of kTile rows
+// of a graph (and channel) and reads d of every row from gcn_degrees.cu.
+// Its products over all N rows (norm^T times a matrix, P1 below) run over
+// chunks of kTile rows, double-buffered (chunk_loop).  dA of the tile's
+// rows needs each row's degree term, a sum over all columns; with
+// gN = Lf Rf^T (gcn: G Y^T; gmh: gNX X^T) it regroups into products of the
+// tile's rows alone:
+//   sum_m gN[n, m] A'[n, m] d_m = Lf[n] . P1[n],  P1 = A'[R, :] (d o Rf)
+//   sum_m gN[m, n] A'[m, n] d_m = Rf[n] . U[n],   U  = A'[:, R]^T (d o Lf)
+// so no sum crosses a row tile, and dA[n, m] = d_n d_m Lf[n] . Rf[m] + dr[n].
+
+constexpr int kTile = gmh::kTile;  // rows of a row tile and of a chunk
+
+// s = sum_m A'[n, m] of one row (row[m * sm], the diagonal `loop` where
+// add_loop), by one warp, in gcn_degrees.cu's order (lanes over m, then a
+// xor butterfly), so that it is the sum behind that launch's d[n]; every
+// lane gets it.
+__device__ __forceinline__ float warp_row_sum(const float* row, long long sm, int N, int n,
+                                              bool add_loop, float loop) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.f;
+  for (int m = lane; m < N; m += 32) s += (add_loop && m == n) ? loop : row[m * sm];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// dd/ds at the row sum s (the top of this file), as warp_degrees takes it.
+__device__ __forceinline__ float degree_slope(float s) {
+  const float dn = 1.0f / sqrtf(fmaxf(s, 1.0f));
+  return s > 1.0f ? -0.5f * dn * dn * dn : (s == 1.0f ? -0.25f : 0.0f);
+}
+
+// The double-buffered loop over the cdiv(N, kTile) chunks of kTile rows:
+// load(k, buf) issues chunk k's copies into buffer buf (0 or 1), not
+// committed; body(k, buf) runs once every copy of chunk k, and every copy
+// committed before the loop, has landed.  All threads call it; it ends
+// with a barrier.
+template <typename Load, typename Body>
+__device__ __forceinline__ void chunk_loop(int N, Load load, Body body) {
+  const int nk = cdiv(N, kTile);
+  load(0, 0);
+  gmh::cp_async_commit();
+  for (int k = 0; k < nk; ++k) {
+    if (k + 1 < nk) {
+      load(k + 1, (k + 1) & 1);  // buffer (k + 1) & 1 was freed by body(k - 1)
+      gmh::cp_async_commit();
+      gmh::cp_async_wait<1>();
+    } else {
+      gmh::cp_async_wait<0>();
+    }
+    __syncthreads();
+    body(k, k & 1);
+    __syncthreads();
+  }
+}
+
 // Let `kernel` take as much dynamic shared memory as the card leaves beside
 // its static shared memory (last_arrival's flag); returns those bytes, or
 // -1 where the runtime refuses (its error is then pending).

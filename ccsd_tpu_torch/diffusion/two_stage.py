@@ -38,7 +38,7 @@ from ccsd_tpu_torch.ops.masks import gen_noise_rank2_dynamic, mask_rank2_dynamic
 
 Cell = Tuple[int, ...]
 CYCLES_NOT_PORTED = ("the cycles lift needs a cycle basis (ccsd_tpu/diffusion/two_stage.py:"
-                     "85-88), which is not ported (ROADMAP.md, Queue A #11)")
+                     "85-88), which is not ported (ROADMAP.md, Queue A, the cycles lift)")
 GRAD_FLOOR = 1e-12  # the stage-2 Langevin step's floor on the score's norm
 
 
@@ -171,7 +171,7 @@ def ccs_from_two_stage(x: np.ndarray, adj_q: np.ndarray, rank2_q: np.ndarray,
     if is_molecule:
         raise NotImplementedError(
             "the molecule decoding of ccs_from_two_stage (QM9, ZINC250k) is not ported "
-            "(ROADMAP.md, Queue A #13)")
+            "(ROADMAP.md, Queue A, molecules)")
     if dyn.cell_lists is None:
         raise ValueError("the bridge must keep cell_lists")
     u, v = np.asarray(spec.edge_u), np.asarray(spec.edge_v)

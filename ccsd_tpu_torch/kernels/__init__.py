@@ -10,7 +10,8 @@ from typing import Dict
 LAUNCHES: Dict[str, int] = {"gcn_aggregate": 0, "gmh_attention": 0,
                              "channel_agg": 0, "gmh_scores": 0, "gcn_degrees": 0,
                              "gmh_projection": 0,
-                             "gcn_aggregate_bwd": 0, "gmh_attention_bwd": 0}
+                             "gcn_aggregate_bwd": 0, "gmh_attention_bwd": 0,
+                             "gmh_score_grad": 0}
 
 
 def reset_launches() -> None:

@@ -93,6 +93,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gcn_aggregate_bwd_smem": [_I] * 3,
         # B, N -> clusters of a launch
         "gcn_aggregate_bwd_clusters": [_I] * 2,
+        # above N = 64: x, adj, degrees, w, dL/dout, dx, dadj, partials,
+        # out_w, tickets, B, N, F_in, F_out, clusters, add_loop, loop, stream
+        "gcn_aggregate_bwd_tiled_run": [_P] * 10 + [_I] * 6 + [_F, _P],
+        # N, F_in, F_out, need_adj -> shared bytes of a block
+        "gcn_aggregate_bwd_tiled_smem": [_I] * 4,
     },
     "gmh_attention_bwd": {
         # x, adj, wq, bq, wk, bk, wv, bv, dL/dV, dL/dA, dx, dadj, partials of
@@ -105,6 +110,18 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gmh_attention_bwd_smem": [_I] * 5,
         # B -> clusters of a channel's blocks
         "gmh_attention_bwd_clusters": [_I],
+        # above N = 64: Q | K, dL/dA, gQ | gK out, B, C, N, attn_dim, heads,
+        # head_dim, strides of dL/dA (b, n, m, c), score_div, stream
+        "gmh_score_grad_run": [_P] * 3 + [_I] * 6 + [_L] * 4 + [_F, _P],
+        # attn_dim, heads -> shared bytes of a block
+        "gmh_score_grad_smem": [_I] * 2,
+        # x, adj, degrees, wq, wk, wv, gQ | gK, dL/dV, dx, dadj, partials of
+        # dx, partials of the weights, out_w, tickets, B, C, N, F_in,
+        # attn_dim, F_out, clusters, strides of adj (b, c, n, m) and of dadj
+        # (b, c, n, m), add_loop, loop, stream
+        "gmh_attention_bwd_tiled_run": [_P] * 14 + [_I] * 7 + [_L] * 8 + [_I, _F, _P],
+        # N, F_in, attn_dim, F_out, need_adj -> shared bytes of a block
+        "gmh_attention_bwd_tiled_smem": [_I] * 5,
     },
 }
 

@@ -20,19 +20,21 @@ its own) first computes d once per row for them to read.
 On a CUDA tensor that needs a gradient the wrapper runs the forward kernel
 inside a ``torch.autograd.Function`` whose backward is the kernel
 ``csrc/gcn_aggregate_bwd.cu`` (a graph's rows over a few blocks, N <= 64;
-one launch, its batch sums ordered by the tickets of ``ticket_buffer``), with
-``gcn_aggregate_bwd_plain`` beside it: the gradients of x, adj, the weight
-and the bias written out by hand (``csrc/grad_common.cuh`` gives the
-formulas).  The degree clamp follows ``jnp.clip``: at a row sum of exactly
-1 (a node with only its loop) half the gradient passes, as ``jax.grad`` of
-the reference gives, in the kernel, in the plain backward and in autograd
-of the plain forward (``torch.maximum`` splits a tie the same way).
+one launch, its batch sums ordered by the tickets of ``ticket_buffer``;
+above N = 64 a ``gcn_degrees`` launch, then the file's row-tile kernel
+over the ``gcn_bwd_plan``), with ``gcn_aggregate_bwd_plain`` beside it: the
+gradients of x, adj, the weight and the bias written out by hand
+(``csrc/grad_common.cuh`` gives the formulas).  The degree clamp follows
+``jnp.clip``: at a row sum of exactly 1 (a node with only its loop) half
+the gradient passes, as ``jax.grad`` of the reference gives, in the
+kernel, in the plain backward and in autograd of the plain forward
+(``torch.maximum`` splits a tie the same way).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -288,22 +290,66 @@ def gcn_aggregate_bwd_clusters(B: int, N: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def gcn_aggregate_bwd_smem(N: int, Fi: int, Fo: int) -> int:
-    """Shared bytes of a block of csrc/gcn_aggregate_bwd.cu, one row group
-    of a graph; raises a ``ValueError`` naming N where a block cannot hold
-    the graph."""
+def gcn_aggregate_bwd_smem(N: int, Fi: int, Fo: int, need_adj: bool = True) -> int:
+    """Shared bytes of a block of csrc/gcn_aggregate_bwd.cu: one row group
+    of a graph (N <= 64) or, above, one row tile (with dA or without), by
+    the library's own count; raises a ``ValueError`` naming N where it
+    exceeds the card's limit."""
     if N > WHOLE_GRAPH_N:
-        raise ValueError(f"gcn_aggregate_bwd: N={N} exceeds the one-block graph of the "
-                         f"backward kernel (N <= {WHOLE_GRAPH_N})")
-    nbytes = kernel_fn("gcn_aggregate_bwd", "gcn_aggregate_bwd_smem")(N, Fi, Fo)
+        nbytes = kernel_fn("gcn_aggregate_bwd", "gcn_aggregate_bwd_tiled_smem")(
+            N, Fi, Fo, int(need_adj))
+    else:
+        nbytes = kernel_fn("gcn_aggregate_bwd", "gcn_aggregate_bwd_smem")(N, Fi, Fo)
     check_smem("gcn_aggregate_bwd", nbytes, N=N, F_in=Fi, F_out=Fo)
     return nbytes
 
 
+def row_tiles(N: int) -> List[Tuple[int, int]]:
+    """(first row, rows) of each row tile of a graph in the tiled backward
+    designs (N > 64): ROW_TILE rows each, the last ragged.  The chunks of
+    their products over all rows are the same tiles."""
+    return [(r0, min(ROW_TILE, N - r0)) for r0 in range(0, N, ROW_TILE)]
+
+
+def gcn_bwd_plan(B: int, N: int, Fi: int, Fo: int) -> Dict[str, object]:
+    """The host side of the tiled ``gcn_aggregate_bwd`` (N > 64): its row
+    tiles, its clusters of MAX_CLUSTER blocks (one block a row tile of a
+    graph, the last cluster padded), and the scratch it allocates (a
+    weight partial a cluster; tickets)."""
+    tiles = row_tiles(N)
+    clusters = -(-B * len(tiles) // MAX_CLUSTER)
+    return {"tiles": tiles, "clusters": clusters, "part": (clusters, Fi * Fo + Fo),
+            "tickets": MAX_CLUSTER}
+
+
+def _gcn_aggregate_bwd_tiled(x, adj, weight, g, loop, add_loop, need_x, need_adj):
+    """N > 64: the degrees, then the row-tile kernel."""
+    B, N, Fi = x.shape
+    Fo = weight.shape[1]
+    gcn_aggregate_bwd_smem(N, Fi, Fo, need_adj)
+    plan = gcn_bwd_plan(B, N, Fi, Fo)
+    deg = gcn_degrees(adj[:, None], add_loop, loop)
+    new = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
+    dx = new((B, N, Fi)) if need_x else None
+    dadj = new((B, N, N)) if need_adj else None
+    out_w, part = new(Fi * Fo + Fo), new(plan["part"])
+    tickets = ticket_buffer(x.device, plan["tickets"])
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = kernel_fn("gcn_aggregate_bwd", "gcn_aggregate_bwd_tiled_run")(
+        x.data_ptr(), adj.data_ptr(), deg.data_ptr(), weight.data_ptr(), g.data_ptr(), ptr(dx),
+        ptr(dadj), part.data_ptr(), out_w.data_ptr(), tickets.data_ptr(), B, N, Fi, Fo,
+        plan["clusters"], int(add_loop), float(loop), stream)
+    check_status("gcn_aggregate_bwd", status)
+    LAUNCHES["gcn_aggregate_bwd"] += 1
+    return dx, dadj, out_w[:Fi * Fo].view(Fi, Fo), out_w[Fi * Fo:]
+
+
 def gcn_aggregate_bwd(x, adj, weight, g, loop: float = 1.0, add_loop: bool = True,
                       need_x: bool = True, need_adj: bool = True):
-    """Backward of ``gcn_aggregate``: the CUDA kernel for CUDA tensors, the
-    plain backward for CPU tensors -> (dx or None, dadj or None, dweight,
+    """Backward of ``gcn_aggregate``: the CUDA kernel for CUDA tensors (a
+    row-tile design after a ``gcn_degrees`` launch above N = 64), the plain
+    backward for CPU tensors -> (dx or None, dadj or None, dweight,
     dbias)."""
     if x.device.type == "cpu":
         return gcn_aggregate_bwd_plain(x, adj, weight, g, loop, add_loop, need_x, need_adj)
@@ -314,6 +360,8 @@ def gcn_aggregate_bwd(x, adj, weight, g, loop: float = 1.0, add_loop: bool = Tru
         raise ValueError(
             f"gcn_aggregate_bwd: shapes x {tuple(x.shape)}, adj {tuple(adj.shape)}, "
             f"weight {tuple(weight.shape)}, g {tuple(g.shape)} do not agree")
+    if N > WHOLE_GRAPH_N:
+        return _gcn_aggregate_bwd_tiled(x, adj, weight, g, loop, add_loop, need_x, need_adj)
     gcn_aggregate_bwd_smem(N, Fi, Fo)
     new = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
     dx = new((B, N, Fi)) if need_x else None

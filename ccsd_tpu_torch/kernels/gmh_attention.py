@@ -40,7 +40,12 @@ launch, its sums over graphs and channels ordered by the tickets of
 ``gcn.ticket_buffer``): the gradients of x, the adjacency (written in the
 adjacency's own layout, so a later layer's channels-last adjacency gets a
 channels-last gradient) and the six weights and biases.
-``gmh_attention_bwd_plain`` writes the same gradients out by hand.
+``gmh_attention_bwd_plain`` writes the same gradients out by hand.  Above
+N = 64 the backward takes four launches over the ``bwd_plan``:
+``gcn_degrees``, ``gmh_projection`` (Q and K recomputed), ``gmh_score_grad``
+(gQ and gK, a block per row tile and role, counted under its own name) and
+the row-tile kernel that gives every gradient (counted as
+``gmh_attention_bwd``).  Nothing of the forward is saved.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from ccsd_tpu_torch.kernels.gcn import (
     _with_loop,
     gcn_degrees,
     gcn_norm,
+    row_tiles,
     ticket_buffer,
 )
 
@@ -363,14 +369,9 @@ def gmh_attention_bwd_plain(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, num_heads: i
         out = nx @ w[None]
         return out if b is None else out + b[None, :, None, :]
 
-    Qh = proj(wq, bq).reshape(B, C, N, H, ds)
-    Kh = proj(wk, bk).reshape(B, C, N, H, ds)
-    s = 1.0 / math.sqrt(out_dim)
-    t = torch.tanh(torch.einsum("bcnhd,bcmhd->bchnm", Qh, Kh) * s)
-    gA = ga.permute(0, 3, 1, 2)
-    gS = ((gA + gA.transpose(-1, -2)) / 2)[:, :, None] * (1 - t * t) * (s / H)
-    gQ = torch.einsum("bchnm,bcmhd->bcnhd", gS, Kh).reshape(B, C, N, A)
-    gK = torch.einsum("bchnm,bcnhd->bcmhd", gS, Qh).reshape(B, C, N, A)
+    gqk = gmh_score_grad_plain(torch.cat([proj(wq, bq), proj(wk, bk)], -1), ga, num_heads,
+                               out_dim)
+    gQ, gK = gqk[..., :A], gqk[..., A:]
     gV = gv.reshape(B, N, C, O).permute(0, 2, 1, 3)
     grads = []
     for gp, w, b in ((gQ, wq, bq), (gK, wk, bk), (gV, wv, bv)):
@@ -383,22 +384,131 @@ def gmh_attention_bwd_plain(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, num_heads: i
     return (dx, dadj, *grads)
 
 
+def gmh_score_grad_plain(qk, ga, num_heads: int, out_dim: int):
+    """The score stage's gradient: qk (B, C, N, 2 attn), Q | K, and ga =
+    dL/dA (B, N, N, C) -> (B, C, N, 2 attn), gQ | gK, where A = sym(mean_h
+    tanh(Q_h K_h^T / sqrt(out_dim)))."""
+    B, C, N, A2 = qk.shape
+    A = A2 // 2
+    H, ds = head_split(A, num_heads)
+    Qh = qk[..., :A].reshape(B, C, N, H, ds)
+    Kh = qk[..., A:].reshape(B, C, N, H, ds)
+    s = 1.0 / math.sqrt(out_dim)
+    t = torch.tanh(torch.einsum("bcnhd,bcmhd->bchnm", Qh, Kh) * s)
+    gA = ga.permute(0, 3, 1, 2)
+    gS = ((gA + gA.transpose(-1, -2)) / 2)[:, :, None] * (1 - t * t) * (s / H)
+    gQ = torch.einsum("bchnm,bcmhd->bcnhd", gS, Kh).reshape(B, C, N, A)
+    gK = torch.einsum("bchnm,bcnhd->bcmhd", gS, Qh).reshape(B, C, N, A)
+    return torch.cat([gQ, gK], -1)
+
+
 @functools.lru_cache(maxsize=None)
-def attention_bwd_smem(N: int, Fi: int, A: int, O: int, H: int) -> int:
-    """Shared bytes of one block of csrc/gmh_attention_bwd.cu, one (graph,
-    channel); raises as :func:`fit_graph`."""
+def score_grad_smem(A: int, H: int) -> int:
+    """Shared bytes of a block of ``gmh_score_grad`` (any N: it is tiled)."""
+    nbytes = kernel_fn("gmh_attention_bwd", "gmh_score_grad_smem")(A, H)
+    check_smem("gmh_score_grad", nbytes, attn=A, heads=H)
+    return nbytes
+
+
+def gmh_score_grad(qk, ga, num_heads: int, out_dim: int):
+    """gQ | gK of the tiled backward (``csrc/gmh_attention_bwd.cu``
+    ``gmh_score_grad_kernel``, a block per graph, channel, row tile and
+    role) for CUDA tensors, the plain version for CPU tensors; qk
+    contiguous, ga in any strides."""
+    if qk.device.type == "cpu":
+        return gmh_score_grad_plain(qk, ga, num_heads, out_dim)
+    check_cuda_f32("gmh_score_grad", qk=qk)
+    check_strided_f32("gmh_score_grad", "ga", ga, qk.device)
+    B, C, N, A2 = qk.shape
+    H, ds = head_split(A2 // 2, num_heads)
+    if ga.shape != (B, N, N, C):
+        raise ValueError(f"gmh_score_grad: ga {tuple(ga.shape)}, expected {(B, N, N, C)}")
+    score_grad_smem(A2 // 2, H)
+    gqk = torch.empty_like(qk)
+    stream = torch.cuda.current_stream(qk.device).cuda_stream
+    status = kernel_fn("gmh_attention_bwd", "gmh_score_grad_run")(
+        qk.data_ptr(), ga.data_ptr(), gqk.data_ptr(), B, C, N, A2 // 2, H, ds, *ga.stride(),
+        math.sqrt(out_dim), stream)
+    check_status("gmh_score_grad", status)
+    LAUNCHES["gmh_score_grad"] += 1
+    return gqk
+
+
+@functools.lru_cache(maxsize=None)
+def attention_bwd_smem(N: int, Fi: int, A: int, O: int, H: int,
+                       need_adj: bool = True) -> int:
+    """Shared bytes of one block of csrc/gmh_attention_bwd.cu: one (graph,
+    channel) for N <= MAX_N, else one row tile of the tiled design's last
+    kernel (with dA or without; the ``gmh_score_grad`` and
+    ``gmh_projection`` blocks before it checked too), by the library's own
+    counts; raises a ``ValueError`` naming N where a block does not fit."""
+    if N > MAX_N:
+        score_grad_smem(A, H)
+        projection_group(1, 1, N, Fi, A, O)
+        nbytes = kernel_fn("gmh_attention_bwd", "gmh_attention_bwd_tiled_smem")(
+            N, Fi, A, O, int(need_adj))
+        check_smem("gmh_attention_bwd", nbytes, N=N, F_in=Fi, attn=A, F_out=O)
+        return nbytes
     return fit_graph("gmh_attention_bwd", N,
                      lambda: kernel_fn("gmh_attention_bwd", "gmh_attention_bwd_smem")(
                          N, Fi, A, O, H))
 
 
+def bwd_plan(B: int, C: int, N: int, Fi: int, A: int, O: int) -> dict:
+    """The host side of the tiled ``gmh_attention_bwd`` (N > MAX_N): the row
+    tiles (``gmh_score_grad`` takes a block per tile and role; both kernels
+    sum over all rows in chunks of the same tiles), the last kernel's
+    clusters of MAX_CLUSTER blocks a channel (one block a row tile of a
+    graph, the last cluster padded), and its scratch: dX's channel
+    partials, a weight partial a cluster, and the tickets (MAX_CLUSTER a
+    channel, one a graph's row tile)."""
+    tiles = row_tiles(N)
+    clusters = -(-B * len(tiles) // MAX_CLUSTER)
+    P = 2 * A + O
+    return {"tiles": tiles, "clusters": clusters, "part_x": (B, C, N, Fi),
+            "part_w": (clusters, C * (Fi * P + P)),
+            "tickets": MAX_CLUSTER * C + B * len(tiles)}
+
+
+def _gmh_attention_bwd_tiled(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, H, out_dim, loop,
+                             add_loop, need_x, need_adj):
+    """N > MAX_N: the degrees, Q and K recomputed, gQ | gK, then every
+    gradient by row tiles."""
+    B, N, Fi = x.shape
+    C, _, A = wq.shape
+    O = wv.shape[-1]
+    attention_bwd_smem(N, Fi, A, O, H, need_adj)
+    plan = bwd_plan(B, C, N, Fi, A, O)
+    deg = gcn_degrees(adj, add_loop, loop)
+    qk, _ = gmh_projection(x, adj, deg, wq, bq, wk, bk, wv, bv, loop, add_loop)
+    gqk = gmh_score_grad(qk, ga, H, out_dim)
+    new = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
+    sizes = [C * Fi * A, C * Fi * A, C * Fi * O, C * A, C * A, C * O]
+    out_w, part_w = new(sum(sizes)), new(plan["part_w"])
+    dx, part_x = (new((B, N, Fi)), new(plan["part_x"])) if need_x else (None, None)
+    dadj = torch.empty_like(adj) if need_adj else None  # adj's strides
+    tickets = ticket_buffer(x.device, plan["tickets"])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = kernel_fn("gmh_attention_bwd", "gmh_attention_bwd_tiled_run")(
+        x.data_ptr(), adj.data_ptr(), deg.data_ptr(), wq.data_ptr(), wk.data_ptr(),
+        wv.data_ptr(), gqk.data_ptr(), gv.data_ptr(), _ptr(dx), _ptr(dadj), _ptr(part_x),
+        part_w.data_ptr(), out_w.data_ptr(), tickets.data_ptr(), B, C, N, Fi, A, O,
+        plan["clusters"], *adj.stride(), *(dadj.stride() if need_adj else (0,) * 4),
+        int(add_loop), float(loop), stream,
+    )
+    check_status("gmh_attention_bwd", status)
+    LAUNCHES["gmh_attention_bwd"] += 1
+    return _split_weight_grads(dx, dadj, out_w, sizes, bq, bk, bv, C, Fi, A, O)
+
+
 def gmh_attention_bwd(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, num_heads: int,
                       out_dim: int, loop: float = 1.0, add_loop: bool = True,
                       need_x: bool = True, need_adj: bool = True):
-    """Backward of ``gmh_attention``: the CUDA kernel for CUDA tensors, the
-    plain backward for CPU tensors; returns as
-    :func:`gmh_attention_bwd_plain`.  adj and ga are read through their
-    strides; dadj comes in adj's layout."""
+    """Backward of ``gmh_attention``: the CUDA kernel for CUDA tensors (four
+    launches above N = 64, the module's docstring says which), the plain
+    backward for CPU tensors; returns as :func:`gmh_attention_bwd_plain`.
+    adj and ga are read through their strides; dadj comes in adj's
+    layout."""
     if x.device.type == "cpu":
         return gmh_attention_bwd_plain(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, num_heads,
                                        out_dim, loop, add_loop, need_x, need_adj)
@@ -412,6 +522,9 @@ def gmh_attention_bwd(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, num_heads: int,
     if gv.shape != (B, N, C * O) or ga.shape != (B, N, N, C):
         raise ValueError(f"gmh_attention_bwd: gv {tuple(gv.shape)}, ga {tuple(ga.shape)} "
                          f"do not match the outputs ({B}, {N}, {C * O}), ({B}, {N}, {N}, {C})")
+    if N > MAX_N:
+        return _gmh_attention_bwd_tiled(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, H, out_dim,
+                                        loop, add_loop, need_x, need_adj)
     attention_bwd_smem(N, Fi, A, O, H)
     new = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
     sizes = [C * Fi * A, C * Fi * A, C * Fi * O, C * A, C * A, C * O]
@@ -431,6 +544,12 @@ def gmh_attention_bwd(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, num_heads: int,
     )
     check_status("gmh_attention_bwd", status)
     LAUNCHES["gmh_attention_bwd"] += 1
+    return _split_weight_grads(dx, dadj, out_w, sizes, bq, bk, bv, C, Fi, A, O)
+
+
+def _split_weight_grads(dx, dadj, out_w, sizes, bq, bk, bv, C, Fi, A, O):
+    """The backward's outputs as :func:`gmh_attention_bwd_plain` returns
+    them, from out_w (dWq, dWk, dWv, dbq, dbk, dbv one after another)."""
     dwq, dwk, dwv, dbq, dbk, dbv = out_w.split(sizes)
     return (dx, dadj, dwq.view(C, Fi, A), None if bq is None else dbq.view(C, A),
             dwk.view(C, Fi, A), None if bk is None else dbk.view(C, A),

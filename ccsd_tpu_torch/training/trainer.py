@@ -22,10 +22,8 @@ there.  The seed drives the data order (``ArrayDataset``, as the JAX
 package shuffles), the networks' seeded Glorot init, and a generator on
 the device that draws t and the noise.  The dataset is a (M, N, N) array of
 padded adjacencies: community_small's, grid_small's or grid's generated by
-its recipe from the seed (100 graphs) unless the caller passes one.  The
-backward kernels hold a graph of at most 64 nodes, so on the card a config
-with a larger ``max_node_num`` (grid: 361) raises, naming N, before its
-first step.
+its recipe from the seed (100 graphs) unless the caller passes one.  Above
+64 nodes (grid: 361) the backward kernels take their row-tile designs.
 """
 
 from __future__ import annotations
@@ -48,7 +46,6 @@ from ccsd_tpu_torch.data.loader import (
 )
 from ccsd_tpu_torch.diffusion.losses import SDELossCC, get_sde_loss_fn
 from ccsd_tpu_torch.diffusion.sde import load_sde
-from ccsd_tpu_torch.kernels.gcn import WHOLE_GRAPH_N
 from ccsd_tpu_torch.models.registry import load_model, load_model_params
 from ccsd_tpu_torch.ops.cells import get_spec
 from ccsd_tpu_torch.training.checkpoint import load_port_ckpt, port_ckpt_path, save_port_ckpt
@@ -83,11 +80,6 @@ class Trainer:
         self.is_cc = bool(config.get("is_cc", False))
         self.names = names = NAMES_CC if self.is_cc else NAMES
         self.device = resolve_device(device)
-        N = int(config.data.max_node_num)
-        if self.device.type == "cuda" and N > WHOLE_GRAPH_N:
-            raise ValueError(f"{config.data.data}: N={N} exceeds the one-block graph of the "
-                             f"backward kernels (N <= {WHOLE_GRAPH_N}); training on the card "
-                             "needs their tiled design")
         self.seed = int(config.get("seed", 42))
         tc = config.train
 
@@ -119,7 +111,8 @@ class Trainer:
         if self.is_cc:
             d = config.data
             self.loss_fn = SDELossCC(*self.sdes.values(),
-                                     get_spec(N, int(d.d_min), int(d.d_max)),
+                                     get_spec(int(d.max_node_num), int(d.d_min),
+                                              int(d.d_max)),
                                      reduce_mean=tc.reduce_mean, eps=tc.eps)
         else:
             self.loss_fn = get_sde_loss_fn(self.sdes["x"], self.sdes["adj"],

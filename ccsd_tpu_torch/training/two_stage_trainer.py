@@ -34,7 +34,6 @@ from ccsd_tpu_torch.diffusion.losses import get_rank2_dynamic_loss_fn, get_sde_l
 from ccsd_tpu_torch.diffusion.sde import load_sde
 from ccsd_tpu_torch.diffusion.two_stage import dynamic_batch_from_ccs
 from ccsd_tpu_torch.eval.graphs import adjs_to_graphs
-from ccsd_tpu_torch.kernels.gcn import WHOLE_GRAPH_N
 from ccsd_tpu_torch.models.registry import load_model, load_model_params
 from ccsd_tpu_torch.ops.cells import get_spec
 from ccsd_tpu_torch.ops.masks import node_flags
@@ -78,15 +77,12 @@ class TwoStageTrainer:
                              f"got {config.model.adj}")
         if config.train.get("minibatch"):
             raise NotImplementedError("train.minibatch of the two-stage trainer is not ported "
-                                      "(ROADMAP.md, Queue A #15)")
+                                      "(ROADMAP.md, Queue A, training extras)")
         self.config = config
         self.names = NAMES
         self.device = resolve_device(device)
         d, tc = config.data, config.train
         N = int(d.max_node_num)
-        if self.device.type == "cuda" and N > WHOLE_GRAPH_N:
-            raise ValueError(f"{d.data}: N={N} exceeds the one-block graph of the backward "
-                             f"kernels (N <= {WHOLE_GRAPH_N})")
         self.seed = int(config.get("seed", 42))
         self.log_folder_name, self.log_name, self.ckpt_name = (
             set_log(config) if log else ("", "train", "ckpt"))

@@ -52,15 +52,19 @@ Phases, each printing one line of its own results:
               Reverse + Langevin steps) on both paths the same way, from
               the EMA weights of grid_small's run (the two configs' networks
               have the same widths; seeded weights overflow before step
-              400 at every adjacency-head scale from 1 to 0.01).
+              400 at every adjacency-head scale from 1 to 0.01, and a few
+              epochs of grid's own training do not stop that).
 6. train   -- community_small training at full width through ``Trainer``:
               each backward kernel (``gcn_aggregate_bwd``,
               ``gmh_attention_bwd``) against its plain backward at the
-              train batch's shapes and layouts, and at grid_small's and
-              grid_small_CC_two_stage's (every gradient, within
-              BWD_REL_TOL of its magnitude; ``gmh_attention_bwd`` with the
-              adjacency in both layouts), each called twice on the same
-              inputs with bit-identical results; the gradients of the full loss
+              train batch's shapes and layouts, at grid_small's and
+              grid_small_CC_two_stage's, and (the tiled designs) at grid's
+              layers (B = 8, N = 361; C = 2 on F_in 5, C = 8 on F_in 32)
+              and at N = 100 (every gradient, within BWD_REL_TOL of its
+              magnitude; ``gmh_attention_bwd`` with the adjacency in both
+              layouts), each called twice on the same inputs with
+              bit-identical results, and ``gmh_score_grad`` (a launch of
+              the tiled attention backward) against its plain version; the gradients of the full loss
               on the card against a float64 CPU copy; 200 epochs from
               seeded weights on 100 graphs of community_small as the JAX
               package generates them (seed 0; one train batch of
@@ -75,6 +79,15 @@ Phases, each printing one line of its own results:
               generates from the seed, cut to GRID_SMALL_EPOCHS epochs (ten
               train and three test batches an epoch): finite, falling
               losses and exact launch counts an epoch.
+   grid_train -- after grid_sample: grid (B = 8, N = 361) at its published
+              widths: the gradients of the full loss on GRID_GRAD_GRAPHS
+              training graphs against a float64 CPU copy (the train
+              phase's bound), then ``Trainer`` for GRID_TRAIN_EPOCHS epochs
+              (ten train and three test batches of 8 an epoch): finite
+              losses, the last epoch's mean below the first's, exact
+              launches an epoch (the tiled backwards and the gcn_degrees,
+              gmh_projection and gmh_score_grad launches they add), train
+              steps/s and peak memory.
    grid_small_eval -- its EMA checkpoint (``sample.use_ema: true``) through
               ``Sampler`` by the JAX protocol (20 test graphs, three rounds
               of 8, 1000 Reverse + Langevin steps) on both paths: exact
@@ -136,8 +149,9 @@ Phases, each printing one line of its own results:
               ``gcn_norm`` + ``torch.matmul`` pair; grid's shapes of
               ``gcn_aggregate`` and ``channel_agg`` timed and kept out of
               the means; the backward kernels at the train batch's shapes,
-              and at grid_small's and grid_small_CC_two_stage's, out of the
-              means; the attention kernels' tiled designs at grid's shapes,
+              and at grid_small's, grid_small_CC_two_stage's and (tiled)
+              grid's and N = 100's, out of the means, with
+              ``gmh_score_grad`` at grid's attention layers; the attention kernels' tiled designs at grid's shapes,
               out of the means, beside the floor the tanh sets (the tanhf
               rate measured on the card by a probe kernel), and
               ``gmh_projection`` at grid's shapes (its path).
@@ -229,6 +243,12 @@ CC_F32_FACTOR = 4.0
 # its training run, cut from the config's 5000 epochs (one train batch of
 # 80 and one test batch of 20 an epoch)
 CC_TRAIN_EPOCHS = 200
+# grid (N = 361) through Trainer at its published widths, cut from the
+# config's 5000 epochs (ten train and three test batches of 8 an epoch);
+# the gradients of its full loss checked on GRID_GRAD_GRAPHS training
+# graphs, which keeps the CPU's float64 copy of the step short
+GRID_TRAIN_EPOCHS = 10
+GRID_GRAD_GRAPHS = 2
 # the two-stage model (community_small_CC_two_stage): its F network over
 # universes bridged from TS_NET_B graphs against float64 (bound as
 # cc_models'), and its training run, cut from the config's 3000 epochs (one
@@ -372,6 +392,17 @@ def gmh_bwd_cost(B, C, N, Fi, A, O, H, need_x, need_adj):
                      + 2 * N * P * Fi           # gNX
                      + need_x * 2 * N * N * Fi  # dX
                      + need_adj * (2 * N * N * Fi + 8 * N * N))  # gN, dA
+    return nbytes, flops
+
+
+def score_grad_cost(B, C, N, A, H):
+    """(bytes, flops) of one gmh_score_grad launch: Q | K and dL/dA read
+    once, gQ | gK written once; the head sums, scale and tanh, gM and gS
+    once a head and entry (as gmh_bwd_cost counts them), and the products
+    gS K and gS^T Q."""
+    nbytes = 4 * (2 * B * C * N * 2 * A + B * N * N * C)
+    flops = B * C * (2 * N * N * A + 2 * H * N * N + 2 * N * N + 4 * H * N * N
+                     + 4 * N * N * A)
     return nbytes, flops
 
 
@@ -1158,16 +1189,21 @@ def train_shapes(models, B):
 
 def more_train_shapes():
     """``gcn_bwd_more`` and ``gmh_bwd_more`` cases: the backward kernels at
-    the layer shapes of EXTRA_CONFIGS (N = 49; head widths 8 and 6), each
-    config's first and later layer asking for what its training path asks
-    (train_shapes); checked in the train_kernels phase and timed, out of
-    the means."""
+    the layer shapes of EXTRA_CONFIGS (N = 49; head widths 8 and 6), of
+    grid (N = 361: the tiled designs) and of grid at N = RAGGED_N (a ragged
+    last tile), each config's first and later layer asking for what its
+    training path asks (train_shapes); checked in the train_kernels phase
+    and timed, out of the means.  ``score_grad`` (grid's attention layers)
+    and ``score_grad_more`` (at RAGGED_N): the cases of ``gmh_score_grad``,
+    a launch of the tiled attention backward."""
     from ccsd_tpu_torch.kernels.gmh_attention import head_split
     from ccsd_tpu_torch.utils.config import get_config
 
     gcn, gmh = [], []
-    for name in EXTRA_CONFIGS:
-        c = get_config(name, seed=0, folder=HERE)
+    configs = [(name, get_config(name, seed=0, folder=HERE)) for name in EXTRA_CONFIGS]
+    configs += [(GRID_CONFIG, get_config(GRID_CONFIG, seed=0, folder=HERE)),
+                (f"{GRID_CONFIG}.n{RAGGED_N}", ragged_config())]
+    for name, c in configs:
         m, B, N = c.model, int(c.data.batch_size), int(c.data.max_node_num)
         F = int(c.data.max_feat_num)
         for k, Fi in enumerate((F, m.nhid)):
@@ -1175,7 +1211,10 @@ def more_train_shapes():
         for k, (Fi, A, C) in enumerate(((F, m.nhid, m.c_init), (m.nhid, m.adim, m.c_hid))):
             H = head_split(A, m.num_heads)[0]
             gmh.append((f"{name}.layers.{k}", B, C, N, Fi, A, m.nhid, H, k > 0, k > 0))
-    return {"gcn_bwd_more": gcn, "gmh_bwd_more": gmh}
+    grid = [case for case in gmh if case[0].startswith(f"{GRID_CONFIG}.layers.")]
+    ragged = [case for case in gmh if case[0].startswith(f"{GRID_CONFIG}.n{RAGGED_N}.")]
+    return {"gcn_bwd_more": gcn, "gmh_bwd_more": gmh, "score_grad": grid,
+            "score_grad_more": ragged}
 
 
 def padded(adj, gen):
@@ -1234,15 +1273,34 @@ def gmh_bwd_inputs_other_layout(case, gen, dev):
     return (x, adj.contiguous() if not first_layer(case) else channels_last(adj), *rest)
 
 
+def score_grad_inputs(case, gen, dev):
+    """(Q | K, dL/dA, heads, F_out) of a gmh_bwd case: Q and K standard
+    normal (head sums of ~1 / sqrt(F_out) scale, as the layer's), dL/dA as
+    the strided slice the path hands back."""
+    import torch
+
+    _, B, C, N, Fi, A, O, H, _, _ = case
+    qk = torch.randn(B, C, N, 2 * A, generator=gen, device=dev)
+    ga = torch.randn(B, N, N, 2 * C, generator=gen, device=dev)[..., :C]
+    return (qk, ga, H, O)
+
+
 def phase_train_kernels(shapes, dev):
     """Each backward kernel against its plain backward on the card, at the
-    training path's shapes (and ``<key>_more``'s), every gradient the call
-    gives, ``gmh_attention_bwd`` in both adjacency layouts; and each
-    kernel called twice on the same inputs, which must give the same bits
-    (the sums over blocks run in a fixed order)."""
+    training path's shapes (and ``<key>_more``'s: above N = 64 the tiled
+    designs), every gradient the call gives, ``gmh_attention_bwd`` in both
+    adjacency layouts, and ``gmh_score_grad`` (a launch of the tiled
+    attention backward) against its plain version; each kernel called
+    twice on the same inputs, which must give the same bits (the sums over
+    blocks run in a fixed order)."""
     import torch
     from ccsd_tpu_torch.kernels.gcn import gcn_aggregate_bwd, gcn_aggregate_bwd_plain
-    from ccsd_tpu_torch.kernels.gmh_attention import gmh_attention_bwd, gmh_attention_bwd_plain
+    from ccsd_tpu_torch.kernels.gmh_attention import (
+        gmh_attention_bwd,
+        gmh_attention_bwd_plain,
+        gmh_score_grad,
+        gmh_score_grad_plain,
+    )
 
     names = {"gcn_aggregate_bwd": ("dx", "dadj", "dweight", "dbias"),
              "gmh_attention_bwd": ("dx", "dadj", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv")}
@@ -1276,6 +1334,19 @@ def phase_train_kernels(shapes, dev):
                     max_scaled_err=f"{worst:.3e}", rel_tol=BWD_REL_TOL, ok=ok)
                 check(ok, f"{kname} {case[0]}: {out} disagrees with the plain backward")
                 errs[kname] = max(errs.get(kname, 0.0), abs_err)
+    for case in shapes["score_grad"] + shapes["score_grad_more"]:
+        args = score_grad_inputs(case, gen, dev)
+        got, again = gmh_score_grad(*args), gmh_score_grad(*args)
+        torch.cuda.synchronize()
+        abs_err, worst, ok = grad_compare(got, gmh_score_grad_plain(*args), BWD_REL_TOL)
+        same = torch.equal(got, again)
+        say("train_kernels", kernel="gmh_score_grad", case=case[0],
+            shape="x".join(map(str, got.shape)), max_abs_err=f"{abs_err:.3e}",
+            max_scaled_err=f"{worst:.3e}", rel_tol=BWD_REL_TOL, repeat_bit_identical=same,
+            ok=ok)
+        check(ok and same, f"gmh_score_grad {case[0]}: disagrees with its plain version or "
+                           "differs between two calls")
+        errs["gmh_score_grad"] = max(errs.get("gmh_score_grad", 0.0), abs_err)
     return errs
 
 
@@ -1291,10 +1362,11 @@ def train_config(folder, name, epochs, data="community_small"):
     return config
 
 
-def phase_train_grads(config, train_adjs, dev):
+def phase_train_grads(config, train_adjs, dev, graphs=None, phase="train_grads"):
     """The gradients of the full loss (both networks, seeded weights) on the
-    card against a float64 CPU copy, on the first train batch (B = 80) and
-    the same draws, within the bound an f32 CPU copy of the same step sets
+    card against a float64 CPU copy, on the train split's first ``graphs``
+    graphs (all: community_small's train batch, B = 80) and the same draws,
+    within the bound an f32 CPU copy of the same step sets
     (GRAD_F32_FACTOR); returns the launches of the card's step."""
     import copy
 
@@ -1312,7 +1384,7 @@ def phase_train_grads(config, train_adjs, dev):
     f64 = {n: copy.deepcopy(m).double() for n, m in models.items()}
     f32 = {n: copy.deepcopy(m) for n, m in models.items()}
     card = {n: m.to(dev) for n, m in models.items()}
-    adj = train_adjs[split(len(train_adjs), float(config.data.test_split))[0]]
+    adj = train_adjs[split(len(train_adjs), float(config.data.test_split))[0]][:graphs]
     x = torch.from_numpy(init_features(config.data.init, adj, int(config.data.max_feat_num)))
     adj = torch.from_numpy(adj)
     flags = node_flags(adj)
@@ -1334,7 +1406,7 @@ def phase_train_grads(config, train_adjs, dev):
     sum(ref).backward()
     sum(loss.losses(f32["x"], f32["adj"], *batch)).backward()
     for n, c, r in zip(NAMES, on_card, ref):
-        say("train_grads", loss=n, card=f"{c.item():.6e}", cpu_float64=f"{r.item():.6e}")
+        say(phase, loss=n, card=f"{c.item():.6e}", cpu_float64=f"{r.item():.6e}")
     def grad(p):  # a parameter outside the loss (the last layer's node head) has none
         # on the plain path and a zero one from a backward kernel: zero, as under jax.grad
         return (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu().double()
@@ -1352,7 +1424,7 @@ def phase_train_grads(config, train_adjs, dev):
             worst = max(worst, (scaled, abs_err, name))
         c, r = on_card[NAMES.index(n)].item(), ref[NAMES.index(n)].item()
         check(abs(c - r) <= rel * abs(r), f"loss_{n} on the card disagrees with the CPU copy")
-        say("train_grads", network=n, params=len(params), worst_param=worst[2],
+        say(phase, network=n, params=len(params), worst_param=worst[2],
             max_scaled_err=f"{worst[0]:.3e}", max_abs_err=f"{worst[1]:.3e}",
             cpu_f32_max_scaled_err=f"{cpu32:.3e}", bound=f"{rel:.3e}",
             launches=json.dumps(launched))
@@ -1607,6 +1679,73 @@ def phase_grid_small_eval(ckpt):
             launches=json.dumps(launches))
         out[f"{GRID_SMALL} eval {'default' if fused else 'unfused'}"] = launches
     return out
+
+
+def phase_grid_train(dev):
+    """grid (N = 361) at its published widths: the gradients of the full
+    loss on GRID_GRAD_GRAPHS training graphs against a float64 CPU copy
+    (phase_train_grads' bound), then ``Trainer`` for GRID_TRAIN_EPOCHS
+    epochs on the dataset it generates from the seed (ten train and three
+    test batches of 8 an epoch): finite losses, the last epoch's mean below
+    the first's, the exact launches of an epoch (the tiled backwards with
+    the gcn_degrees, gmh_projection and gmh_score_grad launches they add),
+    train steps/s and peak memory; returns the launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from ccsd_tpu_torch.data.loader import generated_adjs
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.training.trainer import Trainer
+    from ccsd_tpu_torch.utils.config import get_config
+
+    folder = os.path.join(HERE, "build", "smoke_grid")
+    shutil.rmtree(folder, ignore_errors=True)
+    config = train_config(folder, "smoke", GRID_TRAIN_EPOCHS, data=GRID_CONFIG)
+    published = int(get_config(GRID_CONFIG, seed=0, folder=HERE).train.num_epochs)
+    N = int(config.data.max_node_num)
+    adjs = generated_adjs(GRID_CONFIG, int(config.get("seed", 42)), N)
+    phase_train_grads(config, adjs, dev, GRID_GRAD_GRAPHS, "grid_train_grads")
+
+    trainer = Trainer(config, adjs=adjs)
+    check(trainer.device.type == "cuda", f"the trainer runs on {trainer.device}")
+    n_train, n_test = len(trainer.train_loader), len(trainer.test_loader)
+    check([n_train, n_test] == [10, 3], f"{GRID_CONFIG}: {n_train} train and {n_test} test "
+                                        "batches an epoch, expected 10 and 3")
+    depth, L = int(config.model.depth), int(config.model.num_layers)
+    steps = n_train + n_test  # forwards; the train steps also run a backward
+    per_epoch = {"gcn_aggregate": steps * depth, "gmh_attention": steps * L,
+                 "gmh_projection": (steps + n_train) * L,
+                 "gcn_degrees": (steps + n_train) * (depth + L),
+                 "gcn_aggregate_bwd": n_train * depth, "gmh_attention_bwd": n_train * L,
+                 "gmh_score_grad": n_train * L}
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(LAUNCHES)
+    expect = {k: GRID_TRAIN_EPOCHS * per_epoch.get(k, 0) for k in LAUNCHES}
+    check(launches == expect, f"{GRID_CONFIG} train: launches {launches}, expected exactly "
+                              f"{expect}")
+    hist, test = np.asarray(trainer.history["train"]), np.asarray(trainer.history["test"])
+    first, last = hist[0], hist[-1]
+    say("grid_train", epochs=trainer.epoch, cut=f"{GRID_TRAIN_EPOCHS} of {published}",
+        steps=trainer.step, seconds=f"{seconds:.3f}",
+        loss_x=f"{first[0]:.4f}->{last[0]:.4f}", loss_adj=f"{first[1]:.4f}->{last[1]:.4f}",
+        test_loss_x=f"{test[0][0]:.4f}->{test[-1][0]:.4f}",
+        test_loss_adj=f"{test[0][1]:.4f}->{test[-1][1]:.4f}",
+        launches_per_epoch=json.dumps({k: v // GRID_TRAIN_EPOCHS for k, v in launches.items()
+                                       if v}),
+        peak_memory_gib=f"{peak / 2**30:.3f}")
+    say("train_steps_per_s", config=GRID_CONFIG, steps_per_s=f"{trainer.step / seconds:.2f}",
+        card=repr(smi_name_power()))
+    check(np.isfinite(hist).all() and np.isfinite(test).all(), "non-finite grid losses")
+    check(bool((last < first).all()), f"grid losses did not fall: epoch 1 {first}, "
+                                      f"epoch {trainer.epoch} {last}")
+    return launches
 
 
 # -------------------------------------------------------------------- CC --
@@ -2041,6 +2180,8 @@ def timing_specs():
         gmh_attention_plain,
         gmh_projection,
         gmh_projection_plain,
+        gmh_score_grad,
+        gmh_score_grad_plain,
     )
     from ccsd_tpu_torch.kernels.gmh_scores import gmh_scores, gmh_scores_plain
 
@@ -2100,6 +2241,12 @@ def timing_specs():
          "the JAX package differentiates the plain layer)", "gmh_bwd", gmh_bwd_inputs,
          {"f32": (gmh_attention_bwd, gmh_attention_bwd_plain)}, None, {},
          lambda c: gmh_bwd_cost(*c[1:])),
+        ("gmh_score_grad", "ccsd_tpu_torch/csrc/gmh_attention_bwd.cu",
+         "ccsd_tpu/ops/pallas/gmh_attention.py:62 (the gradient of the score stage of "
+         "_gmh_kernel, :50-58, for graphs cut into row tiles; the JAX package "
+         "differentiates the plain layer)", "score_grad", score_grad_inputs,
+         {"f32": (gmh_score_grad, gmh_score_grad_plain)}, None, {},
+         lambda c: score_grad_cost(c[1], c[2], c[3], c[5], c[7])),
     ]
 
 
@@ -2130,7 +2277,11 @@ def tanh_rate(dev):
 
 # the attention map kernels' tanhf calls of a case: (B, C, N, H) by key
 TANH_CASE = {"gmh": lambda c: (c[1], c[2], c[3], c[7]),
-             "scores": lambda c: (c[1], c[2], c[3], c[5])}
+             "scores": lambda c: (c[1], c[2], c[3], c[5]),
+             "score_grad": lambda c: (c[1], c[2], c[3], c[7])}
+# the keys whose cases above N = 64 replay GRID_TIMING_ITERS times, and the
+# place of N in a case of each
+BIG_N = {"gmh": 3, "scores": 3, "proj": 3, "gmh_bwd": 3, "score_grad": 3, "gcn_bwd": 2}
 # CUDA-graph replays of a case above N = 64 (grid): the plain versions'
 # intermediates there run to ~0.5 GB a call
 GRID_TIMING_ITERS = 20
@@ -2148,7 +2299,7 @@ def phase_timing(shapes, dev, launches, errs):
         with torch.no_grad():
             for case in shapes[key] + extra:
                 args = mk(case, gen, dev)
-                big = key in ("gmh", "scores", "proj") and case[3] > 64
+                big = key in BIG_N and case[BIG_N[key]] > 64
                 iters = GRID_TIMING_ITERS if big else TIMING_ITERS
                 b_ms, by = bound_ms(*cost(case))
                 tanh_ms = (1e3 * tanh_count(*TANH_CASE[key](case)) / per_s
@@ -2334,6 +2485,7 @@ def main(argv) -> int:
         grid_adjs = generated_adjs(GRID_CONFIG, 0, 361)
         runs.update(timed("grid_sample", phase_sample, grid_adjs, GRID_CONFIG, 8,
                           "grid_sample", grid_small_ckpt_path(gs_ckpt)))
+        runs[f"{GRID_CONFIG} train"] = timed("grid_train", phase_grid_train, dev)
         runs.update(timed("cc_models", phase_cc_models, dev))
         runs[f"{CC_CONFIG} train"], cc_ckpt = timed("cc_train", phase_cc_train)
         runs.update(timed("cc_sample", phase_cc_sample, cc_ckpt))

@@ -1,6 +1,6 @@
 """End-to-end quality run of the port: train -> sample -> MMD, on
-community_small, grid_small, community_small_CC, or the two-stage CC
-model (community_small_CC_two_stage, grid_small_CC_two_stage).
+community_small, grid_small, grid (N = 361), community_small_CC, or the
+two-stage CC model (community_small_CC_two_stage, grid_small_CC_two_stage).
 
 Trains the config's networks (ScoreNetworkX and ScoreNetworkA; for
 community_small_CC also ScoreNetworkA_CC and ScoreNetworkF on the graphs'
@@ -11,8 +11,9 @@ graphs of that dataset (``generated_adjs(data, seed)``: 100 graphs, 80
 train, 20 test), then
 samples the final checkpoint by the JAX sampler's protocol (20 graphs, 1000
 steps; community_small: one round of 128, Euler + Langevin, the raw
-weights; grid_small: three rounds of 8, Reverse + Langevin, the EMA
-weights, as each config says) at each sampling seed, on the default (fused
+weights; grid_small and grid: three rounds of 8, Reverse + Langevin, the
+EMA weights, as each config says; grid's lifted-CC MMDs are skipped at
+7.8e6 candidate cells, as the JAX sampler skips them) at each sampling seed, on the default (fused
 fast) path and with ``sample.fused: false``, and scores each run against
 the test split: the four graph MMDs and the four lifted-CC MMDs (CC mode:
 the four CC MMDs of the generated complexes, and their cells per CC; the
@@ -95,6 +96,13 @@ JAX_ROWS = {
     "grid_small": {
         "jax_scanned_trainer": {"degree": 0.0073, "cluster": 0.042, "orbit": 0.024,
                                 "spectral": 0.193},
+    },
+    # grid (N = 361): the only row samples the shipped GDSS checkpoint
+    # ("Checkpoint oracle sweep", BASELINE.md:489), which the tree does not
+    # hold; no JAX row trains grid from scratch
+    "grid": {
+        "gdss_checkpoint": {"degree": 0.079, "cluster": 0.011, "orbit": 0.128,
+                            "spectral": 0.910},
     },
     # community_small_CC, f32 score networks: its scanned trainer from
     # scratch ("community_small_CC from scratch", BASELINE.md:464-467), the
@@ -182,7 +190,7 @@ def score(config, config_name, name, train, test, sample_seeds, device, epochs, 
                 # and cells per CC would score the graphs' own lift
                 res["cc_mmd"] = {k: None for k in res["cc_mmd"]}
                 cells["cells_per_cc"] = None
-            row = {**res["mmd"], **res["cc_mmd"],
+            row = {**res["mmd"], **(res["cc_mmd"] or {}),
                    **{k: v for k, v in cells.items() if k not in ("k_max", "finite_stages")}}
             runs[path].append(row)
             graphs[path, s] = res["adj"]

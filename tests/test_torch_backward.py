@@ -6,10 +6,14 @@
   only); a node with only its loop (row sum exactly 1, where ``jnp.clip``
   passes half the gradient) and rows summing below 1 included.  The JAX
   package's gradients are held to them in tests/test_torch_train_parity.py.
+* The plain backwards past the one-block kernels (N = 65, 100 and 361)
+  against autograd the same way, and the host-side plan of the tiled
+  designs (their tiles cover every row and every entry once; their blocks
+  and scratch).
 * Tests marked ``cuda`` run each backward kernel against its plain
   version on the card at the training shapes of community_small (B = 80
-  train, 20 test; N = 20) and grid_small (N = 49), and the autograd path
-  of each wrapper; they skip where there is no CUDA device (decided inside
+  train, 20 test; N = 20), grid_small (N = 49) and, tiled, at N = 65, 100
+  and grid's 361, and the autograd path of each wrapper; they skip where there is no CUDA device (decided inside
   the test).  This file imports no JAX, so they run on a machine without
   it.  Card tolerance: f32 on both sides, only the summation order differs
   (the kernel's FMA loops against the CPU's or cuBLAS's), scaled by the
@@ -136,12 +140,92 @@ def test_backward_wrappers_route_cpu_to_plain_without_counting():
 
 
 def test_backward_geometry_raises_above_one_block_naming_n():
-    """The backward kernels hold a whole graph (and channel) a block: grid's
-    N = 361 raises on the host, before any kernel is built."""
-    with pytest.raises(ValueError, match="N=361"):
-        gcn_aggregate_bwd_smem(361, 5, 32)
-    with pytest.raises(ValueError, match="N=361"):
-        attention_bwd_smem(361, 32, 32, 32, 4)
+    """Above N = 64 the backward kernels take row tiles (the host-side plan,
+    no kernel built): at N = 65, 100 and 361 the tiles cover every row once,
+    the tiles and the chunks of their sums over rows (the same tiles) cover
+    every entry of an N x N map once, in each role of ``gmh_score_grad``
+    and in the last kernel; the clusters hold every graph's row tiles with
+    less than a cluster of padding; the scratch has one weight partial a
+    cluster and dX's channel partials at their shapes, and the tickets fit
+    the device's buffer.  (The forward's tile-pair plan covers the map once
+    too.)"""
+    from ccsd_tpu_torch.kernels.gcn import MAX_CLUSTER, TICKETS, gcn_bwd_plan, row_tiles
+    from ccsd_tpu_torch.kernels.gmh_attention import bwd_plan, tile_pairs
+
+    B, C, Fi, A, O = 8, 8, 32, 32, 32
+    for N, nt in ((65, 3), (100, 4), (361, 12)):
+        tiles = row_tiles(N)
+        assert len(tiles) == nt and all(0 < nr <= 32 for _, nr in tiles)
+        rows = np.zeros(N, int)
+        for r0, nr in tiles:
+            rows[r0:r0 + nr] += 1
+        assert (rows == 1).all(), N
+        plan = bwd_plan(B, C, N, Fi, A, O)
+        assert plan["tiles"] == tiles
+        seen = np.zeros((N, N), int)  # a role's blocks, one a tile, each over every chunk
+        for r0, nr in tiles:
+            for m0, mc in tiles:
+                seen[r0:r0 + nr, m0:m0 + mc] += 1
+        assert (seen == 1).all(), N
+        seen = np.zeros((N, N), int)  # the last kernel's columns A'[chunk, tile]
+        for r0, nr in tiles:
+            for n0, mc in tiles:
+                seen[n0:n0 + mc, r0:r0 + nr] += 1
+        assert (seen == 1).all(), N
+        pairs = np.zeros((N, N), int)
+        for i, j in tile_pairs(N):
+            pairs[32 * i:32 * (i + 1), 32 * j:32 * (j + 1)] += 1
+            if i != j:
+                pairs[32 * j:32 * (j + 1), 32 * i:32 * (i + 1)] += 1
+        assert (pairs == 1).all(), N
+        clusters = plan["clusters"]
+        assert (clusters - 1) * MAX_CLUSTER < B * nt <= clusters * MAX_CLUSTER
+        P = 2 * A + O
+        assert plan["part_w"] == (clusters, C * (Fi * P + P))
+        assert plan["part_x"] == (B, C, N, Fi)
+        assert plan["tickets"] == MAX_CLUSTER * C + B * nt <= TICKETS
+        gplan = gcn_bwd_plan(B, N, Fi, 32)
+        assert gplan["tiles"] == tiles and gplan["clusters"] == clusters
+        assert gplan["part"] == (clusters, Fi * 32 + 32) and gplan["tickets"] == MAX_CLUSTER
+    # grid's batch of 8 graphs: 96 row tiles, twelve whole clusters
+    assert bwd_plan(8, 8, 361, 32, 32, 32)["clusters"] == 12
+
+
+# (B, C, N): past the one-block kernels, a ragged last tile at 65 and 100,
+# and grid's N = 361, at narrow widths
+TILED_F64 = [(2, 2, 65), (1, 2, 100), (1, 2, 361)]
+
+
+@pytest.mark.parametrize("B,C,N", TILED_F64)
+@pytest.mark.parametrize("add_loop", [True, False])
+def test_plain_backwards_match_autograd_past_one_block(B, C, N, add_loop):
+    """The plain backwards the tiled kernels are held to, at N = 65, 100 and
+    361, against torch autograd of the plain forwards in float64 (rtol =
+    atol = 1e-10): gcn_aggregate at F 5 -> 6, gmh_attention at C = 2, F_in
+    5, attn 8, F_out 6, 4 heads, its adjacency channels-last."""
+    g = torch.Generator().manual_seed(N)
+    f64 = dict(generator=g, dtype=torch.float64)
+    x = torch.randn(B, N, 5, **f64).requires_grad_()
+    adj = _adj((B, N, N), g, dtype=torch.float64).requires_grad_()
+    w = torch.randn(5, 6, **f64).requires_grad_()
+    b = torch.randn(6, **f64).requires_grad_()
+    out = gcn_aggregate_plain(x, adj, w, b, 1.0, add_loop)
+    go = torch.randn(out.shape, **f64)
+    ref = torch.autograd.grad(out, (x, adj, w, b), go)
+    got = gcn_aggregate_bwd_plain(x.detach(), adj.detach(), w.detach(), go, 1.0, add_loop)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, **F64_TOL)
+
+    a4 = _channels_last(_adj((B, C, N, N), g, dtype=torch.float64)).requires_grad_()
+    ws = [(torch.randn(*s, **f64) * 0.5).requires_grad_() for s in
+          [(C, 5, 8), (C, 8), (C, 5, 8), (C, 8), (C, 5, 6), (C, 6)]]
+    v, m = gmh_attention_plain(x, a4, *ws, 4, 6, 1.0, add_loop)
+    gv, ga = torch.randn(v.shape, **f64), torch.randn(m.shape, **f64)
+    ref = torch.autograd.grad((v, m), (x, a4, *ws), (gv, ga))
+    got = gmh_attention_bwd_plain(x.detach(), a4.detach(), *[t.detach() for t in ws], gv, ga,
+                                  4, 6, 1.0, add_loop)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, **F64_TOL)
 
 
 def test_cpu_autograd_of_plain_forward_gives_the_tie_rule():
@@ -358,22 +442,94 @@ def _graph_configs():
 @pytest.mark.parametrize("name", [n for n, _, _ in _graph_configs()])
 def test_backward_geometry_fits_every_graph_config(cuda, name):
     """Both backward kernels' blocks fit the card's shared memory for every
-    layer of every graph config with N <= 64, by the libraries' own counts;
-    above it they raise naming N."""
+    layer of every graph config, by the libraries' own counts: one block a
+    graph up to N = 64, row tiles above (grid: N = 361), with dA and
+    without."""
     from ccsd_tpu_torch.kernels.build import SMEM_LIMIT
-    from ccsd_tpu_torch.kernels.gmh_attention import MAX_N, head_split
+    from ccsd_tpu_torch.kernels.gmh_attention import head_split
 
     _, data, model = next(c for c in _graph_configs() if c[0] == name)
     N, F, nhid = data["max_node_num"], data["max_feat_num"], model["nhid"]
-    if N > MAX_N:
-        with pytest.raises(ValueError, match=f"N={N}"):
-            gcn_aggregate_bwd_smem(N, F, nhid)
-        return
-    for Fi in (F, nhid):
-        assert 0 < gcn_aggregate_bwd_smem(N, Fi, nhid) <= SMEM_LIMIT, (N, Fi)
-    for Fi, A in ((F, nhid), (nhid, model["adim"])):
-        H = head_split(A, model["num_heads"])[0]
-        assert 0 < attention_bwd_smem(N, Fi, A, nhid, H) <= SMEM_LIMIT, (N, Fi, A)
+    for need_adj in (True, False):
+        for Fi in (F, nhid):
+            assert 0 < gcn_aggregate_bwd_smem(N, Fi, nhid, need_adj) <= SMEM_LIMIT, (N, Fi)
+        for Fi, A in ((F, nhid), (nhid, model["adim"])):
+            H = head_split(A, model["num_heads"])[0]
+            assert 0 < attention_bwd_smem(N, Fi, A, nhid, H, need_adj) <= SMEM_LIMIT, (N, Fi)
+
+
+# (B, N, F_in, F_out) and (B, C, N, F_in, attn, F_out, heads) past the
+# one-block kernels: ragged last tiles at N = 65 and 100, grid's layers at
+# N = 361 (B = 8; C = 2 on F_in 5 and C = 8 on F_in 32), and a batch that
+# leaves the last cluster partly padding
+GCN_TILED = [(8, 65, 32, 32), (3, 100, 5, 32), (8, 361, 5, 32), (8, 361, 32, 32)]
+GMH_TILED = [(8, 8, 65, 32, 32, 32, 4), (3, 2, 100, 5, 32, 32, 4), (8, 2, 361, 5, 32, 32, 4),
+             (8, 8, 361, 32, 32, 32, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GCN_TILED)
+@pytest.mark.parametrize("add_loop", [True, False])
+def test_tiled_gcn_backward_matches_plain_on_card(cuda, shape, add_loop):
+    """Above N = 64 the row-tile kernel (after one gcn_degrees launch)
+    against the plain backward, for every choice of dx and dadj; two calls
+    give the same bits."""
+    B, N, Fi, Fo = shape
+    g = torch.Generator(device=cuda).manual_seed(N + Fi)
+    x = torch.randn(B, N, Fi, generator=g, device=cuda)
+    adj = _adj((B, N, N), g, cuda)
+    w = torch.randn(Fi, Fo, generator=g, device=cuda) * 0.3
+    go = torch.randn(B, N, Fo, generator=g, device=cuda)
+    ref = gcn_aggregate_bwd_plain(x, adj, w, go, 1.0, add_loop)
+    for need_x, need_adj in ((True, True), (True, False), (False, True), (False, False)):
+        before = dict(LAUNCHES)
+        got = gcn_aggregate_bwd(x, adj, w, go, 1.0, add_loop, need_x, need_adj)
+        again = gcn_aggregate_bwd(x, adj, w, go, 1.0, add_loop, need_x, need_adj)
+        torch.cuda.synchronize()
+        assert LAUNCHES["gcn_aggregate_bwd"] == before["gcn_aggregate_bwd"] + 2
+        assert LAUNCHES["gcn_degrees"] == before["gcn_degrees"] + 2
+        for i, (a, r, asked) in enumerate(zip(got, ref, (need_x, need_adj, True, True))):
+            if not asked:
+                assert a is None and again[i] is None
+                continue
+            assert torch.equal(a, again[i]), i
+            assert a.shape == r.shape and grad_tol_ok(a, r), (i, (a - r).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "channels-last"])
+@pytest.mark.parametrize("shape", GMH_TILED)
+def test_tiled_gmh_backward_matches_plain_on_card(cuda, shape, layout):
+    """Above N = 64 the four launches (gcn_degrees, gmh_projection,
+    gmh_score_grad, the row-tile kernel) against the plain backward, in
+    both adjacency layouts and for every choice of dx and dadj (dadj in
+    adj's layout); two calls give the same bits; gmh_score_grad against its
+    plain version."""
+    from ccsd_tpu_torch.kernels.gmh_attention import gmh_score_grad, gmh_score_grad_plain
+
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x, adj, ws, gv, ga, H, O = _gmh_case(shape, g, cuda, layout)
+    ref = gmh_attention_bwd_plain(x, adj, *ws, gv, ga, H, O)
+    for need_x, need_adj in ((True, True), (True, False), (False, True), (False, False)):
+        before = dict(LAUNCHES)
+        got = gmh_attention_bwd(x, adj, *ws, gv, ga, H, O, need_x=need_x, need_adj=need_adj)
+        again = gmh_attention_bwd(x, adj, *ws, gv, ga, H, O, need_x=need_x,
+                                  need_adj=need_adj)
+        torch.cuda.synchronize()
+        for k in ("gmh_attention_bwd", "gmh_score_grad", "gmh_projection", "gcn_degrees"):
+            assert LAUNCHES[k] == before[k] + 2, k
+        if need_adj:
+            assert got[1].stride() == adj.stride()
+        for i, (a, r) in enumerate(zip(got, ref)):
+            if i == 0 and not need_x or i == 1 and not need_adj:
+                assert a is None and again[i] is None
+                continue
+            assert torch.equal(a, again[i]), i
+            assert a.shape == r.shape and grad_tol_ok(a, r), (i, (a - r).abs().max().item())
+    B, N, C = x.shape[0], x.shape[1], adj.shape[1]
+    qk = torch.randn(B, C, N, 2 * ws[0].shape[-1], generator=g, device=cuda)
+    got, want = gmh_score_grad(qk, ga, H, O), gmh_score_grad_plain(qk, ga, H, O)
+    assert grad_tol_ok(got, want), (got - want).abs().max().item()
 
 
 @pytest.mark.cuda

@@ -24,8 +24,9 @@
   and draws, rtol = 1e-5 (the networks agree to ~1e-6 relative), and the
   epoch means taken over batches as the JAX Trainer takes them.
 * ``cli`` trains and samples grid_small with no ``--train-adjs``.
-* On the card, ``Trainer`` on grid raises naming N before its first step
-  (the backward kernels hold N <= 64); ``cuda``-marked, skipped here.
+* On the card, ``Trainer`` on grid (N = 361, its published widths) takes
+  a step through the tiled backward kernels, with exact launch counts;
+  ``cuda``-marked, skipped here.
 """
 
 import json
@@ -408,13 +409,33 @@ def test_cli_trains_and_samples_grid_small_without_train_adjs(tmp_path, capsys):
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the backward kernels' limit applies only on the card)")
+        pytest.skip("needs a CUDA device and nvcc (the tiled backward kernels run only on the "
+                    "card)")
     return torch.device("cuda")
 
 
 @pytest.mark.cuda
-def test_trainer_on_grid_raises_naming_n_on_card(cuda, tmp_path):
+def test_trainer_on_grid_takes_a_step_on_card(cuda, tmp_path):
+    """``Trainer`` on config/grid.yaml, at its published widths (B = 8,
+    N = 361), takes a train step on the card: finite losses, and every
+    kernel launched exactly as the forward and the tiled backward of
+    ScoreNetworkX's 5 GCN layers and ScoreNetworkA's 7 AttentionLayers
+    give (each backward layer: a ``gcn_degrees`` pass, and for attention
+    ``gmh_projection`` and ``gmh_score_grad`` before its last kernel)."""
+    from ccsd_tpu_torch.kernels import LAUNCHES
+
     cfg = get_config("grid", 0, ROOT)
     cfg.folder = str(tmp_path)
-    with pytest.raises(ValueError, match="N=361"):
-        Trainer(cfg, device=cuda, log=False)
+    trainer = Trainer(cfg, device=cuda, log=False)
+    x, adj = trainer._batch(next(iter(trainer.train_loader)))
+    assert adj.shape == (8, 361, 361)
+    before = dict(LAUNCHES)
+    losses = trainer.train_step(x, adj)
+    torch.cuda.synchronize()
+    depth, L = 5, 7
+    want = {"gcn_aggregate": depth, "gmh_attention": L, "gmh_projection": 2 * L,
+            "gcn_degrees": 2 * (depth + L), "gcn_aggregate_bwd": depth,
+            "gmh_attention_bwd": L, "gmh_score_grad": L}
+    assert {k: v - before[k] for k, v in LAUNCHES.items()} == {
+        k: want.get(k, 0) for k in LAUNCHES}
+    assert bool(torch.isfinite(losses).all())
