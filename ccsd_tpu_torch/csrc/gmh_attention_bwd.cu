@@ -68,28 +68,54 @@
 // (graph, channel) a block holds N <= 64; the batch is padded to a
 // multiple of the cluster size with blocks that contribute zeros.
 //
-// Above N = 64 (grid: N = 361) the wrapper takes four launches instead:
+// Above N = 64 (grid: N = 361) the wrapper takes five launches instead:
 // gcn_degrees.cu (d), the forward's gmh_projection (Q | K recomputed into
-// a scratch; V discarded), then the two kernels at the end of this file:
-//  * gmh_score_grad: a block per (graph, channel, row tile of 32 rows,
-//    role): role 0 gives gQ of the tile's rows, role 1 gK, each a sum
-//    over all N rows of the other operand in chunks of 32 (the tanh
-//    recomputed in each role: 2 B C H N^2 calls), written to a scratch
-//    (B, C, N, 2 attn) beside gV;
-//  * gmh_attention_bwd_tiled: a block per (graph, row tile, channel), the
-//    row-tile scheme of grad_common.cuh over gP = [gQ | gK | gV]:
-//    V = A'[:, R]^T (d o gP) over chunks of 32 rows, Z = d_R V
-//    (= norm^T gP), the block's dW partial X[R]^T Z and db partial
-//    sum_R gP, this channel's dX rows Z W^T (into part_x), and where dA is
-//    asked for gNX = gP[R] W^T, U = V W^T, P1 = A'[R, :] (d o X),
-//    dr[n] = slope[n] (gNX[n] . P1[n] + X[n] . U[n]) and
-//    dA[n, m] = d_n d_m gNX[n] . X[m] + dr[n]; then the sums over the
-//    channel's blocks (clusters, tickets) and dX over channels, as above.
-// What bounds it at grid's widest layer (B = 8, C = 8, N = 361, F_in =
-// attn = F_out = 32, H = 4, with dA): ~3.2 GFLOP of f32 operations, ~48
-// us at 67 TFLOP/s, and 2 x 33.4 M tanhf calls; the design is the simple
-// one (plain FMA patches, 4-byte copies of strided columns, one block an
-// SM in the second kernel).
+// a scratch; V discarded), then the three kernels at the end of this file,
+// each counted under its own name:
+//  * gmh_bwd_layout: gm = (gA + gA^T) / 2 channel-major, and the adjacency
+//    copied channel-major where its rows are not unit-stride;
+//  * gmh_score_grad: gQ | gK into a scratch (B, C, N, 2 attn), a cluster
+//    of row-tile blocks a (graph, channel);
+//  * gmh_attention_bwd_tiled: every gradient, a block a (graph, row tile,
+//    channel), over gP = [gQ | gK | gV].
+// What bounds them at grid's widest layer (B = 8, C = 8, N = 361, F_in =
+// attn = F_out = 32, H = 4, with dX and dA): gmh_score_grad does 33.4 M
+// tanhf (19.8 us at the card's measured tanhf rate) among 1.8 GFLOP (26.9
+// us at 67 TFLOP/s); the row-tile kernel 3.2 GFLOP (47.1 us: V = A'^T (d
+// o gP) is 2 N^2 P a (graph, channel), P1 and dA 2 N^2 F_in each):
+// operations; the layout pass moves 134 MB (39.8 us at 3.35 TB/s): bytes
+// (chip_smoke.py: score_grad_cost, row_tile_cost, layout_cost).  The first
+// tiled design took 747 us for gQ | gK and ~920 for the rest: two blocks
+// (gQ's, gK's) computed every tanh, a thread an output of each product at
+// two shared loads an FMA, dL/dA and a channels-last adjacency read one
+// channel at a time in 4-byte pieces (a 32-byte sector fetched for 4
+// bytes), one block an SM for the row tiles with dA.  What this design
+// does about each:
+//  * the layout pass reads dL/dA and the adjacency in runs of all C
+//    channels (whole sectors), symmetrises gA once, and writes both
+//    channel-major in rows on 128-byte lines, so the two kernels after it
+//    copy whole rows with 16-byte cp.async;
+//  * gmh_score_grad takes each tanh once: a step forms gS of a tile pair
+//    and feeds gQ and gK's partial; gK's partials go through an L2-resident
+//    scratch and are summed in a fixed order after one cluster barrier
+//    (its comment below); register patches of 4 x 4 scores and 2 x 4
+//    products fed by 16-byte loads, strides chosen for no bank conflicts;
+//    62 KB, three blocks an SM;
+//  * the row-tile kernel streams the adjacency's columns (V) and rows (P1)
+//    and X through double-buffered 32-row chunks instead of holding them
+//    (112 KB with dA: two blocks an SM), V and P1 in one pass on
+//    different warps, then dA from X staged whole; the long product V is
+//    split over a chunk's rows with 48 outputs a thread; U gives dX's rows
+//    (d_R o U = Z W^T), so that product goes; the rows' degree sums ride
+//    along the P1 pass.
+// Every sum across blocks runs in a fixed order: results repeat bit for
+// bit.  Measured on the same card in one call, in turns with the first
+// design (scripts/grad_stage_times.py --parent): C = 8 the whole call 807
+// us (1875), gmh_score_grad 183 (747), the row-tile kernel 349 (920), the
+// layout pass 63; C = 2 (F_in 5, no dX or dA) 208 (379), 54 (205), 53
+// (95), 13.  Still 6.8x, 7.4x and 1.6x their bounds: the stage script
+// finds ~54 us of gmh_score_grad and ~151 us of the row-tile kernel in
+// loads, barriers and small loops (PERF.md).
 
 #include "grad_common.cuh"
 
@@ -394,173 +420,413 @@ gmh_attention_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
 
 // ------------------------------------------------------------ N > 64
 
-// gmh_score_grad's shared layout (floats): this role's rows of the tile
-// kTile x ldq | two chunk buffers of the other operand's rows (kTile x
-// ldq) and of gA[R, chunk] and gA[chunk, R] (kTile x ldg each) | gS of
-// the chunk, H planes of kTile x ldg | the sums kTile x ldq.  Rows read
-// across a warp (the other operand's, gS's) have odd strides; a plane
-// starts 8 banks after the last, so the four heads a warp reads at one
-// column fall in distinct banks.
-struct ScoreGradLayout {
-  int ldq, ldg, plane, rows, gbuf, rs, ro, g1, g2, gs, out, total;
-  __host__ __device__ ScoreGradLayout(int A, int H) {
-    ldq = odd(A);
-    ldg = odd(kTile);
-    plane = kTile * ldg;
-    plane += (40 - plane % 32) % 32;
-    rows = round4(kTile * ldq);
-    gbuf = round4(kTile * ldg);
-    rs = 0;
-    ro = rs + rows;
-    g1 = ro + 2 * rows;
-    g2 = g1 + 2 * gbuf;
-    gs = g2 + 2 * gbuf;
-    out = gs + round4(H * plane);
-    total = out + rows;
-  }
-};
+// The two halves of a cluster barrier (PTX barrier.cluster): every thread
+// of every block of the cluster arrives, releasing its shared-memory writes,
+// and later waits, acquiring the others'; each arrive is followed by one
+// wait before the next arrive.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
-// Block (role, tile) x channel x graph: out[n, j] = sum_m gS_h[n, m]
-// R'[m, j] for the tile's rows n, h = j / ds, with
-//   gS_h[n, m] = s gM[n, m] (1 - tanh(s R_h[n] . R'_h[m])^2) / H,
-//   gM = (gA + gA^T) / 2;
-// role 0: R = Q, R' = K (out = gQ); role 1: R = K, R' = Q (out = gK: gM is
-// symmetric and the dot the same).  qk and gqk: (B, C, N, 2A), Q then K.
+// Row stride (floats) of the layout pass's outputs and of dA's
+// channel-major scratch: rows on 128-byte lines, so a tile's row is whole
+// lines.
+__host__ __device__ constexpr int map_row(int N) { return (N + 31) & ~31; }
+
+// ---------------------------------------------------- the layout pass
+
+// A thread takes one entry (n, m) of one graph, all C channels: it reads
+// gA[n, m, :] and gA[m, n, :] (in a channels-last dL/dA, each C floats in a
+// run, whole 32-byte sectors at C = 8; 16-byte loads where the run allows)
+// and writes, channel-major with rows of map_row(N) floats (the pad zero),
+//   gm[b, c, n, m] = (gA[n, m, c] + gA[m, n, c]) / 2
+// (so gm[n, m] and gm[m, n] are the same bits), and where ac is not null
+// ac[b, c, n, m] = A[b, c, n, m], the adjacency copied channel-major (a
+// later layer's channels-last view).  Lanes run along m, so each channel's
+// stores are whole 128-byte lines; a block is 8 rows n x 32 columns m.
+// No shared memory: every byte is read once and written once, except
+// gA, read in both orientations (the second read mostly from L2).
+constexpr int kLayoutRows = kThreads / 32;
+
+// Whether C floats at p, q (and r) in steps of sc are dense, 16-byte
+// aligned runs that float4 loads can take.
+__device__ __forceinline__ bool float4_runs(long long sc, int C, const float* p,
+                                            const float* q = nullptr) {
+  return sc == 1 && (C & 3) == 0 &&
+         ((reinterpret_cast<uintptr_t>(p) | reinterpret_cast<uintptr_t>(q)) & 15) == 0;
+}
+
 __global__ void __launch_bounds__(kThreads)
-gmh_score_grad_kernel(const float* __restrict__ qk, const float* __restrict__ ga,
-                      float* __restrict__ gqk, int C, int N, int A, int H, int ds,
+gmh_bwd_layout_kernel(const float* __restrict__ ga, const float* __restrict__ adj,
+                      float* __restrict__ gm, float* __restrict__ ac, int C, int N,
                       long long gs_b, long long gs_n, long long gs_m, long long gs_c,
-                      float score_div) {
-  extern __shared__ __align__(16) float smem[];
-  const ScoreGradLayout L(A, H);
-  float* sRs = smem + L.rs;
-  float* sRo = smem + L.ro;
-  float* sG1 = smem + L.g1;
-  float* sG2 = smem + L.g2;
-  float* sGS = smem + L.gs;
-  float* sOut = smem + L.out;
-  const int nt = cdiv(N, kTile);
-  const int role = blockIdx.x / nt, r0 = (blockIdx.x % nt) * kTile;
-  const int nr = min(kTile, N - r0);
-  const int c = blockIdx.y, b = blockIdx.z;
-  const int A2 = 2 * A;
-  const float* base = qk + (static_cast<size_t>(b) * C + c) * N * A2;
-  const float* other = base + (1 - role) * A;
-  const float* gab = ga + b * gs_b + c * gs_c;
-  stage(sRs, L.ldq, base + static_cast<size_t>(r0) * A2 + role * A, A2, 1, nr, A);
-  gmh::cp_async_commit();
-  const float s = 1.0f / score_div, gscale = s / static_cast<float>(H);
-
-  chunk_loop(
-      N,
-      [&](int k, int buf) {
-        const int m0 = k * kTile, mc = min(kTile, N - m0);
-        stage(sRo + buf * L.rows, L.ldq, other + static_cast<size_t>(m0) * A2, A2, 1, mc, A);
-        stage(sG1 + buf * L.gbuf, L.ldg, gab + r0 * gs_n + m0 * gs_m, gs_n, gs_m, nr, mc);
-        stage(sG2 + buf * L.gbuf, L.ldg, gab + m0 * gs_n + r0 * gs_m, gs_n, gs_m, mc, nr);
-      },
-      [&](int k, int buf) {
-        const int mc = min(kTile, N - k * kTile);
-        const float* ro = sRo + buf * L.rows;
-        const float* g1 = sG1 + buf * L.gbuf;
-        const float* g2 = sG2 + buf * L.gbuf;
-        // gS of the chunk: a thread an entry (h, r, m), m fastest
-        for (int i = threadIdx.x; i < H * nr * mc; i += blockDim.x) {
-          const int m = i % mc, hr = i / mc, r = hr % nr, h = hr / nr;
-          const float* a = sRs + r * L.ldq + h * ds;
-          const float* o = ro + m * L.ldq + h * ds;
-          float dot = 0.f;
-          if (!ablated(kScores))
-            for (int j = 0; j < ds; ++j) dot = fmaf(a[j], o[j], dot);
-          const float t = tanhf(dot * s);
-          const float gm = 0.5f * (g1[r * L.ldg + m] + g2[m * L.ldg + r]);
-          sGS[h * L.plane + r * L.ldg + m] = gscale * gm * (1.0f - t * t);
-        }
-        __syncthreads();
-        // out[r, j] += sum_m gS_h[r, m] R'[m, j]: a thread an output
-        for (int i = threadIdx.x; i < nr * A; i += blockDim.x) {
-          const int r = i / A, j = i - r * A;
-          const float* gsr = sGS + (j / ds) * L.plane + r * L.ldg;
-          float acc = 0.f;
-          if (!ablated(kGradQK))
-            for (int m = 0; m < mc; ++m) acc = fmaf(gsr[m], ro[m * L.ldq + j], acc);
-          float* sum = sOut + r * L.ldq + j;
-          *sum = k == 0 ? acc : *sum + acc;
-        }
-      });
-
-  float* dst = gqk + ((static_cast<size_t>(b) * C + c) * N + r0) * A2 + role * A;
-  for (int i = threadIdx.x; i < nr * A; i += blockDim.x) {
-    const int r = i / A, j = i - r * A;
-    dst[static_cast<size_t>(r) * A2 + j] = sOut[r * L.ldq + j];
+                      long long as_b, long long as_c, long long as_n, long long as_m) {
+  const int ldm = map_row(N), b = blockIdx.z;
+  const int n = blockIdx.y * kLayoutRows + (threadIdx.x >> 5);
+  const int m = blockIdx.x * 32 + (threadIdx.x & 31);
+  if (n >= N || m >= ldm) return;
+  const size_t plane = static_cast<size_t>(N) * ldm;
+  float* g = gm + static_cast<size_t>(b) * C * plane + static_cast<size_t>(n) * ldm + m;
+  float* a = ac ? ac + static_cast<size_t>(b) * C * plane + static_cast<size_t>(n) * ldm + m
+                : nullptr;
+  const bool pad = m >= N, zero = pad || ablated(kLoads);
+  const float* p = ga + b * gs_b + n * gs_n + m * gs_m;  // gA[n, m, :]
+  const float* q = ga + b * gs_b + m * gs_n + n * gs_m;  // gA[m, n, :]
+  if (!zero && float4_runs(gs_c, C, p, q)) {
+    for (int c = 0; c < C; c += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + c);
+      const float4 y = *reinterpret_cast<const float4*>(q + c);
+      g[c * plane] = 0.5f * (x.x + y.x);
+      g[(c + 1) * plane] = 0.5f * (x.y + y.y);
+      g[(c + 2) * plane] = 0.5f * (x.z + y.z);
+      g[(c + 3) * plane] = 0.5f * (x.w + y.w);
+    }
+  } else {
+    for (int c = 0; c < C; ++c) g[c * plane] = zero ? 0.f : 0.5f * (p[c * gs_c] + q[c * gs_c]);
+  }
+  if (!a) return;
+  const float* s = adj + b * as_b + n * as_n + m * as_m;  // A[:, n, m]
+  if (!zero && float4_runs(as_c, C, s)) {
+    for (int c = 0; c < C; c += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(s + c);
+      a[c * plane] = x.x;
+      a[(c + 1) * plane] = x.y;
+      a[(c + 2) * plane] = x.z;
+      a[(c + 3) * plane] = x.w;
+    }
+  } else {
+    for (int c = 0; c < C; ++c) a[c * plane] = zero ? 0.f : s[c * as_c];
   }
 }
 
-// gmh_attention_bwd_tiled's shared layout (floats), each region 16-byte
-// aligned: [Wq | Wk | Wv] Fi x ldw | X N x ldx | d N | two chunk buffers
-// of A' columns R (kTile x ldc) and of gP (kTile x ldp) | V, gP[R], Z
-// kTile x ldp | partial dW, db (T) | where dA is asked for: A[R, :] kTile x
-// lda | gNX, P1, U kTile x ldx | dr kTile.
-struct TiledLayout {
-  int P, T, ldw, ldx, ldp, ldc, lda;
-  int w, x, d, ac, gc, v, gpr, z, part, ar, gnx, p1, u, dr, total;
-  __host__ __device__ TiledLayout(int N, int Fi, int A, int O, bool need_adj) {
+// ---------------------------------------------------- gmh_score_grad
+
+// A cluster of nt = cdiv(N, kTile) blocks takes one (graph, channel); block
+// I (its rank) owns the rows of tile I.  In step J = 0 .. nt - 1 it takes
+// the tile pair (I, J) and forms gS_h(I, J) once, each tanh once a head
+// and entry:
+//   gS_h[n, m] = s gm[n, m] (1 - tanh(s Q_h[n] . K_h[m])^2) / H
+// which feeds both gQ[I] += gS K[J] (kept in registers over the steps: its
+// sum over J runs in step order) and the partial P(I, J) = gS^T Q[I] of
+// gK[J], written to part_k (B, C, nt, N, attn) in device memory (it stays
+// in L2).  After its last step a block passes one cluster barrier (every
+// partial of the graph and channel written) and sums gK[I] = sum_J' P(J',
+// I) over J' = 0 .. nt - 1 in that order: no float atomics, and no block
+// waits on another before its last step.
+//
+// Work of a step, 256 threads: scores a thread a head's 4 x 4 patch (rows
+// pr + 8 i, columns pc + 8 j; a warp 8 pr x 4 pc), 16-byte loads of four
+// d, gS written both ways; the products threads 0-127 gQ, 128-255 P, each
+// 2 rows x 4 columns (a quad of one head), both reading gS 16 bytes at a
+// time along their sum (gS for gQ, gS^T for P).  Strides (floats): gm and
+// gS rows 36 (4 mod 32), gS planes 16 mod 32, gS^T rows 40 (8 mod 32) and
+// planes 4 mod 32, so a warp's scalar stores of a patch position, and its
+// reads of gm, fall in 32 distinct banks, and the 16 distinct 16-byte rows
+// a products warp reads at one k (4 rows x 4 heads) in exactly two
+// wavefronts; Q and K rows are ld4.
+constexpr int kSgLd = 36;                     // gm tile and gS rows
+constexpr int kSgPlane = kTile * kSgLd + 16;  // a head's gS
+constexpr int kSgLdT = 40;                    // gS^T rows
+constexpr int kSgPlaneT = kTile * kSgLdT + 4; // a head's gS^T
+constexpr int kMaxTiles = 16;                 // the largest (non-portable) cluster
+
+struct ScoreGradLayout {
+  int ldq, q, k, g, s, st, total;
+  __host__ __device__ ScoreGradLayout(int A, int H) {
+    ldq = ld4(A);
+    q = 0;                           // Q rows of tile I
+    k = q + kTile * ldq;             // K rows of tile J, two buffers
+    g = k + 2 * kTile * ldq;         // gm[I, J], two buffers
+    s = g + 2 * kTile * kSgLd;       // gS, H planes
+    st = s + round4(H * kSgPlane);   // gS^T, H planes
+    total = st + round4(H * kSgPlaneT);
+  }
+};
+
+// Whether the design takes attn A in H heads: quads of four columns in one
+// head (ds % 4 == 0) and a gQ patch a thread of threads 0-127 (A <= 32).
+__host__ __device__ constexpr bool score_grad_takes(int A, int H) {
+  return H > 0 && A % H == 0 && (A / H) % 4 == 0 && A <= 32;
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
+gmh_score_grad_kernel(const float* __restrict__ qk, const float* __restrict__ gm,
+                      float* __restrict__ gqk, float* __restrict__ part_k, int C, int N, int A,
+                      int H, int ds, float score_div) {
+  extern __shared__ __align__(16) float smem[];
+  const ScoreGradLayout L(A, H);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nt = cdiv(N, kTile), I = static_cast<int>(cluster.block_rank());
+  const int c = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int I0 = I * kTile, nI = min(kTile, N - I0);
+  const int A2 = 2 * A, nq = A / 4, ldq = L.ldq, ldm = map_row(N);
+  const size_t bc = static_cast<size_t>(b) * C + c;
+  const float* qkb = qk + bc * N * A2;
+  const float* gmb = gm + bc * N * ldm;
+  float* pk = part_k + bc * nt * N * A;  // P(I', J) at pk + (I' N + J0 + m) A
+  float* sQ = smem + L.q;
+  float* sS = smem + L.s;
+  float* sST = smem + L.st;
+  const float s = 1.0f / score_div, gscale = s / static_cast<float>(H);
+
+  // rows past a ragged tile's end are zero (their gS is zero too), so no
+  // product meets stale values
+  auto zero_rows = [&](float* dst, int from, int cols) {
+    for (int i = tid; i < (kTile - from) * cols; i += blockDim.x)
+      dst[(from + i / cols) * ldq + i % cols] = 0.f;
+  };
+  auto load = [&](int J, int buf) {
+    const int J0 = J * kTile, nJ = min(kTile, N - J0);
+    float* sK = smem + L.k + buf * kTile * ldq;
+    stage(sK, ldq, qkb + static_cast<size_t>(J0) * A2 + A, A2, 1, nJ, A);
+    zero_rows(sK, nJ, A);
+    stage(smem + L.g + buf * kTile * kSgLd, kSgLd, gmb + static_cast<size_t>(I0) * ldm + J0,
+          ldm, 1, nI, nJ);
+  };
+
+  stage(sQ, ldq, qkb + static_cast<size_t>(I0) * A2, A2, 1, nI, A);
+  zero_rows(sQ, nI, A);
+  load(0, 0);
+  gmh::cp_async_commit();
+  const int u = tid & 127, r = u / nq, c0 = 4 * (u - r * nq), h = c0 / ds;
+  const bool prod = u < 16 * nq && !ablated(kGradQK);
+  float gq[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  for (int J = 0; J < nt; ++J) {
+    const int buf = J & 1, J0 = J * kTile, nJ = min(kTile, N - J0);
+    const float* sK = smem + L.k + buf * kTile * ldq;
+    const float* sG = smem + L.g + buf * kTile * kSgLd;
+    gmh::cp_async_wait<0>();
+    __syncthreads();  // step J's tiles landed; step J - 1's products are done
+    if (J + 1 < nt) {
+      load(J + 1, buf ^ 1);
+      gmh::cp_async_commit();
+    }
+
+    // gS of the pair, and gS^T: a thread a head's 4 x 4 patch
+    for (int p = tid; p < H * 64; p += blockDim.x) {
+      const int hh = p >> 6, pr = p & 7, pc = (p >> 3) & 7;
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      if (!ablated(kScores))
+        for (int d = hh * ds; d < (hh + 1) * ds; d += 4) {
+          float4 qa[4], kb[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            qa[i] = *reinterpret_cast<const float4*>(sQ + (pr + 8 * i) * ldq + d);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            kb[j] = *reinterpret_cast<const float4*>(sK + (pc + 8 * j) * ldq + d);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              acc[i][j] = fmaf(qa[i].x, kb[j].x, acc[i][j]);
+              acc[i][j] = fmaf(qa[i].y, kb[j].y, acc[i][j]);
+              acc[i][j] = fmaf(qa[i].z, kb[j].z, acc[i][j]);
+              acc[i][j] = fmaf(qa[i].w, kb[j].w, acc[i][j]);
+            }
+        }
+      float* out = sS + hh * kSgPlane;
+      float* outT = sST + hh * kSgPlaneT;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = pr + 8 * i, m = pc + 8 * j;
+          float v = 0.f;
+          if (n < nI && m < nJ && !ablated(kScores)) {
+            const float th = tanhf(acc[i][j] * s);
+            v = gscale * sG[n * kSgLd + m] * (1.0f - th * th);
+          }
+          out[n * kSgLd + m] = v;
+          outT[m * kSgLdT + n] = v;
+        }
+    }
+    __syncthreads();  // gS complete
+
+    // gQ[I] += gS K[J] (threads 0-127); P(I, J) = gS^T Q[I] into part_k
+    // (threads 128-255): rows r and r + 16, the quad c0 of head h
+    if (prod) {
+      const bool q_side = tid < 128;
+      const float* g0 = q_side ? sS + h * kSgPlane + r * kSgLd : sST + h * kSgPlaneT + r * kSgLdT;
+      const float* g1 = g0 + 16 * (q_side ? kSgLd : kSgLdT);
+      const float* rhs = (q_side ? sK : sQ) + c0;
+      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      for (int k = 0; k < kTile; k += 4) {
+        const float4 a0 = *reinterpret_cast<const float4*>(g0 + k);
+        const float4 a1 = *reinterpret_cast<const float4*>(g1 + k);
+        const float av0[4] = {a0.x, a0.y, a0.z, a0.w}, av1[4] = {a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4 bv = *reinterpret_cast<const float4*>(rhs + (k + e) * ldq);
+          acc[0][0] = fmaf(av0[e], bv.x, acc[0][0]);
+          acc[0][1] = fmaf(av0[e], bv.y, acc[0][1]);
+          acc[0][2] = fmaf(av0[e], bv.z, acc[0][2]);
+          acc[0][3] = fmaf(av0[e], bv.w, acc[0][3]);
+          acc[1][0] = fmaf(av1[e], bv.x, acc[1][0]);
+          acc[1][1] = fmaf(av1[e], bv.y, acc[1][1]);
+          acc[1][2] = fmaf(av1[e], bv.z, acc[1][2]);
+          acc[1][3] = fmaf(av1[e], bv.w, acc[1][3]);
+        }
+      }
+      if (q_side) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) gq[i][e] += acc[i][e];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (r + 16 * i < nJ)
+            *reinterpret_cast<float4*>(pk + (static_cast<size_t>(I) * N + J0 + r + 16 * i) * A +
+                                       c0) = make_float4(acc[i][0], acc[i][1], acc[i][2],
+                                                         acc[i][3]);
+      }
+    } else if (tid >= 128 && u < 16 * nq) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (r + 16 * i < nJ)
+          *reinterpret_cast<float4*>(pk + (static_cast<size_t>(I) * N + J0 + r + 16 * i) * A +
+                                     c0) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+
+  // every partial of this graph and channel written: gK[I] = sum over J'
+  // of P(J', I), in the order J' = 0 .. nt - 1, read from L2
+  float gk[4] = {0.f, 0.f, 0.f, 0.f};
+  if (!ablated(kReduce)) {
+    __threadfence();
+    cluster_arrive();
+    cluster_wait();
+    if (tid < kTile * nq && tid / nq < nI) {
+      const float* src = pk + (static_cast<size_t>(I0) + tid / nq) * A + 4 * (tid % nq);
+      for (int j0 = 0; j0 < nt; j0 += 4) {
+        float4 v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j0 + e < nt)
+            v[e] = __ldcg(reinterpret_cast<const float4*>(src + static_cast<size_t>(j0 + e) * N * A));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j0 + e < nt) {
+            gk[0] += v[e].x;
+            gk[1] += v[e].y;
+            gk[2] += v[e].z;
+            gk[3] += v[e].w;
+          }
+      }
+    }
+  }
+
+  float* dst = gqk + bc * N * A2 + static_cast<size_t>(I0) * A2;
+  if (tid < 16 * nq) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (r + 16 * i < nI)
+        *reinterpret_cast<float4*>(dst + (r + 16 * i) * A2 + c0) =
+            make_float4(gq[i][0], gq[i][1], gq[i][2], gq[i][3]);
+  }
+  if (tid < kTile * nq && tid / nq < nI)
+    *reinterpret_cast<float4*>(dst + (tid / nq) * A2 + A + 4 * (tid % nq)) =
+        make_float4(gk[0], gk[1], gk[2], gk[3]);
+}
+
+// ------------------------------------------- gmh_attention_bwd_tiled
+
+// A block takes one row tile R = [r0, r0 + nr) of one graph and channel:
+// the row-tile scheme of grad_common.cuh over gP = [gQ | gK | gV], with A'
+// read from rows of unit column stride (the adjacency itself where its
+// rows are, else the layout pass's channel-major copy), in a
+// double-buffered pass over chunks of kTile rows (and columns) and a pass
+// over X whole:
+//   1. V = A'[:, R]^T (d o gP) (the long product, 2 N P a row: split
+//      over a chunk's rows by groups of 64 threads, four without dA and
+//      three with it, a thread 4 rows x 3 quads of P in registers, 16-byte
+//      loads, the groups' partials added in a fixed order at the end) and,
+//      with dA, on the last two warps, from the same chunk index P1 =
+//      A'[R, :] (d o X) and the rows' sums of A' in gcn_degrees.cu's order
+//      (a lane a column of the chunk), whose slope gives dr = slope (gNX .
+//      P1 + X . U);
+//   then U = V W^T, this channel's dX rows d_R o U (= Z W^T, into part_x),
+//   gNX = gP[R] W^T, Z = d_R o V;
+//   2. (dA) dA[n, m] = d_n d_m gNX[n] . X[m] + dr[n], X of the graph staged
+//      whole (52 KB at grid's widths) over the chunks' buffers, written
+//      through dadj's strides (channels-last, the C blocks of a row tile,
+//      which run together, fill each sector in L2);
+// then the block's dW = X[R]^T Z and db = sum_R gP[R], summed over the
+// channel's blocks (clusters of kCluster (graph, row tile) blocks laid
+// along y, then tickets), and dX over channels by the last channel of each
+// (graph, row tile).  Channels run along x, so the C blocks of one row tile
+// run together.  112 KB with dA: two blocks an SM.
+struct RowTileLayout {
+  int P, T, ldw, ldx, ldp, lda, chunk;
+  int w, d, xr, gpr, v, u, gnx, p1, sl, dr, st, total;
+  __host__ __device__ RowTileLayout(int N, int Fi, int A, int O, bool need_x, bool need_adj) {
     P = 2 * A + O;
     T = Fi * P + P;
     ldw = ld4(P);
     ldx = ld4(Fi);
     ldp = ld4(P);
-    ldc = ld4(kTile);
-    lda = ld4(N);
+    lda = ld4(kTile);  // A' columns R of a chunk's rows, and its rows R
+    // a chunk's A' columns and gP rows, and with dA its A' rows and X rows
+    chunk = kTile * (lda + ldp + (need_adj ? lda + ldx : 0));
     w = 0;
-    x = w + Fi * ldw;
-    d = x + N * ldx;
-    ac = d + round4(N);
-    gc = ac + 2 * kTile * ldc;
-    v = gc + 2 * kTile * ldp;
-    gpr = v + kTile * ldp;
-    z = gpr + kTile * ldp;
-    part = z + kTile * ldp;
-    ar = part + round4(T);
-    gnx = ar + (need_adj ? kTile * lda : 0);
+    d = w + Fi * ldw;
+    xr = d + round4(N);
+    gpr = xr + kTile * ldx;
+    v = gpr + kTile * ldp;
+    u = v + kTile * ldp;
+    gnx = u + (need_x || need_adj ? kTile * ldx : 0);
     p1 = gnx + (need_adj ? kTile * ldx : 0);
-    u = p1 + (need_adj ? kTile * ldx : 0);
-    dr = u + (need_adj ? kTile * ldx : 0);
-    total = dr + (need_adj ? kTile : 0);
+    sl = p1 + (need_adj ? kTile * ldx : 0);
+    dr = sl + (need_adj ? kTile : 0);
+    st = dr + (need_adj ? kTile : 0);
+    // the chunks; then X whole (the dA pass); then the dW partial
+    total = st + imax(imax(2 * chunk, round4(T)), need_adj ? N * ldx : 0);
   }
 };
 
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+// Whether the design takes P = 2 attn + F_out: quads of P, at most 24 (3 a
+// thread of a V pass group).
+__host__ __device__ constexpr bool row_tile_takes(int A, int O) {
+  return (2 * A + O) % 4 == 0 && 2 * A + O <= 96;
+}
+
+__global__ void __cluster_dims__(1, kCluster, 1) __launch_bounds__(kThreads, 2)
 gmh_attention_bwd_tiled_kernel(
     const float* __restrict__ x, const float* __restrict__ adj, const float* __restrict__ deg,
     const float* __restrict__ wq, const float* __restrict__ wk, const float* __restrict__ wv,
     const float* __restrict__ gqk, const float* __restrict__ gv, float* __restrict__ dx,
     float* __restrict__ dadj, float* __restrict__ part_x, float* __restrict__ part_w,
     float* __restrict__ out_w, int* __restrict__ tickets, int B, int C, int N, int Fi, int A,
-    int O, long long as_b, long long as_c, long long as_n, long long as_m, long long ds_b,
-    long long ds_c, long long ds_n, long long ds_m, int add_loop, float loop) {
+    int O, long long a_b, long long a_c, long long a_n, long long ds_b, long long ds_c,
+    long long ds_n, long long ds_m, int add_loop, float loop) {
   extern __shared__ __align__(16) float smem[];
   const bool need_x = dx != nullptr, need_adj = dadj != nullptr;
-  const TiledLayout L(N, Fi, A, O, need_adj);
-  const int P = L.P, A2 = 2 * A;
+  const RowTileLayout L(N, Fi, A, O, need_x, need_adj);
+  const int P = L.P, A2 = 2 * A, nq = P / 4;
   float* sW = smem + L.w;
-  float* sX = smem + L.x;
   float* sD = smem + L.d;
-  float* sAc = smem + L.ac;
-  float* sGc = smem + L.gc;
-  float* sV = smem + L.v;
+  float* sXR = smem + L.xr;
   float* sGPR = smem + L.gpr;
-  float* sZ = smem + L.z;
-  float* sPart = smem + L.part;
-  float* sAr = smem + L.ar;
+  float* sV = smem + L.v;
+  float* sU = smem + L.u;
   float* sGNX = smem + L.gnx;
   float* sP1 = smem + L.p1;
-  float* sU = smem + L.u;
+  float* sSl = smem + L.sl;
   float* sDr = smem + L.dr;
+  float* sSt = smem + L.st;
+  float* sPart = smem + L.st;  // over the chunks, once the passes are done
   const int nt = cdiv(N, kTile);
-  const int bt = blockIdx.x, c = blockIdx.y;
+  const int c = blockIdx.x, bt = blockIdx.y;
   const int b = bt / nt, r0 = (bt % nt) * kTile, nr = min(kTile, N - r0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
 
   if (b < B) {  // else a padding block of the last cluster
     const float* w[3] = {wq + static_cast<size_t>(c) * Fi * A,
@@ -570,158 +836,261 @@ gmh_attention_bwd_tiled_kernel(
       const int width = m < 2 ? A : O;
       stage(sW + m * A, L.ldw, w[m], width, 1, Fi, width);
     }
-    stage(sX, L.ldx, x + static_cast<size_t>(b) * N * Fi, Fi, 1, N, Fi);
+    const float* xb = x + static_cast<size_t>(b) * N * Fi;
     stage(sD, N, deg + (static_cast<size_t>(b) * C + c) * N, N, 1, 1, N);
+    stage(sXR, L.ldx, xb + static_cast<size_t>(r0) * Fi, Fi, 1, nr, Fi);
     const float* gqb = gqk + (static_cast<size_t>(b) * C + c) * N * A2;
     const float* gvb = gv + static_cast<size_t>(b) * N * C * O + static_cast<size_t>(c) * O;
     stage(sGPR, L.ldp, gqb + static_cast<size_t>(r0) * A2, A2, 1, nr, A2);
     stage(sGPR + A2, L.ldp, gvb + static_cast<size_t>(r0) * C * O, C * O, 1, nr, O);
-    const float* ab = adj + b * as_b + c * as_c;
-    if (need_adj) stage(sAr, L.lda, ab + r0 * as_n, as_n, as_m, nr, N);
+    const float* ab = adj + b * a_b + c * a_c;
     gmh::cp_async_commit();
 
-    // V[r, p] = sum_n A'[n, r0 + r] d_n gP[n, p], over chunks of rows n
+    // 1. V = A'[:, R]^T (d o gP) by vg groups of 64 threads (all four
+    // without dA), with dA P1 = A'[R, :] (d o X) and the rows' sums of A' by
+    // threads 192-255, from the same chunk index (m = n).  V: group gi
+    // takes rows [js gi, js gi + js) of each chunk, a thread rows 4 rq..
+    // and quads cg + 8 i of P.  P1: a thread rows pq + 8 i and the quad f0
+    // of f; the row sums a warp every other row, a lane the columns of
+    // gcn_degrees.cu's lane (m = lane mod 32), in its order.
+    const int vg = need_adj ? 3 : 4, js = cdiv(kTile, vg);
+    const bool v_side = tid < 64 * vg, p1_side = need_adj && !v_side && !ablated(kRecompute);
+    const int gi = tid >> 6, rq = (tid & 63) >> 3, cg = tid & 7;
+    const int pq = (tid & 63) >> 3, f0 = 4 * (tid & 7), sw = warp & 1;
+    const bool xvec = (Fi & 3) == 0;
+    float vacc[4][3][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) vacc[i][k][e] = 0.f;
+    float pacc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pacc[i][e] = 0.f;
+    float rs[kTile / 2];
+#pragma unroll
+    for (int i = 0; i < kTile / 2; ++i) rs[i] = 0.f;
     chunk_loop(
         N,
         [&](int k, int buf) {
           const int n0 = k * kTile, mc = min(kTile, N - n0);
-          float* gc = sGc + buf * kTile * L.ldp;
-          stage(sAc + buf * kTile * L.ldc, L.ldc, ab + n0 * as_n + r0 * as_m, as_n, as_m, mc,
-                nr);
-          stage(gc, L.ldp, gqb + static_cast<size_t>(n0) * A2, A2, 1, mc, A2);
-          stage(gc + A2, L.ldp, gvb + static_cast<size_t>(n0) * C * O, C * O, 1, mc, O);
+          float* s = sSt + buf * L.chunk;
+          float* g = s + kTile * L.lda;
+          stage(s, L.lda, ab + n0 * a_n + r0, a_n, 1, mc, nr);
+          stage(g, L.ldp, gqb + static_cast<size_t>(n0) * A2, A2, 1, mc, A2);
+          stage(g + A2, L.ldp, gvb + static_cast<size_t>(n0) * C * O, C * O, 1, mc, O);
+          if (need_adj && !ablated(kRecompute)) {
+            float* ar = g + kTile * L.ldp;
+            stage(ar, L.lda, ab + r0 * a_n + n0, a_n, 1, nr, mc);
+            stage(ar + kTile * L.lda, L.ldx, xb + static_cast<size_t>(n0) * Fi, Fi, 1, mc, Fi);
+          }
         },
         [&](int k, int buf) {
-          const int n0 = k * kTile, mc = min(kTile, N - n0);
-          const float* ac = sAc + buf * kTile * L.ldc;
-          const float* gc = sGc + buf * kTile * L.ldp;
-          for (int p = threadIdx.x; p < patches<2, 4>(nr, P); p += blockDim.x)
-            patch<2, 4>(
-                p, nr, P, ablated(kGradX) ? 0 : mc,
-                [&](int r, int j) {
-                  const int n = n0 + j;
-                  return ((add_loop && n == r0 + r) ? loop : ac[j * L.ldc + r]) * sD[n];
-                },
-                [&](int j, int q) { return gc[j * L.ldp + q]; },
-                [&](int r, int q, float v) {
-                  float* acc = sV + r * L.ldp + q;
-                  *acc = k == 0 ? v : *acc + v;
-                });
+          const int n0 = k * kTile, mc = min(kTile, N - n0), off = n0 - r0;
+          float* s = sSt + buf * L.chunk;
+          float* ar = s + kTile * (L.lda + L.ldp);
+          if (add_loop && off >= 0 && off < nr) {  // the diagonal of A' in this chunk
+            if (tid < min(mc, nr - off)) {
+              s[tid * L.lda + off + tid] = loop;
+              if (need_adj) ar[(off + tid) * L.lda + tid] = loop;
+            }
+            __syncthreads();
+          }
+          if (v_side) {
+            const float* gc = s + kTile * L.lda;
+            const int j1 = ablated(kGradV) ? 0 : min(js * gi + js, mc);
+            for (int j = js * gi; j < j1; ++j) {
+              const float4 a = *reinterpret_cast<const float4*>(s + j * L.lda + 4 * rq);
+              const float dn = sD[n0 + j];
+              const float av[4] = {a.x * dn, a.y * dn, a.z * dn, a.w * dn};
+#pragma unroll
+              for (int q = 0; q < 3; ++q) {
+                if (cg + 8 * q >= nq) break;
+                const float4 g =
+                    *reinterpret_cast<const float4*>(gc + j * L.ldp + 4 * (cg + 8 * q));
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  vacc[i][q][0] = fmaf(av[i], g.x, vacc[i][q][0]);
+                  vacc[i][q][1] = fmaf(av[i], g.y, vacc[i][q][1]);
+                  vacc[i][q][2] = fmaf(av[i], g.z, vacc[i][q][2]);
+                  vacc[i][q][3] = fmaf(av[i], g.w, vacc[i][q][3]);
+                }
+              }
+            }
+          } else if (p1_side) {
+            const int col = lane - (n0 & 31);  // this lane's column of the chunk
+            if (col >= 0 && col < mc)
+#pragma unroll
+              for (int i = 0; i < kTile / 2; ++i)
+                if (sw + 2 * i < nr) rs[i] += ar[(sw + 2 * i) * L.lda + col];
+            const float* xc = ar + kTile * L.lda;
+            const int m1 = ablated(kGradAdj) || f0 >= Fi ? 0 : mc;
+            for (int j = 0; j < m1; ++j) {
+              const float dm = sD[n0 + j];
+              float xv[4];
+              if (xvec) {
+                const float4 t = *reinterpret_cast<const float4*>(xc + j * L.ldx + f0);
+                xv[0] = t.x * dm, xv[1] = t.y * dm, xv[2] = t.z * dm, xv[3] = t.w * dm;
+              } else {
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  xv[e] = f0 + e < Fi ? xc[j * L.ldx + f0 + e] * dm : 0.f;
+              }
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const float a = ar[(pq + 8 * i) * L.lda + j];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) pacc[i][e] = fmaf(a, xv[e], pacc[i][e]);
+              }
+            }
+          }
         });
-
-    // Z = d_R V (norm^T gP of the tile's rows); db = sum of the tile's
-    // rows of gP; the slope of the tile's rows where dA is asked for
-    for (int i = threadIdx.x; i < nr * P; i += blockDim.x) {
-      const int r = i / P, q = i - r * P;
-      sZ[r * L.ldp + q] = sD[r0 + r] * sV[r * L.ldp + q];
-    }
-    for (int q = threadIdx.x; q < P; q += blockDim.x) {
-      float acc = 0.f;
-      if (!ablated(kGradW))
-        for (int r = 0; r < nr; ++r) acc += sGPR[r * L.ldp + q];
-      sPart[Fi * P + q] = acc;
-    }
-    if (need_adj)
-      for (int r = warp; r < nr; r += nwarps) {
-        const float s = warp_row_sum(sAr + r * L.lda, 1, N, r0 + r, add_loop, loop);
-        if (lane == 0) sDr[r] = degree_slope(s);
+    if (p1_side) {
+      // P1's rows, and the slope of the rows' sums
+      if (f0 < Fi)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (f0 + e < Fi) sP1[(pq + 8 * i) * L.ldx + f0 + e] = pacc[i][e];
+#pragma unroll
+      for (int i = 0; i < kTile / 2; ++i) {
+        float v = rs[i];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (lane == 0 && sw + 2 * i < nr) sSl[sw + 2 * i] = degree_slope(v);
       }
-    __syncthreads();
+    }
+    // the groups' partials into V, in group order
+    for (int g = 0; g < vg; ++g) {
+      if (gi == g)
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          if (cg + 8 * q >= nq) break;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float4* o = reinterpret_cast<float4*>(sV + (4 * rq + i) * L.ldp + 4 * (cg + 8 * q));
+            const float4 prev = g ? *o : make_float4(0.f, 0.f, 0.f, 0.f);
+            *o = make_float4(prev.x + vacc[i][q][0], prev.y + vacc[i][q][1],
+                             prev.z + vacc[i][q][2], prev.w + vacc[i][q][3]);
+          }
+        }
+      __syncthreads();
+    }
 
-    // one pass: the block's dW = X[R]^T Z (dWq | dWk | dWv, each Fi x
-    // width); this channel's dX rows Z W^T into part_x; where dA is asked
-    // for gNX = gP[R] W^T, U = V W^T and P1 = A'[R, :] (d o X)
+    // U = V W^T (dX and dA); gNX = gP[R] W^T (dA)
+    const int per = patches<2, 2>(nr, Fi);
+    const int n_u = need_x || need_adj ? per : 0, n_g = need_adj ? per : 0;
+    for (int i = tid; i < n_u + n_g; i += blockDim.x) {
+      if (i < n_u)
+        patch_nt<2, 2>(i, sV, L.ldp, sW, L.ldw, nr, Fi, 0, ablated(kGradNX) ? 0 : P,
+                       [&](int r, int f, float v) { sU[r * L.ldx + f] = v; });
+      else
+        patch_nt<2, 2>(i - n_u, sGPR, L.ldp, sW, L.ldw, nr, Fi, 0, ablated(kGradNX) ? 0 : P,
+                       [&](int r, int f, float v) { sGNX[r * L.ldx + f] = v; });
+    }
+    __syncthreads();
+    // Z = d_R o V in place; this channel's dX rows d_R o U (= Z W^T)
+    for (int i = tid; i < nr * P; i += blockDim.x) {
+      const int r = i / P, q = i - r * P;
+      sV[r * L.ldp + q] *= sD[r0 + r];
+    }
+    float* px = need_x ? part_x + ((static_cast<size_t>(b) * C + c) * N + r0) * Fi : nullptr;
+    if (need_x)
+      for (int i = tid; i < nr * Fi; i += blockDim.x) {
+        const int r = i / Fi, f = i - r * Fi;
+        px[i] = ablated(kGradX) ? 0.f : sD[r0 + r] * sU[r * L.ldx + f];
+      }
+
+    if (need_adj) {
+      // dr = slope (gNX . P1 + X . U) of each of the tile's rows, a warp a row
+      for (int r = warp; r < nr; r += nwarps) {
+        float v = 0.f;
+        for (int f = lane; f < Fi; f += 32)
+          v = fmaf(sGNX[r * L.ldx + f], sP1[r * L.ldx + f],
+                   fmaf(sXR[r * L.ldx + f], sU[r * L.ldx + f], v));
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (lane == 0) sDr[r] = sSl[r] * v;
+      }
+      // (chunk_loop's first barrier orders dr before its reads)
+
+      // 2. dA[n, m] = d_n d_m gNX[n] . X[m] + dr[n] of the tile's rows,
+      // X of the graph staged whole over the chunks' buffers (free since
+      // the first pass's last barrier), one barrier
+      float* out = dadj + b * ds_b + c * ds_c + r0 * ds_n;
+      if (!ablated(kGradY)) {
+        stage(sSt, L.ldx, xb, Fi, 1, N, Fi);
+        gmh::cp_async_commit();
+        gmh::cp_async_wait<0>();
+        __syncthreads();  // X landed; dr written
+        for (int p = tid; p < patches<2, 2>(nr, N); p += blockDim.x)
+          patch_nt<2, 2>(p, sGNX, L.ldx, sSt, L.ldx, nr, N, 0, ablated(kGradAdj) ? 0 : Fi,
+                         [&](int r, int m, float v) {
+                           const int n = r0 + r;
+                           out[r * ds_n + m * ds_m] =
+                               (add_loop && n == m) ? 0.f : fmaf(v * sD[n], sD[m], sDr[r]);
+                         });
+      }
+      __syncthreads();  // X's buffers free for the dW partial
+    } else {
+      __syncthreads();  // Z complete before dW reads it
+    }
+
+    // the block's dW = X[R]^T Z (dWq | dWk | dWv, each Fi x width) and db
+    // = sum_R gP[R], into its partial over the chunks
     auto dw = [&](int f, int q, float v) {
       const int e = q < A ? f * A + q
                           : (q < A2 ? Fi * A + f * A + q - A : 2 * Fi * A + f * O + q - A2);
       sPart[e] = v;
     };
-    const int n_dw = patches<2, 4>(Fi, P);
-    const int n_dx = need_x ? patches<2, 2>(nr, Fi) : 0;
-    const int per = patches<2, 2>(nr, Fi);
-    const int n_adj = need_adj ? 3 * per : 0;
-    float* px = need_x ? part_x + ((static_cast<size_t>(b) * C + c) * N + r0) * Fi : nullptr;
-    for (int i = threadIdx.x; i < n_dw + n_dx + n_adj; i += blockDim.x) {
+    const int kw = ablated(kGradW) ? 0 : nr;
+    const int n_dw = patches4<4>(Fi, P);
+    for (int i = tid; i < n_dw + P; i += blockDim.x) {
       if (i < n_dw) {
-        patch<2, 4>(
-            i, Fi, P, ablated(kGradW) ? 0 : nr,
-            [&](int f, int j) { return sX[(r0 + j) * L.ldx + f]; },
-            [&](int j, int q) { return sZ[j * L.ldp + q]; }, dw);
-      } else if (i < n_dw + n_dx) {
-        patch_nt<2, 2>(i - n_dw, sZ, L.ldp, sW, L.ldw, nr, Fi, 0, ablated(kGradX) ? 0 : P,
-                       [&](int r, int f, float v) { px[r * Fi + f] = v; });
+        patch_tn4<4>(i, sXR, L.ldx, sV, L.ldp, Fi, P, kw, dw);
       } else {
-        const int j = i - n_dw - n_dx, which = j / per;
-        if (which == 0)
-          patch_nt<2, 2>(j - per * which, sGPR, L.ldp, sW, L.ldw, nr, Fi, 0,
-                         ablated(kGradNX) ? 0 : P,
-                         [&](int r, int f, float v) { sGNX[r * L.ldx + f] = v; });
-        else if (which == 1)
-          patch_nt<2, 2>(j - per * which, sV, L.ldp, sW, L.ldw, nr, Fi, 0,
-                         ablated(kGradNX) ? 0 : P,
-                         [&](int r, int f, float v) { sU[r * L.ldx + f] = v; });
-        else
-          patch<2, 2>(
-              j - per * which, nr, Fi, ablated(kGradAdj) ? 0 : N,
-              [&](int r, int m) {
-                return ((add_loop && m == r0 + r) ? loop : sAr[r * L.lda + m]) * sD[m];
-              },
-              [&](int m, int f) { return sX[m * L.ldx + f]; },
-              [&](int r, int f, float v) { sP1[r * L.ldx + f] = v; });
+        const int q = i - n_dw;
+        float acc = 0.f;
+        for (int r = 0; r < kw; ++r) acc += sGPR[r * L.ldp + q];
+        sPart[Fi * P + q] = acc;
       }
-    }
-
-    if (need_adj) {
-      __syncthreads();
-      // dr = slope (gNX . P1 + X . U) of each of the tile's rows, one warp a row
-      for (int r = warp; r < nr; r += nwarps) {
-        float s = 0.f;
-        for (int f = lane; f < Fi; f += 32)
-          s = fmaf(sGNX[r * L.ldx + f], sP1[r * L.ldx + f],
-                   fmaf(sX[(r0 + r) * L.ldx + f], sU[r * L.ldx + f], s));
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-        if (lane == 0) sDr[r] *= s;
-      }
-      __syncthreads();
-      // dA[n, m] = d_n d_m gNX[n] . X[m] + dr[n] of the tile's rows
-      float* out = dadj + b * ds_b + c * ds_c + r0 * ds_n;
-      for (int p = threadIdx.x; p < patches<2, 2>(nr, N); p += blockDim.x)
-        patch_nt<2, 2>(p, sGNX, L.ldx, sX, L.ldx, nr, N, 0, ablated(kGradAdj) ? 0 : Fi,
-                       [&](int r, int m, float v) {
-                         const int n = r0 + r;
-                         out[r * ds_n + m * ds_m] =
-                             (add_loop && n == m) ? 0.f : fmaf(v * sD[n], sD[m], sDr[r]);
-                       });
     }
 
     // dx[b, R] = sum_c part_x[b, c, R], by the last of the C channels'
     // blocks of this row tile to finish
     if (need_x && !ablated(kReduce) && last_arrival(tickets + C * kCluster + bt, C)) {
       const float* pb = part_x + (static_cast<size_t>(b) * C * N + r0) * Fi;
-      float* xb = dx + (static_cast<size_t>(b) * N + r0) * Fi;
-      for (int i = threadIdx.x; i < nr * Fi; i += blockDim.x)
-        xb[i] = ordered_sum_l2(pb + i, static_cast<long long>(N) * Fi, C);
+      float* xo = dx + (static_cast<size_t>(b) * N + r0) * Fi;
+      for (int i = tid; i < nr * Fi; i += blockDim.x)
+        xo[i] = ordered_sum_l2(pb + i, static_cast<long long>(N) * Fi, C);
     }
   } else {
     zero_fill(sPart, L.T);
   }
 
-  // dW and db of channel c over the batch, as the one-block kernel takes them
+  // dW and db of channel c over the batch, as the one-block kernel takes
+  // them (clusters along y)
   if (!ablated(kReduce)) {
     const int fa = Fi * A, fo = Fi * O, wsz = 2 * fa + fo;
-    batch_sum(sPart, L.T, gridDim.x / kCluster, part_w + static_cast<size_t>(c) * L.T,
-              static_cast<long long>(C) * L.T, tickets + c * kCluster, [&](int e, float v) {
-                int start, width;
-                if (e < wsz) {
-                  start = e < fa ? 0 : (e < 2 * fa ? fa : 2 * fa);
-                  width = e < 2 * fa ? fa : fo;
-                } else {
-                  start = e < wsz + A ? wsz : (e < wsz + 2 * A ? wsz + A : wsz + 2 * A);
-                  width = e < wsz + 2 * A ? A : O;
-                }
-                out_w[static_cast<size_t>(C) * start + c * width + e - start] = v;
-              });
+    batch_sum(
+        sPart, L.T, gridDim.y / kCluster, part_w + static_cast<size_t>(c) * L.T,
+        static_cast<long long>(C) * L.T, tickets + c * kCluster,
+        [&](int e, float v) {
+          int start, width;
+          if (e < wsz) {
+            start = e < fa ? 0 : (e < 2 * fa ? fa : 2 * fa);
+            width = e < 2 * fa ? fa : fo;
+          } else {
+            start = e < wsz + A ? wsz : (e < wsz + 2 * A ? wsz + A : wsz + 2 * A);
+            width = e < wsz + 2 * A ? A : O;
+          }
+          out_w[static_cast<size_t>(C) * start + c * width + e - start] = v;
+        },
+        static_cast<int>(blockIdx.y) / kCluster);
   }
 }
 
@@ -770,60 +1139,127 @@ extern "C" int gmh_attention_bwd_run(const float* x, const float* adj, const flo
   return (int)cudaGetLastError();
 }
 
-// Above N = 64: shared bytes of a gmh_score_grad block, and of a
-// gmh_attention_bwd_tiled block with or without dA.
+// Above N = 64: shared bytes of a block of gmh_score_grad (0 where its
+// design does not take attn A in H heads) and of the row-tile kernel (0
+// where it does not take P = 2 A + O).
 extern "C" int gmh_score_grad_smem(int A, int H) {
-  return static_cast<int>(sizeof(float)) * ScoreGradLayout(A, H).total;
+  return score_grad_takes(A, H) ? static_cast<int>(sizeof(float)) * ScoreGradLayout(A, H).total
+                                : 0;
 }
 
-extern "C" int gmh_attention_bwd_tiled_smem(int N, int Fi, int A, int O, int need_adj) {
-  return static_cast<int>(sizeof(float)) * TiledLayout(N, Fi, A, O, need_adj != 0).total;
+extern "C" int gmh_attention_bwd_tiled_smem(int N, int Fi, int A, int O, int need_x,
+                                            int need_adj) {
+  return row_tile_takes(A, O) ? static_cast<int>(sizeof(float)) *
+                                    RowTileLayout(N, Fi, A, O, need_x != 0, need_adj != 0).total
+                              : 0;
 }
 
-// qk (B, C, N, 2A) contiguous, Q | K of gmh_projection_run; ga = dL/dA
-// (B, N, N, C) through strides gs_* (b, n, m, c) -> gqk (B, C, N, 2A):
-// gQ | gK.  One launch on `stream`; returns its cudaError_t.
-extern "C" int gmh_score_grad_run(const float* qk, const float* ga, float* gqk, int B, int C,
-                                  int N, int A, int H, int ds, long long gs_b, long long gs_n,
-                                  long long gs_m, long long gs_c, float score_div,
-                                  void* stream) {
-  static int allowed = -1;
-  if (allowed < 0 && (allowed = allow_dynamic_smem(gmh_score_grad_kernel)) < 0)
-    return (int)cudaGetLastError();
-  const int smem = gmh_score_grad_smem(A, H);
-  if (smem > allowed || B > 65535 || C > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(2 * cdiv(N, kTile), C, B);
-  gmh_score_grad_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      qk, ga, gqk, C, N, A, H, ds, gs_b, gs_n, gs_m, gs_c, score_div);
+// ga = dL/dA (B, N, N, C) through strides gs_* (b, n, m, c); adj (B, C, N,
+// N) through strides as_* (b, c, n, m).  Writes gm (B, C, N, map_row(N))
+// contiguous and, where ac is not null, the adjacency copied into ac, the
+// same shape.  One launch on `stream`; returns its cudaError_t.
+extern "C" int gmh_bwd_layout_run(const float* ga, const float* adj, float* gm, float* ac, int B,
+                                  int C, int N, long long gs_b, long long gs_n, long long gs_m,
+                                  long long gs_c, long long as_b, long long as_c,
+                                  long long as_n, long long as_m, void* stream) {
+  if (B > 65535 || cdiv(N, kLayoutRows) > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(map_row(N) / 32, cdiv(N, kLayoutRows), B);
+  gmh_bwd_layout_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      ga, adj, gm, ac, C, N, gs_b, gs_n, gs_m, gs_c, as_b, as_c, as_n, as_m);
   return (int)cudaGetLastError();
 }
 
-// x (B, N, F_in) contiguous; adj (B, C, N, N) through strides as_*; deg
-// (B, C, N) of gcn_degrees_run; w* (C, F_in, .) contiguous; gqk (B, C, N,
-// 2A) of gmh_score_grad_run; gv = dL/dV (B, N, C F_out) contiguous.
-// Writes dx (or skips it: null), dadj through strides ds_* (or skips it),
-// out_w as gmh_attention_bwd_run.  `clusters` clusters of kCluster blocks
-// a channel (at least B * cdiv(N, kTile) blocks, one a row tile of a
-// graph); part_x (B, C, N, F_in) (null with dx) and part_w (clusters,
-// size of out_w) are scratch; tickets: at least kCluster C + B cdiv(N,
-// kTile) ints, zero, left zero.  One launch; returns its cudaError_t.
+// The launch configuration of gmh_score_grad: a cluster of the cdiv(N,
+// kTile) row tiles of each (graph, channel), above the portable 8 where
+// the tiles need it; null where the runtime refuses an attribute (its
+// error then pending).
+static bool score_grad_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int B, int C,
+                              int N, int A, int H, cudaStream_t stream) {
+  static int allowed = -1;
+  if (allowed < 0) {
+    if ((allowed = allow_dynamic_smem(gmh_score_grad_kernel)) < 0) return false;
+    if (cudaFuncSetAttribute(gmh_score_grad_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1) != cudaSuccess)
+      return false;
+  }
+  const int nt = cdiv(N, kTile);
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(nt, C, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = gmh_score_grad_smem(A, H);
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = nt;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cfg.dynamicSmemBytes) <= allowed;
+}
+
+// Clusters of gmh_score_grad that the card can hold at once for graphs of
+// N nodes (0: the cluster of cdiv(N, kTile) blocks is not granted), or
+// minus the cudaError_t of the query.
+extern "C" int gmh_score_grad_max_clusters(int N, int A, int H) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (!score_grad_takes(A, H) || cdiv(N, kTile) > kMaxTiles) return 0;
+  if (!score_grad_config(cfg, attr, 1, 1, N, A, H, 0)) return -(int)cudaGetLastError();
+  int clusters = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, gmh_score_grad_kernel, &cfg);
+  return e == cudaSuccess ? clusters : -(int)e;
+}
+
+// qk (B, C, N, 2A) contiguous, Q | K of gmh_projection_run; gm (B, C, N,
+// map_row(N)) of gmh_bwd_layout_run -> gqk (B, C, N, 2A): gQ | gK; part_k
+// (B, C, cdiv(N, kTile), N, A) is scratch.  One launch on `stream` (a
+// cluster of cdiv(N, kTile) <= kMaxTiles blocks a graph and channel);
+// returns its cudaError_t.
+extern "C" int gmh_score_grad_run(const float* qk, const float* gm, float* gqk, float* part_k,
+                                  int B, int C, int N, int A, int H, int ds, float score_div,
+                                  void* stream) {
+  if (!score_grad_takes(A, H) || A / H != ds || cdiv(N, kTile) > kMaxTiles || B > 65535 ||
+      C > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (!score_grad_config(cfg, attr, B, C, N, A, H, (cudaStream_t)stream)) {
+    const cudaError_t e = cudaGetLastError();
+    return (int)(e != cudaSuccess ? e : cudaErrorInvalidValue);
+  }
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, gmh_score_grad_kernel, qk, gm, gqk, part_k, C, N, A, H, ds,
+                         score_div);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// x (B, N, F_in) contiguous; a: the adjacency (B, C, N, >= N) in strides
+// a_* (b, c, n) with unit column stride (adj itself, or the layout pass's
+// ac); deg (B, C, N) of gcn_degrees_run; w* (C, F_in, .) contiguous; gqk
+// (B, C, N, 2A) of gmh_score_grad_run; gv = dL/dV (B, N, C F_out)
+// contiguous.  Writes dx (or skips it: null), dadj through strides ds_*
+// (or skips it), out_w as gmh_attention_bwd_run.  Blocks: C along x,
+// `clusters` clusters of kCluster along y (at least B * cdiv(N, kTile), one
+// a row tile of a graph); part_x (B, C, N, F_in) (null with dx) and part_w
+// (clusters, size of out_w) are scratch; tickets: at least kCluster C + B
+// cdiv(N, kTile) ints, zero, left zero.  One launch; returns its
+// cudaError_t.
 extern "C" int gmh_attention_bwd_tiled_run(
-    const float* x, const float* adj, const float* deg, const float* wq, const float* wk,
+    const float* x, const float* a, const float* deg, const float* wq, const float* wk,
     const float* wv, const float* gqk, const float* gv, float* dx, float* dadj, float* part_x,
     float* part_w, float* out_w, int* tickets, int B, int C, int N, int Fi, int A, int O,
-    int clusters, long long as_b, long long as_c, long long as_n, long long as_m,
-    long long ds_b, long long ds_c, long long ds_n, long long ds_m, int add_loop, float loop,
-    void* stream) {
+    int clusters, long long a_b, long long a_c, long long a_n, long long ds_b, long long ds_c,
+    long long ds_n, long long ds_m, int add_loop, float loop, void* stream) {
   static int allowed = -1;
   if (allowed < 0 && (allowed = allow_dynamic_smem(gmh_attention_bwd_tiled_kernel)) < 0)
     return (int)cudaGetLastError();
-  const int smem = gmh_attention_bwd_tiled_smem(N, Fi, A, O, dadj != nullptr);
-  if (smem > allowed || (dx == nullptr) != (part_x == nullptr) ||
-      clusters * kCluster < B * cdiv(N, kTile) || C > 65535)
+  const int smem = gmh_attention_bwd_tiled_smem(N, Fi, A, O, dx != nullptr, dadj != nullptr);
+  if (smem <= 0 || smem > allowed || (dx == nullptr) != (part_x == nullptr) ||
+      clusters * kCluster < B * cdiv(N, kTile) || clusters * kCluster > 65535 || C > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(clusters * kCluster, C);
+  const dim3 grid(C, clusters * kCluster);
   gmh_attention_bwd_tiled_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, adj, deg, wq, wk, wv, gqk, gv, dx, dadj, part_x, part_w, out_w, tickets, B, C, N, Fi,
-      A, O, as_b, as_c, as_n, as_m, ds_b, ds_c, ds_n, ds_m, add_loop, loop);
+      x, a, deg, wq, wk, wv, gqk, gv, dx, dadj, part_x, part_w, out_w, tickets, B, C, N, Fi, A,
+      O, a_b, a_c, a_n, ds_b, ds_c, ds_n, ds_m, add_loop, loop);
   return (int)cudaGetLastError();
 }

@@ -65,7 +65,14 @@ enum Stage : unsigned {
   kGradAdj = 128,   // gN (gcn: with Y = X W)
   kReduce = 256,    // the cluster and ticket sums (gmh: dX over channels too)
   kGradY = 512,     // gcn: dY = norm^T G
+  kGradV = 1024,    // gmh, N > 64: the row-tile kernel's V = A'[:, R]^T (d o gP)
 };
+// In gmh_attention_bwd.cu's designs above N = 64, kScores is the dots and
+// tanh of gmh_score_grad, kGradQK its two products, kReduce also its sum of
+// gK's partials after the cluster barrier; kGradNX is the row-tile
+// kernel's U and gNX, kGradAdj its P1 and dA products, kGradX its dX rows,
+// kRecompute its whole P1 role (loads, row sums, product), kGradY its
+// whole dA pass (loads, product, stores).
 __device__ constexpr bool ablated(Stage s) { return (GRAD_ABLATE & s) != 0; }
 
 __device__ __forceinline__ void zero_fill(float* p, int n) { gmh::zero_fill(p, n); }
@@ -467,12 +474,15 @@ __device__ __forceinline__ float ordered_sum_l2(const float* p, long long stride
 // (see the top of this file).  part + k * cstride holds cluster k's sums
 // (nclusters > 1), tickets[r] is slice r's ticket; out(e, v) receives each
 // of the T sums once.  All threads of every block of the cluster call it.
+// cid is the cluster's index among the channel's clusters (by default
+// blockIdx.x / kCluster: clusters laid along x).
 template <typename Out>
 __device__ __forceinline__ void batch_sum(float* local, int T, int nclusters, float* part,
-                                          long long cstride, int* tickets, Out out) {
+                                          long long cstride, int* tickets, Out out,
+                                          int cid = -1) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int cid = static_cast<int>(blockIdx.x) / kCluster;
+  if (cid < 0) cid = static_cast<int>(blockIdx.x) / kCluster;
   const int lo = T * rank / kCluster, hi = T * (rank + 1) / kCluster;
   const float* rem[kCluster];
 #pragma unroll

@@ -110,18 +110,25 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gmh_attention_bwd_smem": [_I] * 5,
         # B -> clusters of a channel's blocks
         "gmh_attention_bwd_clusters": [_I],
-        # above N = 64: Q | K, dL/dA, gQ | gK out, B, C, N, attn_dim, heads,
-        # head_dim, strides of dL/dA (b, n, m, c), score_div, stream
-        "gmh_score_grad_run": [_P] * 3 + [_I] * 6 + [_L] * 4 + [_F, _P],
-        # attn_dim, heads -> shared bytes of a block
+        # above N = 64: dL/dA, adj, gm out, ac out (or null), B, C, N,
+        # strides of dL/dA (b, n, m, c) and of adj (b, c, n, m), stream
+        "gmh_bwd_layout_run": [_P] * 4 + [_I] * 3 + [_L] * 8 + [_P],
+        # Q | K, gm, gQ | gK out, partials of gK, B, C, N, attn_dim, heads,
+        # head_dim, score_div, stream
+        "gmh_score_grad_run": [_P] * 4 + [_I] * 6 + [_F, _P],
+        # attn_dim, heads -> shared bytes of a block (0: not taken)
         "gmh_score_grad_smem": [_I] * 2,
-        # x, adj, degrees, wq, wk, wv, gQ | gK, dL/dV, dx, dadj, partials of
-        # dx, partials of the weights, out_w, tickets, B, C, N, F_in,
-        # attn_dim, F_out, clusters, strides of adj (b, c, n, m) and of dadj
-        # (b, c, n, m), add_loop, loop, stream
-        "gmh_attention_bwd_tiled_run": [_P] * 14 + [_I] * 7 + [_L] * 8 + [_I, _F, _P],
-        # N, F_in, attn_dim, F_out, need_adj -> shared bytes of a block
-        "gmh_attention_bwd_tiled_smem": [_I] * 5,
+        # N, attn_dim, heads -> clusters the card holds at once
+        "gmh_score_grad_max_clusters": [_I] * 3,
+        # x, adjacency rows (adj or ac), degrees, wq, wk, wv, gQ | gK,
+        # dL/dV, dx, dadj, partials of dx, partials of the weights, out_w,
+        # tickets, B, C, N, F_in, attn_dim, F_out, clusters, strides of the
+        # adjacency rows (b, c, n) and of dadj (b, c, n, m), add_loop, loop,
+        # stream
+        "gmh_attention_bwd_tiled_run": [_P] * 14 + [_I] * 7 + [_L] * 7 + [_I, _F, _P],
+        # N, F_in, attn_dim, F_out, need_x, need_adj -> shared bytes of a
+        # block (0: not taken)
+        "gmh_attention_bwd_tiled_smem": [_I] * 6,
     },
 }
 

@@ -41,11 +41,14 @@ launch, its sums over graphs and channels ordered by the tickets of
 adjacency's own layout, so a later layer's channels-last adjacency gets a
 channels-last gradient) and the six weights and biases.
 ``gmh_attention_bwd_plain`` writes the same gradients out by hand.  Above
-N = 64 the backward takes four launches over the ``bwd_plan``:
-``gcn_degrees``, ``gmh_projection`` (Q and K recomputed), ``gmh_score_grad``
-(gQ and gK, a block per row tile and role, counted under its own name) and
-the row-tile kernel that gives every gradient (counted as
-``gmh_attention_bwd``).  Nothing of the forward is saved.
+N = 64 the backward takes five launches over the ``score_plan`` and
+``bwd_plan``, each
+counted under its own name: ``gcn_degrees``, ``gmh_projection`` (Q and K
+recomputed), ``gmh_bwd_layout`` (dL/dA symmetrised and, for a
+channels-last adjacency, the adjacency, both copied channel-major),
+``gmh_score_grad`` (gQ and gK, a cluster of row-tile blocks a graph and
+channel) and ``gmh_attention_bwd_tiled`` (the row-tile kernel that gives
+every gradient).  Nothing of the forward is saved.
 """
 
 from __future__ import annotations
@@ -358,10 +361,6 @@ def gmh_attention_bwd_plain(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, num_heads: i
     C * F_out) and ga = dL/dA (B, N, N, C), by hand: (dx or None, dadj or
     None, dwq, dbq, dwk, dbk, dwv, dbv), a bias's gradient None where the
     bias is."""
-    B, N, Fi = x.shape
-    C, _, A = wq.shape
-    O = wv.shape[-1]
-    H, ds = head_split(A, num_heads)
     norm = gcn_norm(adj, add_loop, loop)  # (B, C, N, N)
     nx = norm @ x[:, None]  # (B, C, N, F_in)
 
@@ -369,8 +368,19 @@ def gmh_attention_bwd_plain(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, num_heads: i
         out = nx @ w[None]
         return out if b is None else out + b[None, :, None, :]
 
-    gqk = gmh_score_grad_plain(torch.cat([proj(wq, bq), proj(wk, bk)], -1), ga, num_heads,
-                               out_dim)
+    gqk = gmh_score_grad_plain(torch.cat([proj(wq, bq), proj(wk, bk)], -1), grad_sym_plain(ga),
+                               num_heads, out_dim)
+    return _grads_from_gqk(x, adj, norm, nx, wq, bq, wk, bk, wv, bv, gqk, gv, loop, add_loop,
+                           need_x, need_adj)
+
+
+def _grads_from_gqk(x, adj, norm, nx, wq, bq, wk, bk, wv, bv, gqk, gv, loop, add_loop,
+                    need_x, need_adj):
+    """Every gradient from gP = [gQ | gK | gV] (the row-tile kernel's
+    share), as :func:`gmh_attention_bwd_plain` returns them."""
+    B, N, Fi = x.shape
+    C, _, A = wq.shape
+    O = wv.shape[-1]
     gQ, gK = gqk[..., :A], gqk[..., A:]
     gV = gv.reshape(B, N, C, O).permute(0, 2, 1, 3)
     grads = []
@@ -384,10 +394,17 @@ def gmh_attention_bwd_plain(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, num_heads: i
     return (dx, dadj, *grads)
 
 
-def gmh_score_grad_plain(qk, ga, num_heads: int, out_dim: int):
-    """The score stage's gradient: qk (B, C, N, 2 attn), Q | K, and ga =
-    dL/dA (B, N, N, C) -> (B, C, N, 2 attn), gQ | gK, where A = sym(mean_h
-    tanh(Q_h K_h^T / sqrt(out_dim)))."""
+def grad_sym_plain(ga):
+    """gM = (gA + gA^T) / 2 channel-major: ga = dL/dA (B, N, N, C) -> (B, C,
+    N, N), the gradient of the map before its symmetrisation."""
+    g = ga.permute(0, 3, 1, 2)
+    return (g + g.transpose(-1, -2)) / 2
+
+
+def gmh_score_grad_plain(qk, gm, num_heads: int, out_dim: int):
+    """The score stage's gradient: qk (B, C, N, 2 attn), Q | K, and gm (B,
+    C, N, >= N), the symmetrised dL/dA (its first N columns) -> (B, C, N,
+    2 attn), gQ | gK, where A = sym(mean_h tanh(Q_h K_h^T / sqrt(out_dim)))."""
     B, C, N, A2 = qk.shape
     A = A2 // 2
     H, ds = head_split(A, num_heads)
@@ -395,93 +412,224 @@ def gmh_score_grad_plain(qk, ga, num_heads: int, out_dim: int):
     Kh = qk[..., A:].reshape(B, C, N, H, ds)
     s = 1.0 / math.sqrt(out_dim)
     t = torch.tanh(torch.einsum("bcnhd,bcmhd->bchnm", Qh, Kh) * s)
-    gA = ga.permute(0, 3, 1, 2)
-    gS = ((gA + gA.transpose(-1, -2)) / 2)[:, :, None] * (1 - t * t) * (s / H)
+    gS = gm[..., :N][:, :, None] * (1 - t * t) * (s / H)
     gQ = torch.einsum("bchnm,bcmhd->bcnhd", gS, Kh).reshape(B, C, N, A)
     gK = torch.einsum("bchnm,bcnhd->bcmhd", gS, Qh).reshape(B, C, N, A)
     return torch.cat([gQ, gK], -1)
 
 
+# ------------------------------------------------------- above N = 64
+
+
+MAX_SCORE_TILES = 16  # gmh_score_grad's cluster: every row tile of a graph
+
+
+def map_row(N: int) -> int:
+    """Row stride (floats) of the layout pass's outputs and of dA's
+    channel-major scratch: rows on 128-byte lines."""
+    return -(-N // 32) * 32
+
+
+def gmh_bwd_layout_plain(adj, ga):
+    """The layout pass: adj (B, C, N, N), ga = dL/dA (B, N, N, C) -> (ac,
+    gm): gm = :func:`grad_sym_plain` (ga) and, where adj's rows are not
+    unit-stride (a later layer's channels-last view), ac = adj, both
+    contiguous (B, C, N, map_row(N)) with zeros past column N (ac None
+    otherwise)."""
+    B, C, N, _ = adj.shape
+
+    def padded(t):
+        out = t.new_zeros(B, C, N, map_row(N))
+        out[..., :N] = t
+        return out
+
+    return (padded(adj) if adj.stride(-1) != 1 else None), padded(grad_sym_plain(ga))
+
+
+def gmh_bwd_layout(adj, ga):
+    """The layout pass of the tiled backward (``csrc/gmh_attention_bwd.cu``
+    ``gmh_bwd_layout_kernel``, a thread per entry of a graph, all channels)
+    for CUDA tensors, the plain version for CPU tensors; adj and ga in any
+    strides.  adj is copied where its rows are not unit-stride: the
+    row-tile kernel reads unit-stride rows."""
+    if adj.device.type == "cpu":
+        return gmh_bwd_layout_plain(adj, ga)
+    for arg, t in (("adj", adj), ("ga", ga)):
+        check_strided_f32("gmh_bwd_layout", arg, t, adj.device)
+    B, C, N, _ = adj.shape
+    if ga.shape != (B, N, N, C):
+        raise ValueError(f"gmh_bwd_layout: ga {tuple(ga.shape)}, expected {(B, N, N, C)}")
+    new = functools.partial(torch.empty, (B, C, N, map_row(N)), dtype=torch.float32,
+                            device=adj.device)
+    gm, ac = new(), (new() if adj.stride(-1) != 1 else None)
+    stream = torch.cuda.current_stream(adj.device).cuda_stream
+    status = kernel_fn("gmh_attention_bwd", "gmh_bwd_layout_run")(
+        ga.data_ptr(), adj.data_ptr(), gm.data_ptr(), _ptr(ac), B, C, N, *ga.stride(),
+        *adj.stride(), stream)
+    check_status("gmh_bwd_layout", status)
+    LAUNCHES["gmh_bwd_layout"] += 1
+    return ac, gm
+
+
 @functools.lru_cache(maxsize=None)
 def score_grad_smem(A: int, H: int) -> int:
-    """Shared bytes of a block of ``gmh_score_grad`` (any N: it is tiled)."""
+    """Shared bytes of a block of ``gmh_score_grad`` (any N up to
+    MAX_SCORE_TILES row tiles); raises a ``ValueError`` where its design
+    does not take attn A in H heads."""
     nbytes = kernel_fn("gmh_attention_bwd", "gmh_score_grad_smem")(A, H)
+    if nbytes <= 0:
+        raise ValueError(f"gmh_score_grad: attn={A} in {H} heads: the tiled design takes "
+                         "head widths that are multiples of 4 and attn <= 32")
     check_smem("gmh_score_grad", nbytes, attn=A, heads=H)
     return nbytes
 
 
-def gmh_score_grad(qk, ga, num_heads: int, out_dim: int):
+def gmh_score_grad(qk, gm, num_heads: int, out_dim: int):
     """gQ | gK of the tiled backward (``csrc/gmh_attention_bwd.cu``
-    ``gmh_score_grad_kernel``, a block per graph, channel, row tile and
-    role) for CUDA tensors, the plain version for CPU tensors; qk
-    contiguous, ga in any strides."""
+    ``gmh_score_grad_kernel``, a cluster of row-tile blocks a graph and
+    channel) for CUDA tensors, the plain version for CPU tensors; qk
+    contiguous, gm the layout pass's (B, C, N, map_row(N))."""
     if qk.device.type == "cpu":
-        return gmh_score_grad_plain(qk, ga, num_heads, out_dim)
-    check_cuda_f32("gmh_score_grad", qk=qk)
-    check_strided_f32("gmh_score_grad", "ga", ga, qk.device)
+        return gmh_score_grad_plain(qk, gm, num_heads, out_dim)
+    check_cuda_f32("gmh_score_grad", qk=qk, gm=gm)
     B, C, N, A2 = qk.shape
     H, ds = head_split(A2 // 2, num_heads)
-    if ga.shape != (B, N, N, C):
-        raise ValueError(f"gmh_score_grad: ga {tuple(ga.shape)}, expected {(B, N, N, C)}")
+    plan = score_plan(B, C, N, A2 // 2)
+    if gm.shape != plan["map"]:
+        raise ValueError(f"gmh_score_grad: gm {tuple(gm.shape)}, expected {plan['map']}")
     score_grad_smem(A2 // 2, H)
     gqk = torch.empty_like(qk)
+    part_k = torch.empty(plan["part_k"], dtype=torch.float32, device=qk.device)
     stream = torch.cuda.current_stream(qk.device).cuda_stream
     status = kernel_fn("gmh_attention_bwd", "gmh_score_grad_run")(
-        qk.data_ptr(), ga.data_ptr(), gqk.data_ptr(), B, C, N, A2 // 2, H, ds, *ga.stride(),
-        math.sqrt(out_dim), stream)
+        qk.data_ptr(), gm.data_ptr(), gqk.data_ptr(), part_k.data_ptr(), B, C, N, A2 // 2, H,
+        ds, math.sqrt(out_dim), stream)
     check_status("gmh_score_grad", status)
     LAUNCHES["gmh_score_grad"] += 1
     return gqk
 
 
+def score_tiles(N: int) -> int:
+    """Row tiles of a graph, the blocks of a ``gmh_score_grad`` cluster;
+    raises a ``ValueError`` naming N past MAX_SCORE_TILES."""
+    nt = len(row_tiles(N))
+    if nt > MAX_SCORE_TILES:
+        raise ValueError(f"gmh_score_grad: N={N} needs {nt} row tiles in one cluster "
+                         f"(at most {MAX_SCORE_TILES}: N <= {MAX_SCORE_TILES * TILE})")
+    return nt
+
+
+def score_plan(B: int, C: int, N: int, A: int) -> dict:
+    """The host side of ``gmh_score_grad``, whose cluster holds every row
+    tile of a (graph, channel) (:func:`score_tiles`; block I takes the
+    tiles J = 0 .. nt - 1 in that order, and gK[J] sums the blocks'
+    partials in the same order): ``map``, the shape of the layout pass's gm
+    (rows of map_row(N) floats); ``part_k``, the partials' scratch, P(I, J)
+    at [b, c, I, rows of J]."""
+    return {"map": (B, C, N, map_row(N)), "part_k": (B, C, score_tiles(N), N, A)}
+
+
+@functools.lru_cache(maxsize=None)
+def row_tile_smem(N: int, Fi: int, A: int, O: int, need_adj: bool, need_x: bool) -> int:
+    """Shared bytes of a block of the row-tile kernel (with what the call
+    asks for), by the library's own count; raises a ``ValueError`` where the
+    block does not fit or the design does not take the widths."""
+    nbytes = kernel_fn("gmh_attention_bwd", "gmh_attention_bwd_tiled_smem")(
+        N, Fi, A, O, int(need_x), int(need_adj))
+    if nbytes <= 0:
+        raise ValueError(f"gmh_attention_bwd: attn={A}, F_out={O}: the row-tile kernel "
+                         "takes 2 attn + F_out <= 96, a multiple of 4")
+    check_smem("gmh_attention_bwd", nbytes, N=N, F_in=Fi, attn=A, F_out=O)
+    return nbytes
+
+
 @functools.lru_cache(maxsize=None)
 def attention_bwd_smem(N: int, Fi: int, A: int, O: int, H: int,
-                       need_adj: bool = True) -> int:
+                       need_adj: bool = True, need_x: bool = True) -> int:
     """Shared bytes of one block of csrc/gmh_attention_bwd.cu: one (graph,
-    channel) for N <= MAX_N, else one row tile of the tiled design's last
-    kernel (with dA or without; the ``gmh_score_grad`` and
-    ``gmh_projection`` blocks before it checked too), by the library's own
-    counts; raises a ``ValueError`` naming N where a block does not fit."""
+    channel) for N <= MAX_N, else one row tile of the row-tile kernel (the
+    ``gmh_score_grad`` and ``gmh_projection`` blocks before it checked
+    too), by the library's own counts; raises a ``ValueError`` naming N
+    where a block does not fit or a design does not take the widths."""
     if N > MAX_N:
         score_grad_smem(A, H)
+        score_tiles(N)
         projection_group(1, 1, N, Fi, A, O)
-        nbytes = kernel_fn("gmh_attention_bwd", "gmh_attention_bwd_tiled_smem")(
-            N, Fi, A, O, int(need_adj))
-        check_smem("gmh_attention_bwd", nbytes, N=N, F_in=Fi, attn=A, F_out=O)
-        return nbytes
+        return row_tile_smem(N, Fi, A, O, need_adj, need_x)
     return fit_graph("gmh_attention_bwd", N,
                      lambda: kernel_fn("gmh_attention_bwd", "gmh_attention_bwd_smem")(
                          N, Fi, A, O, H))
 
 
 def bwd_plan(B: int, C: int, N: int, Fi: int, A: int, O: int) -> dict:
-    """The host side of the tiled ``gmh_attention_bwd`` (N > MAX_N): the row
-    tiles (``gmh_score_grad`` takes a block per tile and role; both kernels
-    sum over all rows in chunks of the same tiles), the last kernel's
-    clusters of MAX_CLUSTER blocks a channel (one block a row tile of a
-    graph, the last cluster padded), and its scratch: dX's channel
-    partials, a weight partial a cluster, and the tickets (MAX_CLUSTER a
-    channel, one a graph's row tile)."""
+    """The host side of the tiled ``gmh_attention_bwd`` (N > MAX_N):
+
+    * ``tiles``: the row tiles (every kernel's products over all rows run
+      in chunks of the same tiles; ``gmh_score_grad``'s own in
+      :func:`score_plan`);
+    * the row-tile kernel's clusters of MAX_CLUSTER blocks a channel (one
+      block a row tile of a graph, the last cluster padded) and its
+      scratch: dX's channel partials, a weight partial a cluster, and the
+      tickets (MAX_CLUSTER a channel, one a graph's row tile)."""
     tiles = row_tiles(N)
-    clusters = -(-B * len(tiles) // MAX_CLUSTER)
+    nt = len(tiles)
+    clusters = -(-B * nt // MAX_CLUSTER)
     P = 2 * A + O
     return {"tiles": tiles, "clusters": clusters, "part_x": (B, C, N, Fi),
             "part_w": (clusters, C * (Fi * P + P)),
-            "tickets": MAX_CLUSTER * C + B * len(tiles)}
+            "tickets": MAX_CLUSTER * C + B * nt}
 
 
-def _gmh_attention_bwd_tiled(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, H, out_dim, loop,
-                             add_loop, need_x, need_adj):
-    """N > MAX_N: the degrees, Q and K recomputed, gQ | gK, then every
-    gradient by row tiles."""
+def gmh_attention_bwd_tiled_plain(x, adj, wq, bq, wk, bk, wv, bv, gqk, gv, deg=None, ac=None,
+                                  loop: float = 1.0, add_loop: bool = True,
+                                  need_x: bool = True, need_adj: bool = True):
+    """The row-tile kernel's share of the backward, from gqk = gQ | gK (B,
+    C, N, 2 attn) and gv = dL/dV: every gradient, as
+    :func:`gmh_attention_bwd_plain` returns them (deg and ac, the kernel's
+    inputs from earlier launches, are not needed)."""
+    norm = gcn_norm(adj, add_loop, loop)
+    return _grads_from_gqk(x, adj, norm, norm @ x[:, None], wq, bq, wk, bk, wv, bv, gqk, gv,
+                           loop, add_loop, need_x, need_adj)
+
+
+def gmh_attention_bwd_tiled(x, adj, wq, bq, wk, bk, wv, bv, gqk, gv, deg=None, ac=None,
+                            loop: float = 1.0, add_loop: bool = True, need_x: bool = True,
+                            need_adj: bool = True):
+    """The row-tile kernel of the tiled backward (``csrc/gmh_attention_bwd.cu``
+    ``gmh_attention_bwd_tiled_kernel``) for CUDA tensors, the plain version
+    for CPU tensors: every gradient from gqk (``gmh_score_grad``) and gv,
+    with deg = ``gcn_degrees(adj)`` and ac the layout pass's copy of adj
+    (None where adj's rows are unit-stride: the kernel reads adj itself);
+    dadj in adj's layout."""
+    if x.device.type == "cpu":
+        return gmh_attention_bwd_tiled_plain(x, adj, wq, bq, wk, bk, wv, bv, gqk, gv, deg, ac,
+                                             loop, add_loop, need_x, need_adj)
+    gv = gv.contiguous()
+    check_cuda_f32("gmh_attention_bwd_tiled", x=x, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv,
+                   gqk=gqk, gv=gv, deg=deg, ac=ac)
+    check_strided_f32("gmh_attention_bwd_tiled", "adj", adj, x.device)
+    B, C, N, Fi, A, O, _, _ = _check_shapes("gmh_attention_bwd_tiled", x, adj, wq, bq, wk, bk,
+                                            wv, bv, 1)
+    a = adj if ac is None else ac
+    if a.stride(-1) != 1 or deg is None or deg.shape != (B, C, N):
+        raise ValueError("gmh_attention_bwd_tiled: needs deg (B, C, N) and an adjacency with "
+                         "unit-stride rows (adj, or the layout pass's ac)")
+    if gqk.shape != (B, C, N, 2 * A) or gv.shape != (B, N, C * O):
+        raise ValueError(f"gmh_attention_bwd_tiled: gqk {tuple(gqk.shape)}, gv "
+                         f"{tuple(gv.shape)}, expected {(B, C, N, 2 * A)}, {(B, N, C * O)}")
+    row_tile_smem(N, Fi, A, O, need_adj, need_x)
+    return _launch_row_tiles(x, adj, a, deg, wq, bq, wk, bk, wv, bv, gqk, gv, loop, add_loop,
+                             need_x, need_adj)
+
+
+def _launch_row_tiles(x, adj, a, deg, wq, bq, wk, bk, wv, bv, gqk, gv, loop, add_loop,
+                      need_x, need_adj):
+    """Launch the row-tile kernel on checked arguments (a: adj, or the
+    layout pass's copy of it); dadj in adj's layout."""
     B, N, Fi = x.shape
     C, _, A = wq.shape
     O = wv.shape[-1]
-    attention_bwd_smem(N, Fi, A, O, H, need_adj)
     plan = bwd_plan(B, C, N, Fi, A, O)
-    deg = gcn_degrees(adj, add_loop, loop)
-    qk, _ = gmh_projection(x, adj, deg, wq, bq, wk, bk, wv, bv, loop, add_loop)
-    gqk = gmh_score_grad(qk, ga, H, out_dim)
     new = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
     sizes = [C * Fi * A, C * Fi * A, C * Fi * O, C * A, C * A, C * O]
     out_w, part_w = new(sum(sizes)), new(plan["part_w"])
@@ -490,21 +638,38 @@ def _gmh_attention_bwd_tiled(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, H, out_dim,
     tickets = ticket_buffer(x.device, plan["tickets"])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = kernel_fn("gmh_attention_bwd", "gmh_attention_bwd_tiled_run")(
-        x.data_ptr(), adj.data_ptr(), deg.data_ptr(), wq.data_ptr(), wk.data_ptr(),
+        x.data_ptr(), a.data_ptr(), deg.data_ptr(), wq.data_ptr(), wk.data_ptr(),
         wv.data_ptr(), gqk.data_ptr(), gv.data_ptr(), _ptr(dx), _ptr(dadj), _ptr(part_x),
         part_w.data_ptr(), out_w.data_ptr(), tickets.data_ptr(), B, C, N, Fi, A, O,
-        plan["clusters"], *adj.stride(), *(dadj.stride() if need_adj else (0,) * 4),
+        plan["clusters"], *a.stride()[:3], *(dadj.stride() if need_adj else (0,) * 4),
         int(add_loop), float(loop), stream,
     )
-    check_status("gmh_attention_bwd", status)
-    LAUNCHES["gmh_attention_bwd"] += 1
+    check_status("gmh_attention_bwd_tiled", status)
+    LAUNCHES["gmh_attention_bwd_tiled"] += 1
     return _split_weight_grads(dx, dadj, out_w, sizes, bq, bk, bv, C, Fi, A, O)
+
+
+def _gmh_attention_bwd_tiled(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, H, out_dim, loop,
+                             add_loop, need_x, need_adj):
+    """N > MAX_N: the degrees, Q and K recomputed, the layout pass, gQ |
+    gK, then every gradient by row tiles (the arguments checked by the
+    caller and, for every launch, by :func:`attention_bwd_smem`)."""
+    N, Fi = x.shape[1:]
+    A, O = wq.shape[-1], wv.shape[-1]
+    attention_bwd_smem(N, Fi, A, O, H, need_adj, need_x)
+    deg = gcn_degrees(adj, add_loop, loop)
+    qk, _ = gmh_projection(x, adj, deg, wq, bq, wk, bk, wv, bv, loop, add_loop)
+    ac, gm = gmh_bwd_layout(adj, ga)
+    gqk = gmh_score_grad(qk, gm, H, out_dim)
+    del qk, gm
+    return _launch_row_tiles(x, adj, adj if ac is None else ac, deg, wq, bq, wk, bk, wv, bv,
+                             gqk, gv, loop, add_loop, need_x, need_adj)
 
 
 def gmh_attention_bwd(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, num_heads: int,
                       out_dim: int, loop: float = 1.0, add_loop: bool = True,
                       need_x: bool = True, need_adj: bool = True):
-    """Backward of ``gmh_attention``: the CUDA kernel for CUDA tensors (four
+    """Backward of ``gmh_attention``: the CUDA kernel for CUDA tensors (five
     launches above N = 64, the module's docstring says which), the plain
     backward for CPU tensors; returns as :func:`gmh_attention_bwd_plain`.
     adj and ga are read through their strides; dadj comes in adj's

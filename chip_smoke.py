@@ -6,9 +6,10 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py                 # the phases below
     python3 chip_smoke.py --profile DIR   # also a torch.profiler breakdown
                                           # of 20 sampler steps of each path
-                                          # and of 20 training epochs, traces
-                                          # written to DIR/sampler_trace.json
-                                          # and DIR/train_trace.json
+                                          # and of training, community_small
+                                          # and grid (phase_profile), traces
+                                          # written to DIR
+    python3 chip_smoke.py --profile DIR --profile-only   # build, profile
 
 Phases, each printing one line of its own results:
 
@@ -63,8 +64,11 @@ Phases, each printing one line of its own results:
               and at N = 100 (every gradient, within BWD_REL_TOL of its
               magnitude; ``gmh_attention_bwd`` with the adjacency in both
               layouts), each called twice on the same inputs with
-              bit-identical results, and ``gmh_score_grad`` (a launch of
-              the tiled attention backward) against its plain version; the gradients of the full loss
+              bit-identical results, and the tiled attention backward's
+              own kernels alone (``gmh_bwd_layout`` exactly,
+              ``gmh_score_grad``, whose cluster the card must grant, and
+              ``gmh_attention_bwd_tiled``) against their plain versions at
+              grid's layers and at N = 100; the gradients of the full loss
               on the card against a float64 CPU copy; 200 epochs from
               seeded weights on 100 graphs of community_small as the JAX
               package generates them (seed 0; one train batch of
@@ -85,9 +89,9 @@ Phases, each printing one line of its own results:
               phase's bound), then ``Trainer`` for GRID_TRAIN_EPOCHS epochs
               (ten train and three test batches of 8 an epoch): finite
               losses, the last epoch's mean below the first's, exact
-              launches an epoch (the tiled backwards and the gcn_degrees,
-              gmh_projection and gmh_score_grad launches they add), train
-              steps/s and peak memory.
+              launches an epoch (the tiled backwards: gcn_degrees,
+              gmh_projection, gmh_bwd_layout, gmh_score_grad and
+              gmh_attention_bwd_tiled), train steps/s and peak memory.
    grid_small_eval -- its EMA checkpoint (``sample.use_ema: true``) through
               ``Sampler`` by the JAX protocol (20 test graphs, three rounds
               of 8, 1000 Reverse + Langevin steps) on both paths: exact
@@ -150,8 +154,10 @@ Phases, each printing one line of its own results:
               ``gcn_aggregate`` and ``channel_agg`` timed and kept out of
               the means; the backward kernels at the train batch's shapes,
               and at grid_small's, grid_small_CC_two_stage's and (tiled)
-              grid's and N = 100's, out of the means, with
-              ``gmh_score_grad`` at grid's attention layers; the attention kernels' tiled designs at grid's shapes,
+              grid's and N = 100's, out of the means, with the tiled
+              backward's own kernels (``gmh_bwd_layout``,
+              ``gmh_score_grad``, ``gmh_attention_bwd_tiled``) at grid's
+              attention layers; the attention kernels' tiled designs at grid's shapes,
               out of the means, beside the floor the tanh sets (the tanhf
               rate measured on the card by a probe kernel), and
               ``gmh_projection`` at grid's shapes (its path).
@@ -249,6 +255,7 @@ CC_TRAIN_EPOCHS = 200
 # graphs, which keeps the CPU's float64 copy of the step short
 GRID_TRAIN_EPOCHS = 10
 GRID_GRAD_GRAPHS = 2
+GRID_PROFILE_STEPS = 10  # grid's train steps under --profile
 # the two-stage model (community_small_CC_two_stage): its F network over
 # universes bridged from TS_NET_B graphs against float64 (bound as
 # cc_models'), and its training run, cut from the config's 3000 epochs (one
@@ -396,13 +403,42 @@ def gmh_bwd_cost(B, C, N, Fi, A, O, H, need_x, need_adj):
 
 
 def score_grad_cost(B, C, N, A, H):
-    """(bytes, flops) of one gmh_score_grad launch: Q | K and dL/dA read
-    once, gQ | gK written once; the head sums, scale and tanh, gM and gS
-    once a head and entry (as gmh_bwd_cost counts them), and the products
-    gS K and gS^T Q."""
-    nbytes = 4 * (2 * B * C * N * 2 * A + B * N * N * C)
-    flops = B * C * (2 * N * N * A + 2 * H * N * N + 2 * N * N + 4 * H * N * N
-                     + 4 * N * N * A)
+    """(bytes, flops) of one gmh_score_grad launch: Q | K and the
+    symmetrised dL/dA (the layout pass's gm) read once, gQ | gK written
+    once; the head sums, scale and tanh and gS once a head and entry (as
+    gmh_bwd_cost counts them), and the products gS K and gS^T Q."""
+    nbytes = 4 * (2 * B * C * N * 2 * A + B * C * N * N)
+    flops = B * C * (2 * N * N * A + 2 * H * N * N + 4 * H * N * N + 4 * N * N * A)
+    return nbytes, flops
+
+
+def layout_cost(B, C, N, copy_adj):
+    """(bytes, flops) of one gmh_bwd_layout launch: dL/dA read once and gm
+    written once (its N x N entries; the rows' padding not counted), with
+    copy_adj the adjacency read and its copy written too; an add and a
+    multiply an entry of gm."""
+    return 4 * 2 * B * C * N * N * (1 + copy_adj), 2 * B * C * N * N
+
+
+def row_tile_cost(B, C, N, Fi, A, O, need_x, need_adj):
+    """(bytes, flops) of one gmh_attention_bwd_tiled launch: x, the
+    adjacency, the degrees, the three weights, gQ | gK and dL/dV read once;
+    dx and dadj (where asked for) and the weights' gradients written once.
+    Operations: V = A'^T (d o gP) with d applied, Z, dW and db; U = V W^T
+    (for dX or dA) and dX's rows with their sum over channels; for dA gNX,
+    P1 = A' (d o X) with d applied, the rows' sums, dr and dA (its product,
+    d applied twice and dr added)."""
+    P = 2 * A + O
+    nbytes = 4 * (B * N * Fi * (1 + need_x) + B * C * N * N * (1 + need_adj) + B * C * N
+                  + 2 * C * (Fi * P + P) + B * C * N * 2 * A + B * N * C * O)
+    flops = B * C * (2 * N * N * P + N * N + N * P           # V, d applied; Z
+                     + 2 * N * Fi * P + N * P                 # dW, db
+                     + (need_x or need_adj) * 2 * N * P * Fi  # U
+                     + need_x * 2 * N * Fi                    # dX rows, channel sum
+                     + need_adj * (2 * N * P * Fi             # gNX
+                                   + 2 * N * N * Fi + 2 * N * N  # P1, row sums
+                                   + 4 * N * Fi               # dr
+                                   + 2 * N * N * Fi + 3 * N * N))  # dA
     return nbytes, flops
 
 
@@ -1195,7 +1231,9 @@ def more_train_shapes():
     training path asks (train_shapes); checked in the train_kernels phase
     and timed, out of the means.  ``score_grad`` (grid's attention layers)
     and ``score_grad_more`` (at RAGGED_N): the cases of ``gmh_score_grad``,
-    a launch of the tiled attention backward."""
+    a launch of the tiled attention backward; ``bwd_layout`` and
+    ``bwd_rows`` (with ``_more``): the same cases of its layout pass and of
+    its row-tile kernel."""
     from ccsd_tpu_torch.kernels.gmh_attention import head_split
     from ccsd_tpu_torch.utils.config import get_config
 
@@ -1214,7 +1252,8 @@ def more_train_shapes():
     grid = [case for case in gmh if case[0].startswith(f"{GRID_CONFIG}.layers.")]
     ragged = [case for case in gmh if case[0].startswith(f"{GRID_CONFIG}.n{RAGGED_N}.")]
     return {"gcn_bwd_more": gcn, "gmh_bwd_more": gmh, "score_grad": grid,
-            "score_grad_more": ragged}
+            "score_grad_more": ragged, "bwd_layout": grid, "bwd_layout_more": ragged,
+            "bwd_rows": grid, "bwd_rows_more": ragged}
 
 
 def padded(adj, gen):
@@ -1274,15 +1313,42 @@ def gmh_bwd_inputs_other_layout(case, gen, dev):
 
 
 def score_grad_inputs(case, gen, dev):
-    """(Q | K, dL/dA, heads, F_out) of a gmh_bwd case: Q and K standard
-    normal (head sums of ~1 / sqrt(F_out) scale, as the layer's), dL/dA as
-    the strided slice the path hands back."""
+    """(Q | K, gm, heads, F_out) of a gmh_bwd case: Q and K standard normal
+    (head sums of ~1 / sqrt(F_out) scale, as the layer's), gm the layout
+    pass's symmetrised dL/dA (formed by the plain version) of the strided
+    slice the path hands back."""
     import torch
+    from ccsd_tpu_torch.kernels.gmh_attention import grad_sym_plain, map_row
 
     _, B, C, N, Fi, A, O, H, _, _ = case
     qk = torch.randn(B, C, N, 2 * A, generator=gen, device=dev)
     ga = torch.randn(B, N, N, 2 * C, generator=gen, device=dev)[..., :C]
-    return (qk, ga, H, O)
+    gm = ga.new_zeros(B, C, N, map_row(N))
+    gm[..., :N] = grad_sym_plain(ga)
+    return (qk, gm, H, O)
+
+
+def layout_inputs(case, gen, dev):
+    """(adj, dL/dA) of a gmh_bwd case, as gmh_bwd_inputs makes them: the
+    adjacency in the layer's layout, dL/dA the strided slice."""
+    x, adj, *w, gv, ga, H, O, loop, add_loop, need_x, need_adj = gmh_bwd_inputs(case, gen, dev)
+    return (adj, ga)
+
+
+def row_tile_inputs(case, gen, dev):
+    """The row-tile kernel's arguments for a gmh_bwd case: its inputs from
+    the launches before it on the card (degrees, Q | K, the layout pass,
+    gQ | gK), as the tiled call gives them."""
+    from ccsd_tpu_torch.kernels.gcn import gcn_degrees
+    from ccsd_tpu_torch.kernels.gmh_attention import (gmh_bwd_layout, gmh_projection,
+                                                      gmh_score_grad)
+
+    x, adj, *w, gv, ga, H, O, loop, add_loop, need_x, need_adj = gmh_bwd_inputs(case, gen, dev)
+    deg = gcn_degrees(adj, add_loop, loop)
+    qk, _ = gmh_projection(x, adj, deg, *w, loop, add_loop)
+    ac, gm = gmh_bwd_layout(adj, ga)
+    gqk = gmh_score_grad(qk, gm, H, O)
+    return (x, adj, *w, gqk, gv, deg, ac, loop, add_loop, need_x, need_adj)
 
 
 def phase_train_kernels(shapes, dev):
@@ -1292,14 +1358,23 @@ def phase_train_kernels(shapes, dev):
     adjacency layouts, and ``gmh_score_grad`` (a launch of the tiled
     attention backward) against its plain version; each kernel called
     twice on the same inputs, which must give the same bits (the sums over
-    blocks run in a fixed order)."""
+    blocks run in a fixed order); at grid's attention layers and at
+    RAGGED_N also the tiled design's other two kernels alone: the layout
+    pass (exactly its plain version) and the row-tile kernel (every
+    gradient), and the card's grant of ``gmh_score_grad``'s cluster."""
     import torch
     from ccsd_tpu_torch.kernels.gcn import gcn_aggregate_bwd, gcn_aggregate_bwd_plain
+    from ccsd_tpu_torch.kernels.build import kernel_fn
     from ccsd_tpu_torch.kernels.gmh_attention import (
         gmh_attention_bwd,
         gmh_attention_bwd_plain,
+        gmh_attention_bwd_tiled,
+        gmh_attention_bwd_tiled_plain,
+        gmh_bwd_layout,
+        gmh_bwd_layout_plain,
         gmh_score_grad,
         gmh_score_grad_plain,
+        score_tiles,
     )
 
     names = {"gcn_aggregate_bwd": ("dx", "dadj", "dweight", "dbias"),
@@ -1347,6 +1422,46 @@ def phase_train_kernels(shapes, dev):
         check(ok and same, f"gmh_score_grad {case[0]}: disagrees with its plain version or "
                            "differs between two calls")
         errs["gmh_score_grad"] = max(errs.get("gmh_score_grad", 0.0), abs_err)
+        # its cluster of every row tile of a (graph, channel), granted
+        N, A, H = case[3], case[5], case[7]
+        held = kernel_fn("gmh_attention_bwd", "gmh_score_grad_max_clusters")(N, A, H)
+        say("train_kernels", kernel="gmh_score_grad", case=case[0],
+            cluster_blocks=score_tiles(N), max_active_clusters=held)
+        check(held > 0, f"gmh_score_grad {case[0]}: a cluster of {score_tiles(N)} blocks is "
+                        f"not granted ({held})")
+        # the layout pass, exactly its plain version
+        args = layout_inputs(case, gen, dev)
+        got, again = gmh_bwd_layout(*args), gmh_bwd_layout(*args)
+        torch.cuda.synchronize()
+        want = gmh_bwd_layout_plain(*args)
+        same = all(g is None and a is None or torch.equal(g, a) for g, a in zip(got, again))
+        ok = all(g is None and w is None or (g is not None and w is not None
+                                             and torch.equal(g, w))
+                 for g, w in zip(got, want))
+        say("train_kernels", kernel="gmh_bwd_layout", case=case[0], copies_adj=got[0] is not None,
+            exact=ok, repeat_bit_identical=same)
+        check(ok and same, f"gmh_bwd_layout {case[0]}: differs from its plain version or "
+                           "between two calls")
+        errs["gmh_bwd_layout"] = 0.0
+        # the row-tile kernel alone, every gradient the call gives
+        args = row_tile_inputs(case, gen, dev)
+        got, again = gmh_attention_bwd_tiled(*args), gmh_attention_bwd_tiled(*args)
+        torch.cuda.synchronize()
+        same = all((g is None and a is None) or torch.equal(g, a) for g, a in zip(got, again))
+        check(same, f"gmh_attention_bwd_tiled {case[0]}: two calls differ")
+        for out, g, r in zip(names["gmh_attention_bwd"], got,
+                             gmh_attention_bwd_tiled_plain(*args)):
+            check((g is None) == (r is None), f"gmh_attention_bwd_tiled {case[0]}: {out}")
+            if g is None:
+                continue
+            abs_err, worst, ok = grad_compare(g, r, BWD_REL_TOL)
+            say("train_kernels", kernel="gmh_attention_bwd_tiled", case=case[0], grad=out,
+                max_abs_err=f"{abs_err:.3e}", max_scaled_err=f"{worst:.3e}",
+                rel_tol=BWD_REL_TOL, repeat_bit_identical=same, ok=ok)
+            check(ok, f"gmh_attention_bwd_tiled {case[0]}: {out} disagrees with its plain "
+                      "version")
+            errs["gmh_attention_bwd_tiled"] = max(errs.get("gmh_attention_bwd_tiled", 0.0),
+                                                  abs_err)
     return errs
 
 
@@ -1687,8 +1802,9 @@ def phase_grid_train(dev):
     (phase_train_grads' bound), then ``Trainer`` for GRID_TRAIN_EPOCHS
     epochs on the dataset it generates from the seed (ten train and three
     test batches of 8 an epoch): finite losses, the last epoch's mean below
-    the first's, the exact launches of an epoch (the tiled backwards with
-    the gcn_degrees, gmh_projection and gmh_score_grad launches they add),
+    the first's, the exact launches of an epoch (the tiled backwards: the
+    gcn_degrees, gmh_projection, gmh_bwd_layout, gmh_score_grad and
+    gmh_attention_bwd_tiled launches; no one-block gmh_attention_bwd),
     train steps/s and peak memory; returns the launches."""
     import shutil
 
@@ -1717,8 +1833,8 @@ def phase_grid_train(dev):
     per_epoch = {"gcn_aggregate": steps * depth, "gmh_attention": steps * L,
                  "gmh_projection": (steps + n_train) * L,
                  "gcn_degrees": (steps + n_train) * (depth + L),
-                 "gcn_aggregate_bwd": n_train * depth, "gmh_attention_bwd": n_train * L,
-                 "gmh_score_grad": n_train * L}
+                 "gcn_aggregate_bwd": n_train * depth, "gmh_bwd_layout": n_train * L,
+                 "gmh_score_grad": n_train * L, "gmh_attention_bwd_tiled": n_train * L}
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2180,6 +2296,10 @@ def timing_specs():
         gmh_attention_plain,
         gmh_projection,
         gmh_projection_plain,
+        gmh_attention_bwd_tiled,
+        gmh_attention_bwd_tiled_plain,
+        gmh_bwd_layout,
+        gmh_bwd_layout_plain,
         gmh_score_grad,
         gmh_score_grad_plain,
     )
@@ -2247,6 +2367,18 @@ def timing_specs():
          "differentiates the plain layer)", "score_grad", score_grad_inputs,
          {"f32": (gmh_score_grad, gmh_score_grad_plain)}, None, {},
          lambda c: score_grad_cost(c[1], c[2], c[3], c[5], c[7])),
+        ("gmh_bwd_layout", "ccsd_tpu_torch/csrc/gmh_attention_bwd.cu",
+         "ccsd_tpu/ops/pallas/gmh_attention.py:62 (the gradient of the map's "
+         "symmetrisation, _gmh_kernel :58, for graphs cut into row tiles; the JAX package "
+         "differentiates the plain layer)", "bwd_layout", layout_inputs,
+         {"f32": (gmh_bwd_layout, gmh_bwd_layout_plain)}, None, {},
+         lambda c: layout_cost(c[1], c[2], c[3], not first_layer(c))),
+        ("gmh_attention_bwd_tiled", "ccsd_tpu_torch/csrc/gmh_attention_bwd.cu",
+         "ccsd_tpu/ops/pallas/gmh_attention.py:62 (the gradient of the norm and Q, K, V "
+         "stage of _gmh_kernel, :33-47, for graphs cut into row tiles; the JAX package "
+         "differentiates the plain layer)", "bwd_rows", row_tile_inputs,
+         {"f32": (gmh_attention_bwd_tiled, gmh_attention_bwd_tiled_plain)}, None, {},
+         lambda c: row_tile_cost(*c[1:7], c[8], c[9])),
     ]
 
 
@@ -2281,7 +2413,8 @@ TANH_CASE = {"gmh": lambda c: (c[1], c[2], c[3], c[7]),
              "score_grad": lambda c: (c[1], c[2], c[3], c[7])}
 # the keys whose cases above N = 64 replay GRID_TIMING_ITERS times, and the
 # place of N in a case of each
-BIG_N = {"gmh": 3, "scores": 3, "proj": 3, "gmh_bwd": 3, "score_grad": 3, "gcn_bwd": 2}
+BIG_N = {"gmh": 3, "scores": 3, "proj": 3, "gmh_bwd": 3, "score_grad": 3, "gcn_bwd": 2,
+         "bwd_layout": 3, "bwd_rows": 3}
 # CUDA-graph replays of a case above N = 64 (grid): the plain versions'
 # intermediates there run to ~0.5 GB a call
 GRID_TIMING_ITERS = 20
@@ -2341,9 +2474,16 @@ def phase_timing(shapes, dev, launches, errs):
     return rows
 
 
+# device kernels by family in a profile: the port's hand kernels (by their
+# __global__ names), the matmuls PyTorch hands to cuBLAS / CUTLASS, the rest
+HAND_KERNELS = ("gmh_", "gcn_", "channel_agg", "tiled_scores_kernel")
+GEMM_KERNELS = ("gemm", "cutlass", "cublas", "sm90_xmma", "splitK")
+
+
 def profile_summary(prof, wall, path, steps):
-    """Device time by kernel, the device's busy share of the wall time and
-    the largest host items of one profiled run, on one line."""
+    """Device time by kernel, by family (hand kernels, GEMMs, the rest),
+    the device's busy share of the wall time and the largest host items of
+    one profiled run, on one line; per step, where a row says so."""
     import torch
 
     events = prof.key_averages()
@@ -2356,61 +2496,109 @@ def profile_summary(prof, wall, path, steps):
     total = sum(dev_us.values())
     check(total > 0, "the profiler saw no device time")
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
+    family = {"hand": 0.0, "gemm": 0.0, "other": 0.0}
+    for k, v in dev_us.items():
+        low = k.lower()
+        family["hand" if any(h in k for h in HAND_KERNELS)
+               else "gemm" if any(g in low for g in GEMM_KERNELS) else "other"] += v
     host = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA),
                   key=lambda e: -e.self_cpu_time_total)[:12]
     say("profile", path=path, steps=steps,
         wall_s=f"{wall:.4f}", device_busy_s=f"{total / 1e6:.4f}",
         busy_share=f"{total / 1e6 / wall:.4f}",
+        device_ms_per_step=f"{total / 1e3 / steps:.4f}",
+        wall_ms_per_step=f"{wall * 1e3 / steps:.4f}",
         device_kernels_per_step=f"{sum(e.count for e in device) / steps:.1f}",
-        top_device_us=json.dumps([(k[:60], round(v, 1)) for k, v in top]),
+        family_ms_per_step=json.dumps({k: round(v / 1e3 / steps, 4)
+                                       for k, v in family.items()}),
+        top_device_us_per_step=json.dumps([(k[:60], round(v / steps, 1)) for k, v in top]),
         top_host_self_us=json.dumps([(e.key[:40], e.count,
                                       round(e.self_cpu_time_total, 1)) for e in host]))
 
 
+def _profiled(run, activities):
+    """(profiler, wall seconds) of run() under torch.profiler, the card
+    synchronised at the end."""
+    import torch
+    from torch.profiler import profile
+
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return prof, wall
+
+
 def phase_profile(train_adjs, out_dir):
     """torch.profiler over a 20-step sampler run of each path and 20
-    training epochs (a step and a test loss each, after 5 epochs of
-    warm-up): device time by kernel and the device's busy share of the wall
-    time.  The default sampler path's trace goes to
-    DIR/sampler_trace.json, the training's to DIR/train_trace.json."""
+    training epochs of community_small (a step and a test loss each, after
+    5 epochs of warm-up), then grid's (B = 8, N = 361): 20 sampler steps
+    of each path (seeded weights, the adjacency head scaled as
+    smoke_sampler does: 20 steps stay finite) and GRID_PROFILE_STEPS train
+    steps on one batch of its generated graphs (after two of warm-up):
+    device time by kernel and by family, per step, and the device's busy
+    share of the wall time.  Traces: DIR/sampler_trace.json (community_small,
+    default path), DIR/train_trace.json, DIR/grid_sampler_trace.json
+    (default path), DIR/grid_train_trace.json."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from ccsd_tpu_torch.data.loader import generated_adjs
     from ccsd_tpu_torch.training.trainer import Trainer
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     os.makedirs(out_dir, exist_ok=True)
     steps = 20
-    for fused in (True, False):
-        sampler = smoke_sampler(sample_config(steps=steps, fused=fused), train_adjs)
-        sampler.sample(128)  # warm-up
-        with profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            sampler.sample(128)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        if fused:
-            prof.export_chrome_trace(os.path.join(out_dir, "sampler_trace.json"))
-        profile_summary(prof, wall, "default" if fused else "sample.fused: false", steps)
+    grid_adjs = generated_adjs(GRID_CONFIG, 0, 361)
+    for name, adjs, graphs, prefix in (("community_small", train_adjs, 128, ""),
+                                       (GRID_CONFIG, grid_adjs, 8, "grid_")):
+        for fused in (True, False):
+            sampler = smoke_sampler(sample_config(steps=steps, fused=fused, name=name), adjs)
+            sampler.sample(graphs)  # warm-up
+            prof, wall = _profiled(lambda: sampler.sample(graphs), activities)
+            if fused:
+                prof.export_chrome_trace(os.path.join(out_dir, f"{prefix}sampler_trace.json"))
+            profile_summary(prof, wall, f"{name} " + ("default" if fused
+                                                      else "sample.fused: false"), steps)
 
     config = train_config(os.path.join(HERE, "build", "smoke_train"), "profile", 5)
     trainer = Trainer(config, adjs=train_adjs, log=False)
     trainer.train()  # warm-up
     config.train.num_epochs = 5 + steps
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        trainer.train()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    prof, wall = _profiled(trainer.train, activities)
     prof.export_chrome_trace(os.path.join(out_dir, "train_trace.json"))
-    profile_summary(prof, wall, "train (an epoch: one step and one test loss)", steps)
+    profile_summary(prof, wall, "community_small train (an epoch: one step and one test loss)",
+                    steps)
+
+    config = train_config(os.path.join(HERE, "build", "smoke_grid_profile"), "profile", 1,
+                          data=GRID_CONFIG)
+    trainer = Trainer(config, adjs=generated_adjs(GRID_CONFIG, int(config.get("seed", 42)),
+                                                  361), log=False)
+    x, adj = trainer._batch(next(iter(trainer.train_loader)))
+    for _ in range(2):  # warm-up
+        trainer.train_step(x, adj)
+
+    def train_steps():
+        for _ in range(GRID_PROFILE_STEPS):
+            trainer.train_step(x, adj)
+
+    prof, wall = _profiled(train_steps, activities)
+    prof.export_chrome_trace(os.path.join(out_dir, "grid_train_trace.json"))
+    profile_summary(prof, wall, f"{GRID_CONFIG} train step (B = 8, one batch)",
+                    GRID_PROFILE_STEPS)
 
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also profile 20 sampler steps of each path and 20 training "
-                         "epochs; traces into DIR")
+                    help="also profile 20 sampler steps of each path and training, of "
+                         "community_small and grid; traces into DIR")
+    ap.add_argument("--profile-only", action="store_true",
+                    help="with --profile: build and profile only, no other phase and no "
+                         "result line")
     args = ap.parse_args(argv)
+    if args.profile_only and not args.profile:
+        ap.error("--profile-only needs --profile DIR")
     t0 = time.perf_counter()
     phase = "import"
     try:
@@ -2429,6 +2617,13 @@ def main(argv) -> int:
         t_build = time.perf_counter()
         phase_build()
         say("phase_seconds", name="build", seconds=f"{time.perf_counter() - t_build:.2f}")
+        if args.profile_only:
+            phase = "profile"
+            t = time.perf_counter()
+            phase_profile(community_small_adjs(100, 0, int(sample_config().data.max_node_num)),
+                          args.profile)
+            say("phase_seconds", name="profile", seconds=f"{time.perf_counter() - t:.2f}")
+            return 0
 
         config = sample_config()
         defs = dict(zip(("x", "adj"), load_model_params(config)))

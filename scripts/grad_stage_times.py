@@ -1,42 +1,51 @@
-"""Where the time of the two backward kernels goes, on the card.
+"""Where the time of the backward kernels goes, on the card.
 
-Times ``gcn_aggregate_bwd`` and ``gmh_attention_bwd`` at community_small's
-training shapes (B = 80, N = 20), asking for the gradients the training
-path asks for: ScoreNetworkX's first layer (F_in 11, dW and dbias only)
-and a later one (F_in 32, with dx), plus a later one with dadj too (off the
-path); ScoreNetworkA's first AttentionLayer (C = 2, F_in 11, a contiguous
-adjacency, no dx or dadj) and a later one (C = 8, F_in 32, the
-channels-last adjacency, with dx and dadj):
+Two sets of shapes, each asking for the gradients the training path asks
+for (``chip_smoke.gcn_bwd_inputs``, ``chip_smoke.gmh_bwd_inputs``):
 
-* each kernel whole, and with stages removed: a build with
-  ``-DGRAD_ABLATE=<mask>`` (``csrc/grad_common.cuh``) puts a zero fill of
-  what a stage writes in its place (the loads; the forward's recompute; the
-  head scores and gS; each gradient product; the batch and channel sums);
-  ``skeleton`` keeps the loads, the degrees, the barriers and the stores;
-* ``gmh_attention_bwd`` in other geometries, built from this tree's
-  source with one line edited: clusters of 4 and of 2 blocks in place of
-  8, and 192 threads a block with five blocks an SM (64 registers a
-  thread) in place of 256 threads and four;
-* with ``--parent DIR``, a tree unpacked from an earlier commit
-  (``git archive <commit> | tar -x -C DIR``): its two kernels the same way,
-  each product's FMAs removed by exact edits of its source lines (a
-  product's depth set to 0: its outputs are still written, as zeros), its
-  loads by an edit of its tile loader, its batch and channel sums (the
-  separate ``strided_sum`` launches) by edits of its host code; the script
-  stops where a line is not found.  The parent's and this tree's whole
-  kernels are timed in turns (parent, this, this, parent).
+* community_small's training shapes (B = 80, N = 20): ``gcn_aggregate_bwd``
+  on ScoreNetworkX's first layer (F_in 11, dW and dbias only), a later one
+  (F_in 32, with dx) and a later one with dadj too (off the path); the
+  one-block ``gmh_attention_bwd`` on ScoreNetworkA's first AttentionLayer
+  (C = 2, F_in 11, a contiguous adjacency, no dx or dadj) and a later one
+  (C = 8, F_in 32, the channels-last adjacency, with dx and dadj);
+* grid's attention layers (B = 8, N = 361: the tiled design; C = 2 on F_in
+  5 without dx or dadj, C = 8 on F_in 32 with both and the channels-last
+  adjacency): the whole ``gmh_attention_bwd`` call and each of the tiled
+  design's kernels alone (``gmh_bwd_layout``, ``gmh_score_grad``,
+  ``gmh_attention_bwd_tiled``, on the inputs the launches before them
+  give).
+
+Each is timed whole and with stages removed: a build with
+``-DGRAD_ABLATE=<mask>`` (``csrc/grad_common.cuh``) puts a zero fill of
+what a stage writes in its place; ``skeleton`` keeps the loads, the
+barriers and the stores.  ``gmh_attention_bwd`` also in other geometries
+of its one-block kernel, built from this tree's source with one line
+edited (clusters of 4 and of 2 blocks in place of 8; 192 threads a block,
+five blocks an SM).
+
+With ``--parent DIR``, a tree of an earlier commit unpacked by ``git
+archive <commit> | tar -x -C DIR`` whose tiled attention backward has the
+C entry points of 80a8d86 (``gmh_score_grad_run`` taking dL/dA,
+``gmh_attention_bwd_tiled_run`` taking the adjacency's four strides): its
+``gmh_attention_bwd.cu`` built the same way (its own ``GRAD_ABLATE``
+masks), its two tiled kernels called through ctypes after this tree's
+``gcn_degrees`` and ``gmh_projection`` (unchanged), at grid's shapes: the
+earlier whole call and each earlier kernel, whole and with stages removed;
+the earlier and this tree's whole calls and kernels are timed in turns
+(parent, this, this, parent).  ``--parent-only`` times only the parent's.
 
 Each variant is built with the flags of ``ccsd_tpu_torch/kernels/build.py``
 into ``build/stage_times_grad/``, all in parallel, and timed as
-``chip_smoke.py`` times the kernels (CUDA-graph replay of 200 launches,
-CUDA events); this tree's variants run through the wrappers, with the
-variant's library bound in place of the kernel's.  Run from the repo root
-on a machine with an NVIDIA H100:
+``chip_smoke.py`` times the kernels (CUDA-graph replay, CUDA events: 200
+launches at N = 20, 20 at N = 361); this tree's variants run through the
+wrappers, with the variant's library bound in place of the kernel's.  Run
+from the repo root on a machine with an NVIDIA H100:
 
-    python3 scripts/grad_stage_times.py [--parent DIR [--parent-only]]
+    python3 scripts/grad_stage_times.py [--parent DIR [--parent-only]] [--tiled-only]
 
-Prints the card's name and power limit, one line per measurement and,
-last, a JSON object of them all.
+Prints the card's name and power limit, the ptxas report of each base
+build, one line per measurement and, last, a JSON object of them all.
 """
 
 from __future__ import annotations
@@ -57,96 +66,34 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from ccsd_tpu_torch.kernels import build  # noqa: E402
-from ccsd_tpu_torch.kernels.gcn import gcn_aggregate_bwd  # noqa: E402
-from ccsd_tpu_torch.kernels.gmh_attention import gmh_attention_bwd  # noqa: E402
+from ccsd_tpu_torch.kernels.gcn import (  # noqa: E402
+    MAX_CLUSTER, gcn_aggregate_bwd, gcn_degrees, row_tiles, ticket_buffer)
+from ccsd_tpu_torch.kernels.gmh_attention import (  # noqa: E402
+    gmh_attention_bwd, gmh_attention_bwd_tiled, gmh_bwd_layout, gmh_projection,
+    gmh_score_grad)
 
 OUT_DIR = os.path.join(ROOT, "build", "stage_times_grad")
 # the Stage masks of csrc/grad_common.cuh
-LOADS, RECOMPUTE, SCORES, GRAD_QK, GRAD_W, GRAD_NX, GRAD_X, GRAD_ADJ, REDUCE, GRAD_Y = (
-    1 << i for i in range(10))
-GMH_ALL = RECOMPUTE | SCORES | GRAD_QK | GRAD_W | GRAD_NX | GRAD_X | GRAD_ADJ | REDUCE
-GCN_ALL = GRAD_Y | GRAD_X | GRAD_W | GRAD_ADJ | REDUCE
+(LOADS, RECOMPUTE, SCORES, GRAD_QK, GRAD_W, GRAD_NX, GRAD_X, GRAD_ADJ, REDUCE, GRAD_Y,
+ GRAD_V) = (1 << i for i in range(11))
+GMH_STAGES = {"no_recompute": RECOMPUTE, "no_scores": SCORES, "no_grad_qk": GRAD_QK,
+              "no_grad_w": GRAD_W, "no_grad_nx": GRAD_NX, "no_grad_x": GRAD_X,
+              "no_grad_adj": GRAD_ADJ, "no_reduce": REDUCE}
 VARIANTS = {
     "gcn_aggregate_bwd": {"base": 0, "no_loads": LOADS, "no_grad_y": GRAD_Y,
                           "no_grad_x": GRAD_X, "no_grad_w": GRAD_W, "no_grad_adj": GRAD_ADJ,
-                          "no_reduce": REDUCE, "skeleton": GCN_ALL},
-    "gmh_attention_bwd": {"base": 0, "no_loads": LOADS, "no_recompute": RECOMPUTE,
-                          "no_scores": SCORES, "no_grad_qk": GRAD_QK, "no_grad_w": GRAD_W,
-                          "no_grad_nx": GRAD_NX, "no_grad_x": GRAD_X, "no_grad_adj": GRAD_ADJ,
-                          "no_reduce": REDUCE, "skeleton": GMH_ALL},
+                          "no_reduce": REDUCE,
+                          "skeleton": GRAD_Y | GRAD_X | GRAD_W | GRAD_ADJ | REDUCE},
+    "gmh_attention_bwd": {"base": 0, "no_loads": LOADS, **GMH_STAGES, "no_grad_v": GRAD_V,
+                          "no_da_pass": GRAD_Y,
+                          "skeleton": sum(GMH_STAGES.values()) | GRAD_V},
 }
-
-# the earlier (one-output-a-thread) kernels' stages, as {stage: [(file, line,
-# replacement)]} edits of their sources
-_LOADER = ("grad_common.cuh", "dst[r * ldd + c] = src[r * srow + c * scol];",
-           "dst[r * ldd + c] = 0.f; (void)src;")
-PARENT_EDITS = {
-    "gcn_aggregate_bwd": {
-        "loads": [_LOADER],
-        "y": [("gcn_aggregate_bwd.cu", "N, Fo, Fi, [&](int r, int k) { return sX[r * Fi + k]; },",
-               "N, Fo, 0, [&](int r, int k) { return sX[r * Fi + k]; },")],
-        "grad_y": [("gcn_aggregate_bwd.cu",
-                    "N, Fo, N, [&](int m, int n) { return sA[n * N + m] * sD[n]; },",
-                    "N, Fo, 0, [&](int m, int n) { return sA[n * N + m] * sD[n]; },")],
-        "grad_x": [("gcn_aggregate_bwd.cu",
-                    "N, Fi, Fo, [&](int r, int k) { return sDY[r * Fo + k]; },",
-                    "N, Fi, 0, [&](int r, int k) { return sDY[r * Fo + k]; },")],
-        "grad_w": [("gcn_aggregate_bwd.cu",
-                    "Fi, Fo, N, [&](int f, int n) { return sX[n * Fi + f]; },",
-                    "Fi, Fo, 0, [&](int f, int n) { return sX[n * Fi + f]; },"),
-                   ("gcn_aggregate_bwd.cu", "for (int n = 0; n < N; ++n) s += sG[n * Fo + c];",
-                    "")],
-        "grad_adj": [("gcn_aggregate_bwd.cu",
-                      "N, N, Fo, [&](int n, int k) { return sG[n * Fo + k]; },",
-                      "N, N, 0, [&](int n, int k) { return sG[n * Fo + k]; },")],
-        "sums": [("gcn_aggregate_bwd.cu",
-                  "return grad::launch_strided_sum(part, out_w, len, B, len, len, 0, s);",
-                  "return 0;")],
-    },
-    "gmh_attention_bwd": {
-        "loads": [_LOADER, ("gmh_attention_bwd.cu",
-                            "sBias[off + i] = bias[m] ? bias[m][i] : 0.f;",
-                            "sBias[off + i] = 0.f;")],
-        "recompute": [("gmh_attention_bwd.cu",
-                       "N, Fi, N, [&](int r, int k) { return sNorm[r * N + k]; },",
-                       "N, Fi, 0, [&](int r, int k) { return sNorm[r * N + k]; },"),
-                      ("gmh_attention_bwd.cu",
-                       "N, 2 * A, Fi, [&](int r, int k) { return sNX[r * Fi + k]; },",
-                       "N, 2 * A, 0, [&](int r, int k) { return sNX[r * Fi + k]; },")],
-        "scores": [("gmh_attention_bwd.cu",
-                    "for (int j = 0; j < ds; ++j) dot = fmaf(q[j], k[j], dot);",
-                    "(void)q; (void)k;")],
-        "grad_qk": [("gmh_attention_bwd.cu",
-                     "for (int m = 0; m < N; ++m) acc = fmaf(g[r * N + m], sK[m * ldq + col], acc);",
-                     "(void)g;"),
-                    ("gmh_attention_bwd.cu",
-                     "for (int n = 0; n < N; ++n) acc = fmaf(g[n * N + r], sQ[n * ldq + col], acc);",
-                     "(void)g;")],
-        "grad_w": [("gmh_attention_bwd.cu",
-                    "Fi, P, N, [&](int f, int n) { return sNX[n * Fi + f]; },",
-                    "Fi, P, 0, [&](int f, int n) { return sNX[n * Fi + f]; },"),
-                   ("gmh_attention_bwd.cu", "for (int n = 0; n < N; ++n) acc += sGP[n * P + p];",
-                    "")],
-        "grad_nx": [("gmh_attention_bwd.cu",
-                     "N, Fi, P, [&](int r, int p) { return sGP[r * P + p]; },",
-                     "N, Fi, 0, [&](int r, int p) { return sGP[r * P + p]; },")],
-        "grad_x": [("gmh_attention_bwd.cu",
-                    "N, Fi, N, [&](int m, int n) { return sNorm[n * N + m]; },",
-                    "N, Fi, 0, [&](int m, int n) { return sNorm[n * N + m]; },")],
-        "grad_adj": [("gmh_attention_bwd.cu",
-                      "N, N, Fi, [&](int n, int f) { return sGNX[n * Fi + f]; },",
-                      "N, N, 0, [&](int n, int f) { return sGNX[n * Fi + f]; },")],
-        "sums": [("gmh_attention_bwd.cu",
-                  "e = grad::launch_strided_sum(part_w, out_w, len, B, len, len, 0, s);",
-                  "e = 0;"),
-                 ("gmh_attention_bwd.cu",
-                  "return grad::launch_strided_sum(part_x, dx, B * plane, C, plane, plane,",
-                  "return 0; (void)grad::launch_strided_sum(part_x, dx, B * plane, C, plane, "
-                  "plane,")],
-    },
-}
-# this tree's gmh_attention_bwd in other geometries, as {variant: [(file,
-# line, replacement)]}
+# the earlier tree's gmh_attention_bwd.cu (its masks: its tiled row kernel
+# has its V product under GRAD_X)
+PARENT_VARIANTS = {"base": 0, "no_loads": LOADS, **GMH_STAGES,
+                   "skeleton": sum(GMH_STAGES.values())}
+# this tree's one-block gmh_attention_bwd in other geometries, as {variant:
+# [(file, line, replacement)]}
 _LAUNCH = ("gmh_attention_bwd.cu", "gmh_attention_bwd_kernel<<<grid, kThreads, smem",
            "gmh_attention_bwd_kernel<<<grid, 192, smem")
 _BOUNDS = ("gmh_attention_bwd.cu", "__launch_bounds__(kThreads, 4)", "__launch_bounds__(192, 5)")
@@ -156,10 +103,9 @@ GEOMETRIES = {
     "threads192": [_LAUNCH, _BOUNDS],
 }
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-PARENT_SYMBOLS = {  # the earlier C entry points
-    "gcn_aggregate_bwd": ("gcn_aggregate_bwd_run", [_P] * 8 + [_I] * 5 + [_F, _P]),
-    "gmh_attention_bwd": ("gmh_attention_bwd_run",
-                          [_P] * 15 + [_I] * 8 + [_L] * 12 + [_F, _I, _F, _P]),
+PARENT_SYMBOLS = {  # the earlier tiled design's C entry points
+    "gmh_score_grad_run": [_P] * 3 + [_I] * 6 + [_L] * 4 + [_F, _P],
+    "gmh_attention_bwd_tiled_run": [_P] * 14 + [_I] * 7 + [_L] * 8 + [_I, _F, _P],
 }
 
 # (name, B, N, F_in, F_out, loop, need_x, need_adj): chip_smoke.gcn_bwd_inputs
@@ -170,6 +116,8 @@ GCN_CASES = [("x.layers.0", 80, 20, 11, 32, 1.0, False, False),
 # (layer 0: a contiguous adjacency; later layers: channels-last)
 GMH_CASES = [("adj.layers.0", 80, 2, 20, 11, 32, 32, 4, False, False),
              ("adj.layers.1", 80, 8, 20, 32, 32, 32, 4, True, True)]
+TILED_CASES = [("grid.layers.0", 8, 2, 361, 5, 32, 32, 4, False, False),
+               ("grid.layers.1", 8, 8, 361, 32, 32, 32, 4, True, True)]
 
 
 def edited_copy(src_dir, kname, vdir, edits):
@@ -191,22 +139,6 @@ def edited_copy(src_dir, kname, vdir, edits):
     return os.path.join(vdir, f"{kname}.cu")
 
 
-def parent_sources(parent_dir):
-    """{(kernel, variant): source path}: the earlier sources with the stages
-    of each variant edited out, each variant in a directory of its own with
-    the headers it includes."""
-    src_dir = os.path.join(parent_dir, "ccsd_tpu_torch", "csrc")
-    out = {}
-    for kname, stages in PARENT_EDITS.items():
-        variants = {"base": [], **{f"no_{s}": [s] for s in stages},
-                    "skeleton": [s for s in stages if s != "loads"]}
-        for variant, removed in variants.items():
-            out[(kname, variant)] = edited_copy(
-                src_dir, kname, os.path.join(OUT_DIR, "parent_src", f"{kname}_{variant}"),
-                [edit for stage in removed for edit in stages[stage]])
-    return out
-
-
 def build_variants(parent_dir, new):
     """{(tree, kernel, variant): library path}, all built in parallel."""
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -222,52 +154,71 @@ def build_variants(parent_dir, new):
             jobs[("new", "gmh_attention_bwd", variant)] = (
                 src, os.path.join(OUT_DIR, f"libgmh_attention_bwd_new_{variant}.so"), [])
     if parent_dir:
-        for (kname, variant), src in parent_sources(parent_dir).items():
-            jobs[("parent", kname, variant)] = (
-                src, os.path.join(OUT_DIR, f"lib{kname}_parent_{variant}.so"), [])
+        src = os.path.join(parent_dir, "ccsd_tpu_torch", "csrc", "gmh_attention_bwd.cu")
+        for variant, mask in PARENT_VARIANTS.items():
+            jobs[("parent", "gmh_attention_bwd", variant)] = (
+                src, os.path.join(OUT_DIR, f"libgmh_attention_bwd_parent_{variant}.so"),
+                [f"-DGRAD_ABLATE={mask}"])
     logs = build.nvcc_parallel(jobs)
     for (tree, kname, variant) in jobs:
         if variant == "base":
             print(f"ptxas {tree} {kname}: " + " | ".join(
                 ln.split("info    : ")[-1].strip()
-                for ln in logs[(tree, kname, variant)].splitlines() if "Used" in ln), flush=True)
+                for ln in logs[(tree, kname, variant)].splitlines()
+                if "Used" in ln or "Compiling entry" in ln), flush=True)
     return {key: lib for key, (_, lib, _) in jobs.items()}
 
 
-def parent_launcher(lib_path, kname, args):
-    """A call of the earlier kernel's C entry point on the wrapper's
-    arguments ``args``, its scratch allocated as its wrapper did."""
-    sym, argtypes = PARENT_SYMBOLS[kname]
-    fn = getattr(ctypes.CDLL(lib_path), sym)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-    new = lambda *s: torch.empty(*s, device="cuda")  # noqa: E731
-    if kname == "gcn_aggregate_bwd":
-        x, adj, w, g, loop, add_loop, need_x, need_adj = args
-        B, N, Fi = x.shape
-        Fo = w.shape[1]
-        dx, dadj = new(B, N, Fi) if need_x else None, new(B, N, N) if need_adj else None
-        part, out_w = new(B, Fi * Fo + Fo), new(Fi * Fo + Fo)
-        call = (x.data_ptr(), adj.data_ptr(), w.data_ptr(), g.data_ptr(), ptr(dx), ptr(dadj),
-                part.data_ptr(), out_w.data_ptr(), B, N, Fi, Fo, int(add_loop), float(loop))
-    else:
-        x, adj, wq, bq, wk, bk, wv, bv, gv, ga, H, O, loop, add_loop, need_x, need_adj = args
+class Parent:
+    """The earlier tiled design through its C entry points: ``score_grad``
+    (qk, dL/dA in its strides) and ``rows`` (its row-tile kernel, the
+    adjacency in its strides, scratch allocated as its wrapper did)."""
+
+    def __init__(self, lib_path):
+        lib = ctypes.CDLL(lib_path)
+        self.fns = {}
+        for sym, argtypes in PARENT_SYMBOLS.items():
+            fn = getattr(lib, sym)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            self.fns[sym] = fn
+
+    def _call(self, sym, *args):
+        if self.fns[sym](*args, torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError(f"parent {sym}: launch failed")
+
+    def score_grad(self, qk, ga, H, O):
+        B, C, N, A2 = qk.shape
+        gqk = torch.empty_like(qk)
+        self._call("gmh_score_grad_run", qk.data_ptr(), ga.data_ptr(), gqk.data_ptr(), B, C, N,
+                   A2 // 2, H, A2 // 2 // H, *ga.stride(), math.sqrt(O))
+        return gqk
+
+    def rows(self, x, adj, deg, wq, wk, wv, gqk, gv, loop, add_loop, need_x, need_adj):
         B, N, Fi = x.shape
         C, _, A = wq.shape
-        size = 2 * C * Fi * A + C * Fi * O + 2 * C * A + C * O
-        out_w, part_w = new(size), new(B, size)
+        O = wv.shape[-1]
+        nt = len(row_tiles(N))
+        clusters = -(-B * nt // MAX_CLUSTER)
+        T = Fi * (2 * A + O) + 2 * A + O
+        new = lambda *s: torch.empty(*s, device=x.device)  # noqa: E731
+        out_w, part_w = new(C * T), new(clusters, C * T)
         dx, part_x = (new(B, N, Fi), new(B, C, N, Fi)) if need_x else (None, None)
         dadj = torch.empty_like(adj) if need_adj else None
-        call = (x.data_ptr(), adj.data_ptr(), wq.data_ptr(), ptr(bq), wk.data_ptr(), ptr(bk),
-                wv.data_ptr(), ptr(bv), gv.data_ptr(), ga.data_ptr(), ptr(dx), ptr(dadj),
-                ptr(part_x), part_w.data_ptr(), out_w.data_ptr(), B, C, N, Fi, A, O, H, A // H,
-                *adj.stride(), *ga.stride(), *(dadj.stride() if need_adj else (0,) * 4),
-                math.sqrt(O), int(add_loop), float(loop))
+        tickets = ticket_buffer(x.device, MAX_CLUSTER * C + B * nt)
+        ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+        self._call("gmh_attention_bwd_tiled_run", x.data_ptr(), adj.data_ptr(), deg.data_ptr(),
+                   wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), gqk.data_ptr(), gv.data_ptr(),
+                   ptr(dx), ptr(dadj), ptr(part_x), part_w.data_ptr(), out_w.data_ptr(),
+                   tickets.data_ptr(), B, C, N, Fi, A, O, clusters, *adj.stride(),
+                   *(dadj.stride() if need_adj else (0,) * 4), int(add_loop), float(loop))
+        return out_w
 
-    def run():
-        if fn(*call, torch.cuda.current_stream().cuda_stream):
-            raise RuntimeError(f"parent {kname}: launch failed")
-    return run
+    def whole(self, args):
+        x, adj, wq, bq, wk, bk, wv, bv, gv, ga, H, O, loop, add_loop, need_x, need_adj = args
+        deg = gcn_degrees(adj, add_loop, loop)
+        qk, _ = gmh_projection(x, adj, deg, wq, bq, wk, bk, wv, bv, loop, add_loop)
+        return self.rows(x, adj, deg, wq, wk, wv, self.score_grad(qk, ga, H, O), gv.contiguous(),
+                         loop, add_loop, need_x, need_adj)
 
 
 def main(argv) -> int:
@@ -276,6 +227,8 @@ def main(argv) -> int:
                     help="an unpacked tree of an earlier commit")
     ap.add_argument("--parent-only", action="store_true",
                     help="time only the parent's kernels")
+    ap.add_argument("--tiled-only", action="store_true",
+                    help="only grid's shapes (the tiled design)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("grad_stage_times: needs a CUDA device", file=sys.stderr)
@@ -290,39 +243,88 @@ def main(argv) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
 
-    def record(run, **kv):
+    def record(run, iters, **kv):
         run()
         torch.cuda.synchronize()
-        kv["us"] = round(1e3 * cs.call_ms(run)[0], 3)
+        kv["us"] = round(1e3 * cs.call_ms(run, iters)[0], 3)
         rows.append(kv)
         print(" ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
 
-    def new_run(kname, variant, args):
-        lib = build.bind(kname, libs[("new", kname, variant)])
+    def use(variant):  # this tree's variant in place of the kernel's library
+        build._LIBS["gmh_attention_bwd"] = build.bind("gmh_attention_bwd",
+                                                      libs[("new", "gmh_attention_bwd", variant)])
 
-        def run():
-            build._LIBS[kname] = lib  # the variant in place of the kernel's library
-            wrappers[kname](*args)
-        return run
+    # N = 20: this tree's one-block kernels, whole and by stages
+    if new and not args.tiled_only:
+        for kname, cases, mk in (("gcn_aggregate_bwd", GCN_CASES, cs.gcn_bwd_inputs),
+                                 ("gmh_attention_bwd", GMH_CASES, cs.gmh_bwd_inputs)):
+            for case in cases:
+                args_ = mk(case, gen, dev)
+                for (tree, k, variant), lib in libs.items():
+                    if tree != "new" or k != kname:
+                        continue
 
-    for kname, cases, mk in (("gcn_aggregate_bwd", GCN_CASES, cs.gcn_bwd_inputs),
-                             ("gmh_attention_bwd", GMH_CASES, cs.gmh_bwd_inputs)):
-        for case in cases:
-            args_ = mk(case, gen, dev)
-            shape = dict(kernel=kname, case=case[0])
-            turns = ((["parent"] if args.parent else []) + (["new", "new"] if new else [])
-                     + (["parent"] if args.parent else []))
-            for tree in turns:  # the whole kernels, in turns
-                run = (parent_launcher(libs[("parent", kname, "base")], kname, args_)
-                       if tree == "parent" else new_run(kname, "base", args_))
-                record(run, **shape, tree=tree, variant="base")
-            for (tree, k, variant), lib in libs.items():
-                if k != kname or variant == "base":
+                    def run(lib=lib, kname=kname, args_=args_):
+                        build._LIBS[kname] = build.bind(kname, lib)
+                        wrappers[kname](*args_)
+                    record(run, cs.TIMING_ITERS, kernel=kname, case=case[0], tree=tree,
+                           variant=variant)
+        build._LIBS.clear()
+
+    # N = 361: the tiled design, this tree's and the parent's
+    parents = {v: Parent(libs[("parent", "gmh_attention_bwd", v)])
+               for v in PARENT_VARIANTS} if args.parent else {}
+    iters = cs.GRID_TIMING_ITERS
+    for case in TILED_CASES:
+        a = cs.gmh_bwd_inputs(case, gen, dev)
+        x, adj, wq, bq, wk, bk, wv, bv, gv, ga, H, O, loop, add_loop, need_x, need_adj = a
+        deg = gcn_degrees(adj, add_loop, loop)
+        qk, _ = gmh_projection(x, adj, deg, wq, bq, wk, bk, wv, bv, loop, add_loop)
+        ac, gm = gmh_bwd_layout(adj, ga)
+        gqk = gmh_score_grad(qk, gm, H, O)
+        mine = {
+            "whole": lambda: gmh_attention_bwd(*a),
+            "gmh_bwd_layout": lambda: gmh_bwd_layout(adj, ga),
+            "gmh_score_grad": lambda: gmh_score_grad(qk, gm, H, O),
+            "gmh_attention_bwd_tiled": lambda: gmh_attention_bwd_tiled(
+                x, adj, wq, bq, wk, bk, wv, bv, gqk, gv, deg, ac, loop, add_loop, need_x,
+                need_adj),
+        }
+
+        def theirs(p):
+            gqk_p = p.score_grad(qk, ga, H, O)
+            return {"whole": lambda: p.whole(a),
+                    "gmh_score_grad": lambda: p.score_grad(qk, ga, H, O),
+                    "gmh_attention_bwd_tiled": lambda: p.rows(x, adj, deg, wq, wk, wv, gqk_p,
+                                                              gv, loop, add_loop, need_x,
+                                                              need_adj)}
+
+        shape = dict(case=case[0])
+        for what in mine:  # base against base, in turns
+            turns = ((["parent"] if parents else []) + (["new", "new"] if new else [])
+                     + (["parent"] if parents else []))
+            for tree in turns:
+                if tree == "parent":
+                    if what == "gmh_bwd_layout":
+                        continue
+                    record(theirs(parents["base"])[what], iters, kernel=what, **shape,
+                           tree=tree, variant="base")
+                else:
+                    use("base")
+                    record(mine[what], iters, kernel=what, **shape, tree=tree, variant="base")
+        if new:
+            for variant in VARIANTS["gmh_attention_bwd"]:
+                if variant == "base":
                     continue
-                run = (parent_launcher(lib, kname, args_) if tree == "parent"
-                       else new_run(kname, variant, args_))
-                record(run, **shape, tree=tree, variant=variant)
-    build._LIBS.clear()
+                use(variant)
+                for what, run in mine.items():
+                    record(run, iters, kernel=what, **shape, tree="new", variant=variant)
+        for variant, p in parents.items():
+            if variant == "base":
+                continue
+            for what, run in theirs(p).items():
+                record(run, iters, kernel=what, **shape, tree="parent", variant=variant)
+        build._LIBS.clear()
     print(json.dumps({"card": card, "rows": rows}))
     return 0
 

@@ -136,6 +136,21 @@ def test_backward_wrappers_route_cpu_to_plain_without_counting():
     for a, r in zip(gmh_attention_bwd(x, a4, *ws, gv, ga, 4, O),
                     gmh_attention_bwd_plain(x, a4, *ws, gv, ga, 4, O)):
         torch.testing.assert_close(a, r, rtol=0, atol=0)
+    # the launches of the tiled design, each to its plain version
+    from ccsd_tpu_torch.kernels.gmh_attention import (
+        gmh_attention_bwd_tiled, gmh_attention_bwd_tiled_plain, gmh_bwd_layout,
+        gmh_bwd_layout_plain, gmh_score_grad, gmh_score_grad_plain)
+
+    ac, gm = gmh_bwd_layout(_channels_last(a4), ga)  # rows not unit-stride: adj copied
+    ref = gmh_bwd_layout_plain(_channels_last(a4), ga)
+    torch.testing.assert_close(ac, ref[0], rtol=0, atol=0)
+    torch.testing.assert_close(gm, ref[1], rtol=0, atol=0)
+    qk = torch.randn(2, C, 6, 2 * A, generator=g)
+    torch.testing.assert_close(gmh_score_grad(qk, gm, 4, O), gmh_score_grad_plain(qk, gm, 4, O),
+                               rtol=0, atol=0)
+    for a, r in zip(gmh_attention_bwd_tiled(x, a4, *ws, qk, gv),
+                    gmh_attention_bwd_tiled_plain(x, a4, *ws, qk, gv)):
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
     assert LAUNCHES == before
 
 
@@ -143,8 +158,8 @@ def test_backward_geometry_raises_above_one_block_naming_n():
     """Above N = 64 the backward kernels take row tiles (the host-side plan,
     no kernel built): at N = 65, 100 and 361 the tiles cover every row once,
     the tiles and the chunks of their sums over rows (the same tiles) cover
-    every entry of an N x N map once, in each role of ``gmh_score_grad``
-    and in the last kernel; the clusters hold every graph's row tiles with
+    every entry of an N x N map once, in ``gmh_score_grad``'s steps (each
+    tanh once) and in the last kernel; the clusters hold every graph's row tiles with
     less than a cluster of padding; the scratch has one weight partial a
     cluster and dX's channel partials at their shapes, and the tickets fit
     the device's buffer.  (The forward's tile-pair plan covers the map once
@@ -162,9 +177,9 @@ def test_backward_geometry_raises_above_one_block_naming_n():
         assert (rows == 1).all(), N
         plan = bwd_plan(B, C, N, Fi, A, O)
         assert plan["tiles"] == tiles
-        seen = np.zeros((N, N), int)  # a role's blocks, one a tile, each over every chunk
-        for r0, nr in tiles:
-            for m0, mc in tiles:
+        seen = np.zeros((N, N), int)  # gmh_score_grad: block I's steps, each a tile pair
+        for I, (r0, nr) in enumerate(tiles):
+            for m0, mc in tiles:  # its steps J = 0 .. nt - 1
                 seen[r0:r0 + nr, m0:m0 + mc] += 1
         assert (seen == 1).all(), N
         seen = np.zeros((N, N), int)  # the last kernel's columns A'[chunk, tile]
@@ -189,6 +204,100 @@ def test_backward_geometry_raises_above_one_block_naming_n():
         assert gplan["part"] == (clusters, Fi * 32 + 32) and gplan["tickets"] == MAX_CLUSTER
     # grid's batch of 8 graphs: 96 row tiles, twelve whole clusters
     assert bwd_plan(8, 8, 361, 32, 32, 32)["clusters"] == 12
+
+
+@pytest.mark.parametrize("N", [65, 100, 200, 361])
+def test_tiled_attention_backward_plans_size_their_scratch(N):
+    """The host plans of the tiled attention backward at N = 65, 100, 200
+    (ragged) and 361.  ``score_plan``: ``gmh_score_grad``'s cluster holds
+    every row tile of a (graph, channel) and block I takes the tiles J = 0
+    .. nt - 1, so every tile pair is formed once (each tanh once) and the
+    partials' scratch, from which gK[J] sums P(I, J) over I in that order,
+    holds each P(I, J) once at its own rows; the gm it takes is the shape
+    the layout pass gives (rows of map_row(N) floats: whole 128-byte lines,
+    at least N).  ``bwd_plan``: the row-tile kernel's clusters, scratch and
+    tickets."""
+    from ccsd_tpu_torch.kernels.gcn import MAX_CLUSTER, TICKETS, row_tiles
+    from ccsd_tpu_torch.kernels.gmh_attention import (MAX_SCORE_TILES, bwd_plan,
+                                                      gmh_bwd_layout_plain, map_row,
+                                                      score_plan, score_tiles)
+
+    B, C, Fi, A, O = 8, 8, 32, 32, 32
+    tiles = row_tiles(N)
+    nt = len(tiles)
+    assert nt == score_tiles(N) <= MAX_SCORE_TILES
+    splan = score_plan(B, C, N, A)
+    assert splan["part_k"] == (B, C, nt, N, A)
+    slots = np.zeros((nt, N), int)  # P(I, J) at part_k[b, c, I, rows of J]
+    pairs = np.zeros((N, N), int)
+    for I, (r0, nr) in enumerate(tiles):
+        for m0, mc in tiles:
+            slots[I, m0:m0 + mc] += 1
+            pairs[r0:r0 + nr, m0:m0 + mc] += 1
+    assert (slots == 1).all() and (pairs == 1).all(), N
+    ldm = map_row(N)
+    assert splan["map"] == (B, C, N, ldm)
+    assert ldm % 32 == 0 and N <= ldm < N + 32
+    ac, gm = gmh_bwd_layout_plain(torch.zeros(1, 1, N, N), torch.zeros(1, N, N, 1))
+    assert ac is None and gm.shape == score_plan(1, 1, N, A)["map"]
+    plan = bwd_plan(B, C, N, Fi, A, O)
+    assert plan["tiles"] == tiles
+    clusters = plan["clusters"]
+    assert (clusters - 1) * MAX_CLUSTER < B * nt <= clusters * MAX_CLUSTER
+    assert plan["part_w"] == (clusters, C * (Fi * (2 * A + O) + 2 * A + O))
+    assert plan["part_x"] == (B, C, N, Fi)
+    assert plan["tickets"] == MAX_CLUSTER * C + B * nt <= TICKETS
+
+
+def test_score_grad_cluster_bounds_n():
+    """A ``gmh_score_grad`` cluster holds at most MAX_SCORE_TILES row tiles:
+    N = 512 fits, 513 raises naming N (before any kernel is built)."""
+    from ccsd_tpu_torch.kernels.gmh_attention import score_tiles
+
+    assert score_tiles(512) == 16
+    with pytest.raises(ValueError, match="N=513"):
+        score_tiles(513)
+
+
+@pytest.mark.parametrize("N", [65, 100])
+@pytest.mark.parametrize("layout", ["contiguous", "channels-last"])
+def test_tiled_backward_plain_parts_compose(N, layout):
+    """The plain versions of the tiled design's launches, chained as the
+    wrapper chains the kernels (the layout pass, gQ | gK from the
+    symmetrised dL/dA, the row-tile kernel's share), give
+    ``gmh_attention_bwd_plain`` in float64 (rtol = atol = 1e-10); the
+    layout pass's gm is exactly symmetric with zeros past column N, and its
+    ac is the adjacency."""
+    from ccsd_tpu_torch.kernels.gmh_attention import (
+        gmh_attention_bwd_tiled_plain, gmh_bwd_layout_plain, gmh_projection_plain,
+        gmh_score_grad_plain, map_row)
+    from ccsd_tpu_torch.kernels.gcn import gcn_degrees_plain
+
+    B, C, Fi, A, O = 2, 2, 5, 8, 6
+    g = torch.Generator().manual_seed(N)
+    f64 = dict(generator=g, dtype=torch.float64)
+    x = torch.randn(B, N, Fi, **f64)
+    adj = _adj((B, C, N, N), g, dtype=torch.float64)
+    if layout == "channels-last":
+        adj = _channels_last(adj)
+    ws = [torch.randn(*s, **f64) * 0.5 for s in
+          [(C, Fi, A), (C, A), (C, Fi, A), (C, A), (C, Fi, O), (C, O)]]
+    gv = torch.randn(B, N, C * O, **f64)
+    ga = torch.randn(B, N, N, 2 * C, **f64)[..., :C]
+    ac, gm = gmh_bwd_layout_plain(adj, ga)
+    assert gm.shape == (B, C, N, map_row(N))
+    assert torch.equal(gm[..., :N], gm[..., :N].transpose(-1, -2)) and not gm[..., N:].any()
+    assert (ac is None) == (layout == "contiguous")  # copied where rows are not unit-stride
+    if ac is not None:
+        assert ac.shape == gm.shape and not ac[..., N:].any()
+        assert torch.equal(ac[..., :N], adj)
+    deg = gcn_degrees_plain(adj)
+    qk, _ = gmh_projection_plain(x, adj, deg, *ws)
+    gqk = gmh_score_grad_plain(qk, gm, 4, O)
+    got = gmh_attention_bwd_tiled_plain(x, adj, *ws, gqk, gv, deg, ac)
+    ref = gmh_attention_bwd_plain(x, adj, *ws, gv, ga, 4, O)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, **F64_TOL)
 
 
 # (B, C, N): past the one-block kernels, a ragged last tile at 65 and 100,
@@ -500,12 +609,16 @@ def test_tiled_gcn_backward_matches_plain_on_card(cuda, shape, add_loop):
 @pytest.mark.parametrize("layout", ["contiguous", "channels-last"])
 @pytest.mark.parametrize("shape", GMH_TILED)
 def test_tiled_gmh_backward_matches_plain_on_card(cuda, shape, layout):
-    """Above N = 64 the four launches (gcn_degrees, gmh_projection,
-    gmh_score_grad, the row-tile kernel) against the plain backward, in
-    both adjacency layouts and for every choice of dx and dadj (dadj in
-    adj's layout); two calls give the same bits; gmh_score_grad against its
-    plain version."""
-    from ccsd_tpu_torch.kernels.gmh_attention import gmh_score_grad, gmh_score_grad_plain
+    """Above N = 64 the five launches (gcn_degrees, gmh_projection, the
+    layout pass, gmh_score_grad, the row-tile kernel) against the plain
+    backward, in both adjacency layouts and for every choice of dx and dadj
+    (dadj in adj's layout); two calls give the same bits; each of the
+    three backward kernels alone against its plain version (the layout
+    pass exactly), the row-tile kernel for every choice of dx and dadj."""
+    from ccsd_tpu_torch.kernels.gcn import gcn_degrees
+    from ccsd_tpu_torch.kernels.gmh_attention import (
+        gmh_attention_bwd_tiled, gmh_attention_bwd_tiled_plain, gmh_bwd_layout,
+        gmh_bwd_layout_plain, gmh_score_grad, gmh_score_grad_plain)
 
     g = torch.Generator(device=cuda).manual_seed(sum(shape))
     x, adj, ws, gv, ga, H, O = _gmh_case(shape, g, cuda, layout)
@@ -516,8 +629,10 @@ def test_tiled_gmh_backward_matches_plain_on_card(cuda, shape, layout):
         again = gmh_attention_bwd(x, adj, *ws, gv, ga, H, O, need_x=need_x,
                                   need_adj=need_adj)
         torch.cuda.synchronize()
-        for k in ("gmh_attention_bwd", "gmh_score_grad", "gmh_projection", "gcn_degrees"):
+        for k in ("gmh_attention_bwd_tiled", "gmh_score_grad", "gmh_bwd_layout",
+                  "gmh_projection", "gcn_degrees"):
             assert LAUNCHES[k] == before[k] + 2, k
+        assert LAUNCHES["gmh_attention_bwd"] == before["gmh_attention_bwd"]
         if need_adj:
             assert got[1].stride() == adj.stride()
         for i, (a, r) in enumerate(zip(got, ref)):
@@ -527,9 +642,23 @@ def test_tiled_gmh_backward_matches_plain_on_card(cuda, shape, layout):
             assert torch.equal(a, again[i]), i
             assert a.shape == r.shape and grad_tol_ok(a, r), (i, (a - r).abs().max().item())
     B, N, C = x.shape[0], x.shape[1], adj.shape[1]
+    ac, gm = gmh_bwd_layout(adj, ga)
+    want = gmh_bwd_layout_plain(adj, ga)
+    assert torch.equal(gm, want[1]) and (ac is None) == (want[0] is None)
+    assert ac is None or torch.equal(ac, want[0])
     qk = torch.randn(B, C, N, 2 * ws[0].shape[-1], generator=g, device=cuda)
-    got, want = gmh_score_grad(qk, ga, H, O), gmh_score_grad_plain(qk, ga, H, O)
+    got, want = gmh_score_grad(qk, gm, H, O), gmh_score_grad_plain(qk, gm, H, O)
+    assert torch.equal(got, gmh_score_grad(qk, gm, H, O))
     assert grad_tol_ok(got, want), (got - want).abs().max().item()
+    deg = gcn_degrees(adj)
+    for need_x, need_adj in ((True, True), (False, False)):
+        got = gmh_attention_bwd_tiled(x, adj, *ws, qk, gv, deg, ac, need_x=need_x,
+                                      need_adj=need_adj)
+        want = gmh_attention_bwd_tiled_plain(x, adj, *ws, qk, gv, need_x=need_x,
+                                             need_adj=need_adj)
+        for i, (a, r) in enumerate(zip(got, want)):
+            assert (a is None) == (r is None), i
+            assert a is None or grad_tol_ok(a, r), (i, (a - r).abs().max().item())
 
 
 @pytest.mark.cuda

@@ -421,7 +421,8 @@ def test_trainer_on_grid_takes_a_step_on_card(cuda, tmp_path):
     kernel launched exactly as the forward and the tiled backward of
     ScoreNetworkX's 5 GCN layers and ScoreNetworkA's 7 AttentionLayers
     give (each backward layer: a ``gcn_degrees`` pass, and for attention
-    ``gmh_projection`` and ``gmh_score_grad`` before its last kernel)."""
+    ``gmh_projection``, the layout pass and ``gmh_score_grad`` before the
+    row-tile kernel)."""
     from ccsd_tpu_torch.kernels import LAUNCHES
 
     cfg = get_config("grid", 0, ROOT)
@@ -435,7 +436,7 @@ def test_trainer_on_grid_takes_a_step_on_card(cuda, tmp_path):
     depth, L = 5, 7
     want = {"gcn_aggregate": depth, "gmh_attention": L, "gmh_projection": 2 * L,
             "gcn_degrees": 2 * (depth + L), "gcn_aggregate_bwd": depth,
-            "gmh_attention_bwd": L, "gmh_score_grad": L}
+            "gmh_bwd_layout": L, "gmh_score_grad": L, "gmh_attention_bwd_tiled": L}
     assert {k: v - before[k] for k, v in LAUNCHES.items()} == {
         k: want.get(k, 0) for k in LAUNCHES}
     assert bool(torch.isfinite(losses).all())
