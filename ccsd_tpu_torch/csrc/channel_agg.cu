@@ -24,28 +24,32 @@
 // layer formed norm with ~11 PyTorch launches, each a pass over the
 // (B, C, N, N) tensor in device memory; here nothing between the adjacency
 // and the output goes to device memory.
-// What the design does about it: one round of cp.async copies stages a
-// block's part of the adjacency and the graph's x (and, for a tiled graph,
-// the degrees gcn_degrees.cu computed), and the block waits on them once;
-// the degree sums take kRowLanes lanes a row; two barriers in f32.  Two
-// kernels:
+// What the design does about it, for a whole graph (N <= 64): one round of
+// cp.async copies stages a block's graph and its x, and the block waits on
+// them once; the degree sums take kRowLanes lanes a row; two barriers in
+// f32.  Two kernels:
 //  * four channels a block (channel_agg_group_kernel) where the adjacency
-//    is channels-last, as every layer after the first passes it, and the
-//    graph is whole (N <= 64): each (n, m) entry of four channels is one
-//    16-byte copy, x is read once for the four, and a thread's 16
-//    accumulators (four channels x four F) take 16 FMAs per three 16-byte
-//    shared loads (256 blocks at B = 128, C = 8);
-//  * one (graph, channel) a block otherwise: `rows` rows of it, all N where
-//    N <= 64 (256 blocks at the first layer's C = 2), else tiles of 32 rows
-//    (768 blocks at grid's B = 8, C = 8, N = 361; 192 at C = 2).  A thread
-//    owns four consecutive outputs along F of one row: each four m cost a
-//    16-byte load of the A row, one of d and four of x for 16 FMAs.
+//    is channels-last, as every layer after the first passes it: each
+//    (n, m) entry of four channels is one 16-byte copy, x is read once for
+//    the four, and a thread's 16 accumulators (four channels x four F) take
+//    16 FMAs per three 16-byte shared loads (256 blocks at B = 128, C = 8);
+//  * one (graph, channel) a block otherwise (channel_agg_kernel; 256 blocks
+//    at the first layer's C = 2).  A thread owns four consecutive outputs
+//    along F of one row: each four m cost a 16-byte load of the A row, one
+//    of d and four of x for 16 FMAs.
 // Both apply d_m to the A entries as the product reads them and d_n to the
 // sums, and store four outputs in one 16-byte store where F % 4 == 0.
-// Staging whole rows (not K tiles) keeps one wait per block: at N = 361,
-// F = 32 a block holds 92 KB.  Plain f32 FMAs; no TF32.
+// Plain f32 FMAs; no TF32.
+//
+// Above N = 64 (grid: N = 361, where the adjacency alone is 33 MB at B = 8,
+// C = 8) a gcn_degrees launch computes d of every row first, and
+// channel_agg_tile_kernel takes the graph in tiles of 16 rows: the
+// normalised aggregation tile of agg_tile.cuh on the tensor cores (3xTF32,
+// f32-accurate; the bf16 variant in one TF32 pass over bf16 values), a
+// block a (row tile, group of up to 8 channels, graph), the outputs of a
+// pass stored from the slices' sums.
 
-#include "gcn_common.cuh"
+#include "agg_tile.cuh"
 
 namespace {
 
@@ -53,36 +57,33 @@ using gcn::cdiv;
 using gcn::ld4;
 using gcn::round4;
 
-// Shared layout (floats): A rows x ld4(N) | x N x round4(F) | d round4(N).
-__host__ __device__ constexpr int smem_floats(int N, int F, int rows) {
-  return rows * ld4(N) + N * round4(F) + round4(N);
+// Shared layout (floats): A N x ld4(N) | x N x round4(F) | d round4(N).
+__host__ __device__ constexpr int smem_floats(int N, int F) {
+  return N * ld4(N) + N * round4(F) + round4(N);
 }
 
+// One (graph, channel) a block, all N rows.
 template <bool kBf16>
 __global__ void __launch_bounds__(gcn::kMaxThreads)
 channel_agg_kernel(const float* __restrict__ adj, const float* __restrict__ x,
-                   const float* __restrict__ deg, float* __restrict__ out, int C, int N,
-                   int F, int rows, long long sb, long long sc, long long sn, long long sm) {
+                   float* __restrict__ out, int C, int N, int F, long long sb, long long sc,
+                   long long sn, long long sm) {
   extern __shared__ __align__(16) float smem[];
   const int lda = ld4(N), ldx = round4(F);
   float* sA = smem;
-  float* sX = sA + rows * lda;
+  float* sX = sA + N * lda;
   float* sD = sX + N * ldx;
 
-  const int tiles = cdiv(N, rows);
-  const int bc = blockIdx.x / tiles;  // b * C + c
-  const int r0 = (blockIdx.x - bc * tiles) * rows, nr = min(rows, N - r0);
+  const int bc = blockIdx.x;  // b * C + c
   const int b = bc / C, c = bc - b * C;
-  const bool whole = tiles == 1;
 
-  gcn::stage(sA, lda, adj + b * sb + c * sc + r0 * sn, sn, sm, nr, N);
+  gcn::stage(sA, lda, adj + b * sb + c * sc, sn, sm, N, N);
   gcn::stage(sX, ldx, x + (size_t)b * N * F, F, 1, N, F);
-  if (!whole) gcn::stage(sD, N, deg + (size_t)bc * N, N, 1, 1, N);
   gmh::cp_async_commit();
   gcn::zero_pad(sX, ldx, N, F);
   gmh::cp_async_wait<0>();
   __syncthreads();  // every copy has landed: a row's diagonal may be another thread's copy
-  gcn::prepare_rows(sA, lda, r0, nr, N, whole, true, 1.0f, sD);
+  gcn::prepare_rows(sA, lda, 0, N, N, true, true, 1.0f, sD);
   const bool scale = !gcn::ablated(gcn::kDegrees);
   if (kBf16) {  // x rounded to bf16 (every element once)
     for (int i = threadIdx.x; i < N * F; i += blockDim.x) {
@@ -93,17 +94,17 @@ channel_agg_kernel(const float* __restrict__ adj, const float* __restrict__ x,
   }
   __syncthreads();
   if (kBf16) {  // norm formed element by element, (d_n a) d_m, and rounded
-    for (int i = threadIdx.x; i < nr * N; i += blockDim.x) {
+    for (int i = threadIdx.x; i < N * N; i += blockDim.x) {
       const int r = i / N, m = i - r * N;
       float& v = sA[r * lda + m];
-      v = gcn::round_bf16(scale ? sD[r0 + r] * v * sD[m] : v);
+      v = gcn::round_bf16(scale ? sD[r] * v * sD[m] : v);
     }
     __syncthreads();
   }
 
   // f32: out = d_n sum_m (a d_m) x[m]; bf16: out = sum_m norm x[m]
   const int groups = cdiv(F, 4);
-  for (int p = threadIdx.x; p < nr * groups; p += blockDim.x) {
+  for (int p = threadIdx.x; p < N * groups; p += blockDim.x) {
     const int r = p / groups, c0 = 4 * (p - r * groups);
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (!gcn::ablated(gcn::kProduct)) {
@@ -111,10 +112,10 @@ channel_agg_kernel(const float* __restrict__ adj, const float* __restrict__ x,
                             : gcn::row_times4<false>(sA + r * lda, sD, sX, ldx, c0, N);
     }
     if (!kBf16 && scale) {
-      const float dn = sD[r0 + r];
+      const float dn = sD[r];
       v = make_float4(dn * v.x, dn * v.y, dn * v.z, dn * v.w);
     }
-    gcn::store4(out + ((size_t)bc * N + r0 + r) * F, c0, F, v);
+    gcn::store4(out + ((size_t)bc * N + r) * F, c0, F, v);
   }
 }
 
@@ -200,16 +201,94 @@ channel_agg_group_kernel(const float* __restrict__ adj, const float* __restrict_
 
 // The four-channel kernel takes a whole graph, f32, with a channels-last
 // adjacency whose entries of four channels are 16-byte aligned.
-bool takes_group(const float* adj, int C, int N, int rows, int bf16, long long sb, long long sc,
-                 long long sn, long long sm) {
-  return !bf16 && rows >= N && C % kGroup == 0 && sc == 1 && sm % 4 == 0 && sn % 4 == 0 &&
-         sb % 4 == 0 && (reinterpret_cast<uintptr_t>(adj) & 15) == 0;
+bool takes_group(const float* adj, int C, int bf16, long long sb, long long sc, long long sn,
+                 long long sm) {
+  return !bf16 && C % kGroup == 0 && sc == 1 && sm % 4 == 0 && sn % 4 == 0 && sb % 4 == 0 &&
+         (reinterpret_cast<uintptr_t>(adj) & 15) == 0;
+}
+
+// ------------------------------------------------------ tiled (N > 64)
+//
+// A block per (row tile of agg::kRows rows, group of G channels, graph),
+// graphs in reverse order: the gcn_degrees launch before reads them in
+// order, so the first blocks find their rows in L2.  Stage ablation as
+// gcn_common.cuh's: the loads, the degrees, the product, the store.
+
+constexpr unsigned kTileAblate = ((GCN_ABLATE & gcn::kLoads) ? agg::kNoLoads : 0u) |
+                                 ((GCN_ABLATE & gcn::kDegrees) ? agg::kNoDegrees : 0u) |
+                                 ((GCN_ABLATE & gcn::kProduct) ? agg::kNoProduct : 0u);
+
+// the ring: two chunks of four k-steps a warp (two blocks an SM at G = 8,
+// F = 32; fewer barriers than four chunks of two)
+constexpr int kTileStages = 2, kTileSteps = 4;
+
+// Shared floats of a block: the tile's region and degrees.
+__host__ __device__ inline int tile_floats(int N, int F, int G, bool quad) {
+  const agg::Geometry geo(N, F, G, quad, kTileStages, kTileSteps);
+  return geo.region + geo.deg;
+}
+
+template <bool kQuad, bool kBf16, int kNT>
+__global__ void __launch_bounds__(agg::kThreads, 2)
+channel_agg_tile_kernel(const float* __restrict__ adj, const float* __restrict__ x,
+                        const float* __restrict__ deg, float* __restrict__ out, int C, int N,
+                        int F, int G, long long sb, long long sc, long long sn, long long sm) {
+  extern __shared__ __align__(16) float smem[];
+  const agg::Geometry geo(N, F, G, kQuad, kTileStages, kTileSteps);
+  float* sD = smem + geo.region;
+  const int c0 = blockIdx.x * G, r0 = blockIdx.y * agg::kRows;
+  const int b = gridDim.z - 1 - blockIdx.z;
+  const agg::Tile t{adj + b * sb + c0 * sc + r0 * sn, sc, sn, sm,
+                    x + static_cast<size_t>(b) * N * F, N, F, r0,
+                    min(agg::kRows, N - r0), min(G, C - c0), true, 1.0f};
+  agg::stage_degrees<kTileAblate>(sD, deg + (static_cast<size_t>(b) * C + c0) * N, N, t.nch, G);
+  float* ob = out + (static_cast<size_t>(b) * C + c0) * N * F + static_cast<size_t>(r0) * F;
+  for (int f0 = 0; f0 < F; f0 += 8 * agg::kPassNT) {
+    const int nf = min(8 * agg::kPassNT, F - f0);
+    agg::aggregate<kTileStages, kNT, kQuad, kBf16, kTileAblate>(
+        geo, t, smem, sD, f0, nf, [&](int g, int r, int f, float v) {
+          if (!gcn::ablated(gcn::kStore))
+            ob[(static_cast<size_t>(g) * N + r) * F + f0 + f] = v;
+        });
+  }
+}
+
+template <bool kQuad, bool kBf16, int kNT>
+int launch_tiles(const float* adj, const float* x, const float* deg, float* out, int B, int C,
+                 int N, int F, int G, long long sb, long long sc, long long sn, long long sm,
+                 cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(channel_agg_tile_kernel<kQuad, kBf16, kNT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         gmh::kMaxSmem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const size_t smem = sizeof(float) * tile_floats(N, F, G, kQuad);
+  if (smem > gmh::kMaxSmem || B > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(cdiv(C, G), cdiv(N, agg::kRows), B);
+  channel_agg_tile_kernel<kQuad, kBf16, kNT><<<grid, agg::kThreads, smem, stream>>>(
+      adj, x, deg, out, C, N, F, G, sb, sc, sn, sm);
+  return (int)cudaGetLastError();
+}
+
+// the layout ([r][m][g] or [g][r][m]) and the n-tiles of a pass (F <= 8:
+// one, else four) as the strides and F allow
+template <bool kBf16>
+int launch_tiles(const float* adj, const float* x, const float* deg, float* out, int B, int C,
+                 int N, int F, int G, long long sb, long long sc, long long sn, long long sm,
+                 cudaStream_t stream) {
+  const bool quad = agg::takes_quad(adj, C, G, sb, sc, sn, sm);
+  const auto launch = quad ? (F <= 8 ? launch_tiles<true, kBf16, 1> : launch_tiles<true, kBf16, 4>)
+                           : (F <= 8 ? launch_tiles<false, kBf16, 1>
+                                     : launch_tiles<false, kBf16, 4>);
+  return launch(adj, x, deg, out, B, C, N, F, G, sb, sc, sn, sm, stream);
 }
 
 template <bool kBf16>
-int launch(const float* adj, const float* x, const float* deg, float* out, int B, int C, int N,
-           int F, long long sb, long long sc, long long sn, long long sm, int rows,
-           cudaStream_t stream) {
+int launch_graphs(const float* adj, const float* x, float* out, int B, int C, int N, int F,
+                  long long sb, long long sc, long long sn, long long sm, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(channel_agg_kernel<kBf16>,
@@ -218,32 +297,45 @@ int launch(const float* adj, const float* x, const float* deg, float* out, int B
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  const int tiles = cdiv(N, rows);
-  const int threads = gcn::block_threads(rows, cdiv(F, 4));
-  const size_t smem = sizeof(float) * smem_floats(N, F, rows);
-  channel_agg_kernel<kBf16><<<B * C * tiles, threads, smem, stream>>>(
-      adj, x, deg, out, C, N, F, rows, sb, sc, sn, sm);
+  const size_t smem = sizeof(float) * smem_floats(N, F);
+  channel_agg_kernel<kBf16><<<B * C, gcn::block_threads(N, cdiv(F, 4)), smem, stream>>>(
+      adj, x, out, C, N, F, sb, sc, sn, sm);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared bytes of a block of `rows` rows, in the larger of the two layouts.
-extern "C" int channel_agg_smem(int N, int F, int rows) {
-  const int one = smem_floats(N, F, rows);
-  const int four = rows >= N ? smem_floats_group(N, F) : 0;
-  return (int)sizeof(float) * (one > four ? one : four);
+// Shared bytes of a block: rows >= N, a whole graph in the larger of the
+// two one-block layouts; rows < N, a tile of G channels in the larger of
+// the tile's two layouts.
+extern "C" int channel_agg_smem(int N, int F, int rows, int G) {
+  int floats;
+  if (rows >= N) {
+    const int one = smem_floats(N, F), four = smem_floats_group(N, F);
+    floats = one > four ? one : four;
+  } else {
+    const int rowwise = tile_floats(N, F, G, false);
+    const int quad = (G == 4 || G == 8) ? tile_floats(N, F, G, true) : 0;
+    floats = rowwise > quad ? rowwise : quad;
+  }
+  return (int)sizeof(float) * floats;
 }
 
 // adj (B, C, N, N) in strides (sb, sc, sn, sm), x (B, N, F) contiguous ->
-// out (B, C, N, F) contiguous.  rows >= N: a block per (graph, channel),
-// deg unused; rows < N: blocks of `rows` rows reading deg (B, C, N) from
+// out (B, C, N, F) contiguous.  rows >= N: a whole graph a block (G and deg
+// unused); rows < N: the tiles of G channels reading deg (B, C, N) from
 // gcn_degrees_run.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int channel_agg_run(const float* adj, const float* x, const float* deg, float* out,
                                int B, int C, int N, int F, long long sb, long long sc,
-                               long long sn, long long sm, int rows, int bf16, void* stream) {
-  rows = rows < N ? rows : N;
-  if (takes_group(adj, C, N, rows, bf16, sb, sc, sn, sm)) {
+                               long long sn, long long sm, int rows, int G, int bf16,
+                               void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (rows < N) {
+    if (G < 1 || G > agg::kMaxGroup) return (int)cudaErrorInvalidValue;
+    return bf16 ? launch_tiles<true>(adj, x, deg, out, B, C, N, F, G, sb, sc, sn, sm, s)
+                : launch_tiles<false>(adj, x, deg, out, B, C, N, F, G, sb, sc, sn, sm, s);
+  }
+  if (takes_group(adj, C, bf16, sb, sc, sn, sm)) {
     static bool attr_set = false;
     if (!attr_set) {
       cudaError_t e = cudaFuncSetAttribute(channel_agg_group_kernel,
@@ -253,12 +345,10 @@ extern "C" int channel_agg_run(const float* adj, const float* x, const float* de
       attr_set = true;
     }
     const size_t smem = sizeof(float) * smem_floats_group(N, F);
-    channel_agg_group_kernel<<<B * (C / kGroup), gcn::block_threads(N, cdiv(F, 4)), smem,
-                               (cudaStream_t)stream>>>(adj, x, out, C, N, F, sb, sn, sm);
+    channel_agg_group_kernel<<<B * (C / kGroup), gcn::block_threads(N, cdiv(F, 4)), smem, s>>>(
+        adj, x, out, C, N, F, sb, sn, sm);
     return (int)cudaGetLastError();
   }
-  return bf16 ? launch<true>(adj, x, deg, out, B, C, N, F, sb, sc, sn, sm, rows,
-                             (cudaStream_t)stream)
-              : launch<false>(adj, x, deg, out, B, C, N, F, sb, sc, sn, sm, rows,
-                              (cudaStream_t)stream);
+  return bf16 ? launch_graphs<true>(adj, x, out, B, C, N, F, sb, sc, sn, sm, s)
+              : launch_graphs<false>(adj, x, out, B, C, N, F, sb, sc, sn, sm, s);
 }

@@ -57,7 +57,7 @@
 //    threads, one float at stride C each.
 // Plain f32 FMAs and tanhf throughout; no TF32.
 
-#include "gmh_common.cuh"
+#include "agg_tile.cuh"
 
 namespace {
 
@@ -225,62 +225,53 @@ gmh_attention_kernel(const float* __restrict__ x, const float* __restrict__ adj,
 // maps from Q and K.  The GCN-conv Q, K and V of a row need norm X over all
 // N rows, which is why the projection and the scores are two launches.
 //
-// Projection, a block per (row tile of kTile rows, group of G channels,
-// graph b):
-//   NX[c, n, :]      = d_cn sum_m A'[c, n, m] d_cm X[m, :]
+// Projection, a block per (group of G channels, row tile of agg::kRows = 16
+// rows, graph b; graphs in reverse order, so that the first blocks find in
+// L2 what the gcn_degrees launch before read last):
+//   NX[c, n, :]       = d_cn sum_m A'[c, n, m] d_cm X[m, :]
 //   [Q | K | V][c, n] = NX[c, n, :] [Wq | Wk | Wv][c] + bias[c]
-// in the order of the one-block kernel ((norm X) W, then the bias).  Q | K
-// go to the scratch qk[b, c, n, 0 : 2A] the score launch reads, V straight
-// to v_out[b, n, c F_out + o].  X of the graph (N x F_in: 46 KB at N = 361,
-// F_in = 32), the group's degrees and [Wq | Wk | Wv] with its bias are
-// staged whole; the adjacency rows of the tile arrive in chunks of kChunk
-// columns for all G channels, [r][m][g] in shared memory, two chunks in
-// flight (cp.async), read from device memory in its own order: for the
-// channels-last adjacency of layers 2 and on, (m, g) runs of G floats a
-// column (16-byte copies of four channels where the strides allow), for a
-// contiguous one runs along m.  Thread (g, r, s), S = 256 / (32 G) threads
-// a row of a channel, keeps the F_in sums of its row in float4 registers
-// (quads s, s + S, ...), each m costing one shared read of A (conflict-free:
-// row stride 33 G), the degree, and one 16-byte read of X per quad for
-// four FMAs.  The product with W is the register-tiled one of the
-// one-block kernel, channel by channel.
+// in the order of the one-block kernel ((norm X) W, then the bias).  NX is
+// the normalised aggregation tile of agg_tile.cuh (3xTF32 on the tensor
+// cores), kept in shared memory; the product with [Wq | Wk | Wv] (read
+// from L2, which keeps two blocks an SM) is in f32 FMAs, into shared memory
+// (see below why).  Then Q | K go to the scratch qk[b, c, n, 0 : 2A] the
+// score launch reads, V to v_out[b, n, c F_out + o], rows at a time.
 //
 // What bounds it on H100 at grid's widest layer (B = 8, C = 8, N = 361,
 // F_in = 32): 33 MB of adjacency read once (~10 us at 3.35 TB/s) against
-// ~0.7 GFLOP (~10 us at 67 TFLOP/s of f32).
+// ~0.7 GFLOP (0.53 of them the aggregation, on the tensor cores; the
+// projection's 0.18 in f32 FMAs, ~3 us at 67 TFLOP/s).
 
-constexpr int kChunk = 32;    // adjacency columns a stage
-constexpr int kMaxQuads = 8;  // float4 sums of a thread: F_in <= 32 S
+// the ring: three chunks of two k-steps a warp
+constexpr int kProjStages = 3, kProjSteps = 2;
+constexpr unsigned kProjAblate = ((GMH_ABLATE & kNormX) ? agg::kNoProduct : 0u) |
+                                 ((GMH_ABLATE & kLoads) ? agg::kNoLoads : 0u);
 
-__host__ __device__ constexpr int proj_row_ld(int G) { return (kChunk + 1) * G; }
-
+// Shared floats of a projection block: the aggregation tile's region
+// (after the tile: [Q | K | V] of the block, rows of ldo floats, 8 mod 32)
+// and degrees | NX (G x kRows rows of ld4(F_in) floats).  [Wq | Wk | Wv]
+// and the biases are read from device memory (L2), which keeps two blocks
+// an SM.
 struct ProjLayout {
-  int P, ldx, ldr, ldnx;
-  int d, w, bias, adj, nx, total;
-  __host__ __device__ ProjLayout(int N, int Fi, int A, int O, int G) {
+  agg::Geometry geo;
+  int P, ldo, ldn;
+  int region, d, nx, total;
+  __host__ __device__ ProjLayout(int N, int Fi, int A, int O, int G, bool quad)
+      : geo(N, Fi, G, quad, kProjStages, kProjSteps) {
     P = 2 * A + O;
-    ldx = round4(Fi);   // X rows, zero-padded to whole float4
-    ldr = proj_row_ld(G);
-    ldnx = ld4(Fi);
-    d = round4(N * ldx);
-    w = d + round4(G * N);
-    bias = w + round4(G * Fi * P);
-    adj = bias + round4(G * P);
-    nx = adj + round4(2 * gmh::kTile * ldr);
-    total = nx + G * gmh::kTile * ldnx;
+    const int p8 = 8 * cdiv(P, 8);
+    ldo = p8 + (40 - p8 % 32) % 32;
+    ldn = ld4(Fi);
+    const int outs = G * agg::kRows * ldo;
+    region = geo.region > outs ? geo.region : outs;
+    d = region;
+    nx = d + geo.deg;
+    total = nx + G * agg::kRows * ldn;
   }
 };
 
-// threads a (channel, row) of the NX sums, and whether a group of G
-// channels over F_in features fits the thread mapping
-__host__ __device__ constexpr int proj_split(int G) {
-  return G * gmh::kTile >= kThreads ? 1 : kThreads / (G * gmh::kTile);
-}
-__host__ __device__ constexpr bool proj_fits(int Fi, int G) {
-  return G >= 1 && G * gmh::kTile <= kThreads && cdiv(Fi, 4) <= kMaxQuads * proj_split(G);
-}
-
-__global__ void __launch_bounds__(kThreads)
+template <bool kQuad, int kNT>
+__global__ void __launch_bounds__(agg::kThreads, 2)
 gmh_projection_kernel(const float* __restrict__ x, const float* __restrict__ adj,
                       const float* __restrict__ deg, const float* __restrict__ wq,
                       const float* __restrict__ bq, const float* __restrict__ wk,
@@ -290,156 +281,111 @@ gmh_projection_kernel(const float* __restrict__ x, const float* __restrict__ adj
                       long long as_b, long long as_c, long long as_n, long long as_m,
                       int add_loop, float loop) {
   extern __shared__ __align__(16) float smem[];
-  const ProjLayout L(N, Fi, A, O, G);
-  const int P = L.P;
-  float* sX = smem;
+  const ProjLayout L(N, Fi, A, O, G, kQuad);
+  const int P = L.P, ldo = L.ldo, ldn = L.ldn;
   float* sD = smem + L.d;
-  float* sW = smem + L.w;
-  float* sBias = smem + L.bias;
-  float* sA = smem + L.adj;
   float* sNX = smem + L.nx;
-  const int r0 = blockIdx.x * kTile, nr = min(kTile, N - r0);
-  const int c0 = blockIdx.y * G, nch = min(G, C - c0);
-  const int b = blockIdx.z;
+  const int c0 = blockIdx.x * G, r0 = blockIdx.y * agg::kRows;
+  const int b = gridDim.z - 1 - blockIdx.z;
+  const agg::Tile t{adj + b * as_b + c0 * as_c + r0 * as_n, as_c, as_n, as_m,
+                    x + static_cast<size_t>(b) * N * Fi, N, Fi, r0,
+                    min(agg::kRows, N - r0), min(G, C - c0), add_loop != 0, loop};
 
-  // the graph's X, the group's degrees, weights and biases
-  copy_tile_async(sX, L.ldx, x + static_cast<size_t>(b) * N * Fi, Fi, 1, N, Fi);
-  copy_tile_async(sD, N, deg + (static_cast<size_t>(b) * C + c0) * N, N, 1, nch, N);
-  for (int g = 0; g < nch; ++g) {
-    const int c = c0 + g;
-    const float* w[3] = {wq + static_cast<size_t>(c) * Fi * A,
-                         wk + static_cast<size_t>(c) * Fi * A,
-                         wv + static_cast<size_t>(c) * Fi * O};
-    const float* bias[3] = {bq ? bq + c * A : nullptr, bk ? bk + c * A : nullptr,
-                            bv ? bv + c * O : nullptr};
-    for (int m = 0; m < 3; ++m) {
-      const int off = m * A, width = m < 2 ? A : O;
-      copy_tile_async(sW + g * Fi * P + off, P, w[m], width, 1, Fi, width);
-      if (bias[m])
-        copy_tile_async(sBias + g * P + off, width, bias[m], width, 1, 1, width);
-      else
-        zero_fill(sBias + g * P + off, width);
-    }
+  agg::stage_degrees<kProjAblate>(sD, deg + (static_cast<size_t>(b) * C + c0) * N, N, t.nch,
+                                  G);
+  for (int f0 = 0; f0 < Fi; f0 += 8 * agg::kPassNT) {
+    agg::aggregate<kProjStages, kNT, kQuad, false, kProjAblate>(
+        L.geo, t, smem, sD, f0, min(8 * agg::kPassNT, Fi - f0),
+        [&](int g, int r, int f, float v) { sNX[(g * agg::kRows + r) * ldn + f0 + f] = v; });
   }
+  if (ablated(kProjection)) return;
 
-  // adjacency columns [m0, m0 + mc) of the tile's rows, the group's
-  // channels, into stage `buf`, [r][m][g]
-  const float* ab = adj + b * as_b + c0 * as_c + r0 * as_n;
-  const bool cl = as_c < as_m;  // channels vary faster than columns
-  const bool vec4 = cl && as_c == 1 && (nch & 3) == 0 && (G & 3) == 0 && (as_m & 3) == 0 &&
-                    (as_n & 3) == 0 && (as_b & 3) == 0 && (c0 & 3) == 0 &&
-                    (reinterpret_cast<uintptr_t>(adj) & 15) == 0;
-  const int nchunks = cdiv(N, kChunk);
-  auto stage = [&](int k) {
-    float* dst = sA + (k & 1) * kTile * L.ldr;
-    const int m0 = k * kChunk, mc = min(kChunk, N - m0);
-    const float* src = ab + m0 * as_m;
-    if (vec4) {
-      const int gv = nch >> 2, cnt = nr * mc * gv;
-      for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-        const int g = (i % gv) << 2, rm = i / gv, m = rm % mc, r = rm / mc;
-        cp_async16(dst + r * L.ldr + m * G + g, src + r * as_n + m * as_m + g);
-      }
-    } else {
-      const int cnt = nr * mc * nch;
-      for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-        int g, m, r;
-        if (cl) {
-          g = i % nch;
-          const int rm = i / nch;
-          m = rm % mc;
-          r = rm / mc;
+  // [Q | K | V] = NX [Wq | Wk | Wv] + bias into the region in f32 FMAs, each
+  // output's in k order, then the bias (the one-block kernel's order): a
+  // thread a (channel, column), its 16 rows in registers, each weight read
+  // once from L2.  On the tensor cores (3xTF32) this product moved grid's
+  // full-loss gradient against float64 (which f32 holds only to its own
+  // rounding, the degree clamp's kink amplifying it) far past the smoke's
+  // bound of 4x the CPU f32 copy's distance.
+  float* sOut = smem;
+  const int A2 = 2 * A;
+  for (int i = threadIdx.x; i < t.nch * P; i += blockDim.x) {
+    const int g = i / P, p = i - g * P, c = c0 + g;
+    const float* wc = p < A    ? wq + static_cast<size_t>(c) * Fi * A + p
+                      : p < A2 ? wk + static_cast<size_t>(c) * Fi * A + (p - A)
+                               : wv + static_cast<size_t>(c) * Fi * O + (p - A2);
+    const int ld = p < A2 ? A : O;
+    const float* nx = sNX + g * agg::kRows * ldn;
+    float acc[agg::kRows];
+#pragma unroll
+    for (int r = 0; r < agg::kRows; ++r) acc[r] = 0.f;
+    for (int k0 = 0; k0 < Fi; k0 += 8) {  // eight k a step: two 16-byte loads of NX a row
+      float w[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) w[u] = k0 + u < Fi ? __ldg(wc + (k0 + u) * ld) : 0.f;
+#pragma unroll
+      for (int r = 0; r < agg::kRows; ++r) {
+        const float* nr = nx + r * ldn + k0;
+        if (k0 + 8 <= Fi) {
+          const float4 a = *reinterpret_cast<const float4*>(nr);
+          const float4 b = *reinterpret_cast<const float4*>(nr + 4);
+          const float e[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+          for (int u = 0; u < 8; ++u) acc[r] = fmaf(e[u], w[u], acc[r]);
         } else {
-          m = i % mc;
-          const int rg = i / mc;
-          g = rg % nch;
-          r = rg / nch;
-        }
-        cp_async4(dst + r * L.ldr + m * G + g, src + r * as_n + m * as_m + g * as_c);
-      }
-    }
-  };
-  stage(0);
-  cp_async_commit();
-  for (int i = threadIdx.x; i < N * (L.ldx - Fi); i += blockDim.x) {  // X's padding
-    const int m = i / (L.ldx - Fi);
-    sX[m * L.ldx + Fi + (i - m * (L.ldx - Fi))] = 0.f;
-  }
-
-  // NX sums: thread (g, r, s) owns quads s, s + S, ... of row r of channel g
-  const int S = proj_split(G), quads = cdiv(Fi, 4);
-  const int s = threadIdx.x % S, gr = threadIdx.x / S, g = gr % G, r = gr / G;
-  const bool active = gr < G * kTile && g < nch;
-  const int n = r0 + r;
-  float4 acc[kMaxQuads];
 #pragma unroll
-  for (int u = 0; u < kMaxQuads; ++u) acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int k = 0; k < nchunks; ++k) {
-    if (k + 1 < nchunks) {
-      stage(k + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (active && !ablated(kNormX)) {
-      const int m0 = k * kChunk, mc = min(kChunk, N - m0);
-      const float* arow = sA + (k & 1) * kTile * L.ldr + r * L.ldr + g;
-      const float* dcol = sD + g * N + m0;
-      for (int m = 0; m < mc; ++m) {
-        float a = (add_loop && m0 + m == n) ? loop : arow[m * G];
-        a *= dcol[m];
-        const float* xr = sX + (m0 + m) * L.ldx;
-#pragma unroll
-        for (int u = 0; u < kMaxQuads; ++u) {
-          const int qd = s + u * S;
-          if (qd >= quads) break;
-          const float4 xv = *reinterpret_cast<const float4*>(xr + 4 * qd);
-          acc[u].x = fmaf(a, xv.x, acc[u].x);
-          acc[u].y = fmaf(a, xv.y, acc[u].y);
-          acc[u].z = fmaf(a, xv.z, acc[u].z);
-          acc[u].w = fmaf(a, xv.w, acc[u].w);
+          for (int u = 0; u < 8; ++u)
+            if (k0 + u < Fi) acc[r] = fmaf(nr[u], w[u], acc[r]);
         }
       }
     }
-    __syncthreads();  // stage k & 1 free for chunk k + 2
-  }
-  if (active && r < nr) {
-    const float dn = sD[g * N + n];
-    float* row = sNX + (g * kTile + r) * L.ldnx;
+    const float* bp = p < A ? bq : p < A2 ? bk : bv;
+    const float bias = bp ? __ldg(bp + (p < A ? c * A + p : p < A2 ? c * A + p - A
+                                                               : c * O + p - A2))
+                          : 0.f;
 #pragma unroll
-    for (int u = 0; u < kMaxQuads; ++u) {
-      const int qd = s + u * S;
-      if (qd >= quads) break;
-      *reinterpret_cast<float4*>(row + 4 * qd) =
-          make_float4(dn * acc[u].x, dn * acc[u].y, dn * acc[u].z, dn * acc[u].w);
-    }
+    for (int r = 0; r < agg::kRows; ++r) sOut[(g * agg::kRows + r) * ldo + p] = acc[r] + bias;
   }
   __syncthreads();
 
-  // [Q | K | V] = NX [Wq | Wk | Wv] + bias, channel by channel
-  const int A2 = 2 * A;
-  for (int gg = 0; gg < nch; ++gg) {
-    const int c = c0 + gg;
-    float* qkc = qk + ((static_cast<size_t>(b) * C + c) * N + r0) * A2;
-    float* vo = v_out + (static_cast<size_t>(b) * N + r0) * C * O + static_cast<size_t>(c) * O;
-    const float* bias = sBias + gg * P;
-    auto epi = [&](int rr, int p, float v) {
-      v += bias[p];
-      if (p < A2)
-        qkc[static_cast<size_t>(rr) * A2 + p] = v;
-      else
-        vo[static_cast<size_t>(rr) * C * O + (p - A2)] = v;
-    };
-    const float* nx = sNX + gg * kTile * L.ldnx;
-    if (ablated(kProjection))
-      continue;
-    else if ((P & 3) == 0)
-      tiled_product4<kProjTM>(nx, L.ldnx, sW + gg * Fi * P, P, nr, P, Fi, epi);
-    else
-      tiled_product<kProjTM, kProjTN>(nx, L.ldnx, sW + gg * Fi * P, P, nr, P, Fi, epi);
+  // Q | K rows (2A floats each) and the tile's rows of the channel concat
+  // (nch F_out floats each), lanes along the row
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int gr = warp; gr < t.nch * agg::kRows; gr += agg::kWarps) {
+    const int g = gr / agg::kRows, r = gr % agg::kRows;
+    if (r >= t.nr) continue;
+    float* dst = qk + ((static_cast<size_t>(b) * C + c0 + g) * N + r0 + r) * A2;
+    for (int p = lane; p < A2; p += 32) dst[p] = sOut[gr * ldo + p];
   }
+  for (int r = warp; r < t.nr; r += agg::kWarps) {
+    float* dst = v_out + (static_cast<size_t>(b) * N + r0 + r) * C * O +
+                 static_cast<size_t>(c0) * O;
+    for (int g = 0; g < t.nch; ++g)
+      for (int o = lane; o < O; o += 32)
+        dst[g * O + o] = sOut[(g * agg::kRows + r) * ldo + A2 + o];
+  }
+}
+
+template <bool kQuad, int kNT>
+int launch_projection(const float* x, const float* adj, const float* deg, const float* wq,
+                      const float* bq, const float* wk, const float* bk, const float* wv,
+                      const float* bv, float* qk, float* v_out, int B, int C, int N, int Fi,
+                      int A, int O, int G, long long as_b, long long as_c, long long as_n,
+                      long long as_m, int add_loop, float loop, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(gmh_projection_kernel<kQuad, kNT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int smem = static_cast<int>(sizeof(float)) * ProjLayout(N, Fi, A, O, G, kQuad).total;
+  if (smem > kMaxSmem || B > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(cdiv(C, G), cdiv(N, agg::kRows), B);
+  gmh_projection_kernel<kQuad, kNT><<<grid, agg::kThreads, smem, stream>>>(
+      x, adj, deg, wq, bq, wk, bk, wv, bv, qk, v_out, C, N, Fi, A, O, G, as_b, as_c, as_n,
+      as_m, add_loop, loop);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -477,11 +423,13 @@ extern "C" int gmh_attention_f32(const float* x, const float* adj,
   return (int)cudaGetLastError();
 }
 
-// Shared memory (bytes) of one projection block over G channels, or
-// INT_MAX where G channels of F_in features do not fit its thread mapping.
+// Shared memory (bytes) of one projection block over G channels, in the
+// larger of the tile's two layouts, or INT_MAX where G is out of range.
 extern "C" int gmh_projection_smem(int N, int Fi, int A, int O, int G) {
-  if (!proj_fits(Fi, G)) return 0x7fffffff;
-  return static_cast<int>(sizeof(float)) * ProjLayout(N, Fi, A, O, G).total;
+  if (G < 1 || G > agg::kMaxGroup) return 0x7fffffff;
+  const int rowwise = ProjLayout(N, Fi, A, O, G, false).total;
+  const int quad = (G == 4 || G == 8) ? ProjLayout(N, Fi, A, O, G, true).total : 0;
+  return static_cast<int>(sizeof(float)) * (rowwise > quad ? rowwise : quad);
 }
 
 // deg: (B, C, N) of gcn_degrees; qk: (B, C, N, 2A) scratch; v_out: (B, N,
@@ -494,20 +442,13 @@ extern "C" int gmh_projection_run(const float* x, const float* adj, const float*
                                   int A, int O, int G, long long as_b, long long as_c,
                                   long long as_n, long long as_m, int add_loop, float loop,
                                   void* stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        gmh_projection_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  const int smem = gmh_projection_smem(N, Fi, A, O, G);
-  if (smem > kMaxSmem || B > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid(cdiv(N, kTile), cdiv(C, G), B);
-  gmh_projection_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, adj, deg, wq, bq, wk, bk, wv, bv, qk, v_out, C, N, Fi, A, O, G, as_b, as_c, as_n,
-      as_m, add_loop, loop);
-  return (int)cudaGetLastError();
+  if (G < 1 || G > agg::kMaxGroup) return (int)cudaErrorInvalidValue;
+  const bool quad = agg::takes_quad(adj, C, G, as_b, as_c, as_n, as_m);
+  const auto launch = quad ? (Fi <= 8 ? launch_projection<true, 1> : launch_projection<true, 4>)
+                           : (Fi <= 8 ? launch_projection<false, 1>
+                                      : launch_projection<false, 4>);
+  return launch(x, adj, deg, wq, bq, wk, bk, wv, bv, qk, v_out, B, C, N, Fi, A, O, G, as_b,
+                as_c, as_n, as_m, add_loop, loop, (cudaStream_t)stream);
 }
 
 // The tile-pair score stage of gmh_common.cuh in f32, over Q and K of the

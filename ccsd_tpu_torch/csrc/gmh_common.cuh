@@ -54,11 +54,12 @@ __host__ __device__ constexpr int map_ld(int N) { return odd(N); }
 // Stage ablation, for scripts/gmh_stage_times.py: a build with
 // -DGMH_ABLATE=<mask of the stages below> puts a zero fill of the buffer a
 // masked stage writes in its place (the store: nothing), so that the stages
-// after it see finite values.  The default, 0, removes nothing.
+// after it see finite values; kLoads (gmh_projection only) zero-fills the
+// ring of its adjacency and X copies.  The default, 0, removes nothing.
 #ifndef GMH_ABLATE
 #define GMH_ABLATE 0
 #endif
-enum Stage : unsigned { kNormX = 1, kProjection = 2, kHeadSums = 4, kStore = 8 };
+enum Stage : unsigned { kNormX = 1, kProjection = 2, kHeadSums = 4, kStore = 8, kLoads = 16 };
 __device__ constexpr bool ablated(Stage s) { return (GMH_ABLATE & s) != 0; }
 
 __device__ __forceinline__ void zero_fill(float* p, int n) {

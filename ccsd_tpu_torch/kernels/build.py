@@ -65,10 +65,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "channel_agg": {
         # adj, x, degrees, out, B, C, N, F, adj strides (b, c, n, m),
-        # rows per block, bf16, stream
-        "channel_agg_run": [_P] * 4 + [_I] * 4 + [_L] * 4 + [_I, _I, _P],
-        # N, F, rows per block -> shared bytes of a block
-        "channel_agg_smem": [_I] * 3,
+        # rows per block, channels per block (rows < N), bf16, stream
+        "channel_agg_run": [_P] * 4 + [_I] * 4 + [_L] * 4 + [_I, _I, _I, _P],
+        # N, F, rows per block, channels per block -> shared bytes of a block
+        "channel_agg_smem": [_I] * 4,
     },
     "gmh_scores": {
         # q, k, out, B, C, N, attn_dim, heads, head_dim, channels per block,

@@ -17,7 +17,9 @@ the batch last (in lanes); the port keeps it first.  ``bf16=True`` is
 ``agg_impl="dot_bf16"``: norm and x rounded to bf16, products summed in f32
 (the layer rounds the output).  The kernel is ``csrc/channel_agg.cu``; for
 N > 64 it reads the degrees of a ``gcn_degrees`` launch
-(``kernels/gcn.py``).
+(``kernels/gcn.py``) and takes blocks of ``AGG_ROWS`` rows and
+``agg_group(C)`` channels: the normalised aggregation tile of
+``csrc/agg_tile.cuh`` on the tensor cores (3xTF32, f32-accurate).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from ccsd_tpu_torch.kernels import LAUNCHES
 from ccsd_tpu_torch.kernels.build import check_status, kernel_fn
 from ccsd_tpu_torch.kernels.gcn import (
+    agg_group,
     check_cuda_f32,
     check_smem,
     check_strided_f32,
@@ -55,11 +58,11 @@ def channel_agg_plain(adj: torch.Tensor, x: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def agg_smem(N: int, F: int) -> int:
+def agg_smem(N: int, C: int, F: int) -> int:
     """Shared bytes of a block of csrc/channel_agg.cu (the library's own
     count); raises where it exceeds the card's limit."""
-    nbytes = kernel_fn("channel_agg", "channel_agg_smem")(N, F, rows_per_block(N))
-    check_smem("channel_agg", nbytes, N=N, F=F)
+    nbytes = kernel_fn("channel_agg", "channel_agg_smem")(N, F, rows_per_block(N), agg_group(C))
+    check_smem("channel_agg", nbytes, N=N, C=C, F=F)
     return nbytes
 
 
@@ -78,14 +81,14 @@ def channel_agg(adj: torch.Tensor, x: torch.Tensor, bf16: bool = False) -> torch
                          f"x {tuple(x.shape)}")
     a4 = _channels(adj, N)
     C = a4.shape[1]
-    agg_smem(N, F)
+    agg_smem(N, C, F)
     rows = rows_per_block(N)
     deg = gcn_degrees(a4) if rows < N else None
     out = torch.empty((*adj.shape[:-1], F), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = kernel_fn("channel_agg")(
         a4.data_ptr(), x.data_ptr(), 0 if deg is None else deg.data_ptr(), out.data_ptr(),
-        B, C, N, F, *a4.stride(), rows, int(bf16), stream)
+        B, C, N, F, *a4.stride(), rows, agg_group(C), int(bf16), stream)
     check_status("channel_agg", status)
     LAUNCHES["channel_agg"] += 1
     return out

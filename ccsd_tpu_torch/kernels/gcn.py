@@ -13,9 +13,13 @@ diagonal is kept as given, as ``gcn_norm`` does.
 
 A block of ``csrc/gcn_aggregate.cu`` or ``csrc/channel_agg.cu`` holds a
 whole graph where N <= ``WHOLE_GRAPH_N`` and sums its degrees itself; a
-larger graph (grid: N = 361) is cut into blocks of ``ROW_TILE`` rows, and
-``gcn_degrees`` (``csrc/gcn_degrees.cu``, one more launch with a count of
-its own) first computes d once per row for them to read.
+larger graph (grid: N = 361) is cut into blocks of ``ROW_TILE`` rows
+(``gcn_aggregate``) or taken by the normalised aggregation tile of
+``csrc/agg_tile.cuh`` (``channel_agg`` and the attention's
+``gmh_projection``: blocks of ``AGG_ROWS`` rows and ``agg_group`` channels),
+and ``gcn_degrees`` (``csrc/gcn_degrees.cu``, one
+more launch with a count of its own) first computes d once per row for
+them to read.
 
 On a CUDA tensor that needs a gradient the wrapper runs the forward kernel
 inside a ``torch.autograd.Function`` whose backward is the kernel
@@ -43,6 +47,20 @@ from ccsd_tpu_torch.kernels.build import SMEM_LIMIT, check_status, kernel_fn
 
 WHOLE_GRAPH_N = 64  # up to this N a block holds all rows of a graph
 ROW_TILE = 32       # rows per block of a larger graph
+AGG_ROWS = 16       # rows of a block of the aggregation tile (agg::kRows)
+AGG_MAX_GROUP = 8   # channels of a block of the aggregation tile (agg::kMaxGroup)
+
+
+def agg_group(C: int) -> int:
+    """Channels G of a block of the normalised aggregation tile over C
+    channels: 8 or 4 where they divide C (a channels-last adjacency then
+    arrives four channels a 16-byte copy, and at G = C = 8 a block reads
+    each 32-byte sector of its rows once), else the least G <= 8 that
+    splits C into equal groups, the last one short by less than a group."""
+    for G in (AGG_MAX_GROUP, 4):
+        if C % G == 0:
+            return G
+    return -(-C // -(-C // AGG_MAX_GROUP))
 
 
 def rows_per_block(N: int) -> int:

@@ -20,14 +20,14 @@ and the maps channels-last as (B, N, N, C).
 Above N = 64 (``MAX_N``; grid: N = 361) one block cannot hold a graph's
 channel, and the wrapper takes three launches: ``gcn_degrees`` (the
 degrees of every row, ``kernels/gcn.py``), ``gmh_projection`` (Q, K and V
-a row tile of ``TILE`` rows at a time, Q and K into a scratch) and the
-tile-pair score stage of ``csrc/gmh_common.cuh`` in f32 over the plan of
-``tile_pairs`` (counted as ``gmh_attention``: it writes the maps).  The
-plan covers every pair of tiles I <= J once; a block writes the entries
-(n, m) with n in tile I and m in tile J, and, off the diagonal, (m, n):
-every entry of the map once.  The projection holds a graph's X whole in
-shared memory, which bounds the N it takes (``projection_group`` raises,
-naming N, past it); the score stage takes any N.
+of a tile of ``AGG_ROWS`` rows and ``projection_group`` channels a block:
+the normalised aggregation tile of ``csrc/agg_tile.cuh`` on the tensor
+cores in 3xTF32, then the product with the weights in f32 FMAs, Q and K
+into a scratch) and the tile-pair score stage
+of ``csrc/gmh_common.cuh`` in f32 over the plan of ``tile_pairs`` (counted
+as ``gmh_attention``: it writes the maps).  The plan covers every pair of
+tiles I <= J once; a block writes the entries (n, m) with n in tile I and m
+in tile J, and, off the diagonal, (m, n): every entry of the map once.
 
 With ``add_loop=False`` the diagonal is kept as given, following
 ``gcn_norm`` (ccsd_tpu/models/gcn.py:31-33); the Pallas body writes 0 there
@@ -64,6 +64,7 @@ from ccsd_tpu_torch.kernels import LAUNCHES
 from ccsd_tpu_torch.kernels.build import SMEM_LIMIT, check_status, kernel_fn
 from ccsd_tpu_torch.kernels.gcn import (
     adj_grad_plain,
+    agg_group,
     check_cuda_f32,
     check_smem,
     check_strided_f32,
@@ -134,22 +135,26 @@ def tiled_scores_group(kernel: str, B: int, C: int, N: int, A: int,
 
 
 @functools.lru_cache(maxsize=None)
-def projection_group(B: int, C: int, N: int, Fi: int, A: int, O: int,
-                     sms: int = H100_SMS) -> int:
-    """G of a ``gmh_projection`` launch (blocks of one row tile of a graph),
-    from the library's count of a block's shared memory.  The block holds
-    the graph's X whole: past what that allows, raises a ``ValueError``
-    naming N, before any kernel is built."""
-    xbytes = 4 * N * (-(-Fi // 4) * 4)
-    if xbytes > SMEM_LIMIT:
-        raise ValueError(f"gmh_attention: N={N}, F_in={Fi}: the tiled design holds a graph's "
-                         f"X whole in one block ({xbytes} B > {SMEM_LIMIT} B of shared memory)")
+def projection_group(C: int, N: int, Fi: int, A: int, O: int) -> int:
+    """G of a ``gmh_projection`` launch (blocks of one row tile of a graph):
+    ``agg_group(C)``, halved while a block of G channels needs more shared
+    memory than the card has (the library's own count).  A block holds the
+    degrees of its channels' N rows: past what one channel's allow, raises
+    a ``ValueError`` naming N, before any kernel is built."""
+    dbytes = 4 * N
+    if dbytes > SMEM_LIMIT:
+        raise ValueError(f"gmh_attention: N={N}: the tiled design holds the degrees of a "
+                         f"channel's N rows in one block ({dbytes} B > {SMEM_LIMIT} B of "
+                         "shared memory)")
 
     def smem(g: int) -> int:
         return kernel_fn("gmh_attention", "gmh_projection_smem")(N, Fi, A, O, g)
 
     check_smem("gmh_attention", smem(1), N=N, F_in=Fi)
-    return channel_group(B * -(-N // TILE), C, sms, lambda g: smem(g) <= SMEM_LIMIT)
+    G = agg_group(C)
+    while G > 1 and smem(G) > SMEM_LIMIT:
+        G //= 2
+    return G
 
 
 def head_split(attn_dim: int, num_heads: int) -> Tuple[int, int]:
@@ -237,7 +242,7 @@ def gmh_projection(x, adj, deg, wq, bq, wk, bk, wv, bv, loop: float = 1.0,
                                             1)
     if deg.shape != (B, C, N):
         raise ValueError(f"gmh_projection: deg {tuple(deg.shape)}, expected {(B, C, N)}")
-    G = projection_group(B, C, N, Fi, A, O, device_sms(x.device))
+    G = projection_group(C, N, Fi, A, O)
     qk = torch.empty((B, C, N, 2 * A), dtype=torch.float32, device=x.device)
     v_out = torch.empty((B, N, C * O), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -554,7 +559,7 @@ def attention_bwd_smem(N: int, Fi: int, A: int, O: int, H: int,
     if N > MAX_N:
         score_grad_smem(A, H)
         score_tiles(N)
-        projection_group(1, 1, N, Fi, A, O)
+        projection_group(1, N, Fi, A, O)
         return row_tile_smem(N, Fi, A, O, need_adj, need_x)
     return fit_graph("gmh_attention_bwd", N,
                      lambda: kernel_fn("gmh_attention_bwd", "gmh_attention_bwd_smem")(

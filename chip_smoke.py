@@ -28,10 +28,11 @@ Phases, each printing one line of its own results:
               grid_small (B = 8, N = 49, head width 8) and
               grid_small_CC_two_stage (head width 6); ``gcn_aggregate``,
               ``channel_agg`` and their degree pass ``gcn_degrees`` also at
-              grid's (B = 8, N = 361); the two attention kernels (their
-              tiled designs) and ``gmh_projection`` at grid's layer shapes
-              (C = 2 on F_in 5, C = 8 on F_in 32, both adjacency layouts)
-              and at N = 100 (a ragged last tile).
+              grid's (B = 8, N = 361; ``channel_agg`` in every layout, f32
+              and bf16, there and at N = 100); the two attention kernels
+              (their tiled designs) and ``gmh_projection`` at grid's layer
+              shapes (C = 2 on F_in 5, C = 8 on F_in 32, both adjacency
+              layouts) and at N = 100 (a ragged last tile).
 4. models  -- ScoreNetworkX and ScoreNetworkA (unfused; fused f32; fused
               fast, the sampler's default) at B = 128 on the card (kernel
               path) against a float64 CPU copy of the same weights (plain
@@ -160,7 +161,12 @@ Phases, each printing one line of its own results:
               attention layers; the attention kernels' tiled designs at grid's shapes,
               out of the means, beside the floor the tanh sets (the tanhf
               rate measured on the card by a probe kernel), and
-              ``gmh_projection`` at grid's shapes (its path).
+              ``gmh_projection`` at grid's shapes (its path); the PyTorch
+              yardsticks: ``torch.matmul(norm, x)`` for ``channel_agg``,
+              ``torch.baddbmm(b, norm, x W)`` for ``gcn_aggregate``, and
+              ``torch.matmul(norm, x)`` then one ``torch.baddbmm`` over the
+              stacked weights for ``gmh_projection`` (norm, x W and the
+              weights formed before).
 
 Each phase prints its seconds.
 
@@ -569,15 +575,16 @@ EXTRA_CONFIGS = ("grid_small", "grid_small_CC_two_stage")
 # in phase 3, timed in phase 7 beside the path's shapes and kept out of the
 # community_small means (the projection runs on grid's path only)
 GRID_CONFIG = "grid"
-# an N that the tile does not divide (three tiles of 32 and one of 4), at
-# grid's widths and batch, for the tiled attention kernels (phase 3)
+# an N that the tiles do not divide (three of 32 and one of 4; six of 16
+# and one of 4), at grid's widths and batch, for the tiled kernels (phase 3)
 RAGGED_N = 100
 
 
 def grid_shapes():
     """``gcn_more`` and ``agg_more`` cases of GRID_CONFIG's first and later
-    ScoreNetworkX / AttentionLayer, and the ``degrees`` cases they launch
-    (each adjacency in the layout its layer passes)."""
+    ScoreNetworkX / AttentionLayer (``agg_more`` also at N = RAGGED_N), and
+    the ``degrees`` cases they launch (each adjacency in the layout its
+    layer passes)."""
     from ccsd_tpu_torch.utils.config import get_config
 
     c = get_config(GRID_CONFIG, seed=0, folder=HERE)
@@ -589,6 +596,8 @@ def grid_shapes():
     degrees = [(f"{GRID_CONFIG}.x.layers", B, 1, N, "contiguous")]
     degrees += [(name, B, C, N, "contiguous" if name.endswith(".0") else "channels-last")
                 for name, B, C, N, _ in agg]
+    agg += [(f"{GRID_CONFIG}.n{RAGGED_N}.adj.layers.{k}", B, C, RAGGED_N, Fi)
+            for k, (_, _, C, _, Fi) in enumerate(agg[:2])]
     gmh, _ = attention_layer_cases(GRID_CONFIG, c)
     ragged, _ = attention_layer_cases(f"{GRID_CONFIG}.n{RAGGED_N}", ragged_config())
     return {"gcn_more": gcn, "agg_more": agg, "degrees": degrees, "proj": gmh,
@@ -2288,6 +2297,7 @@ def timing_specs():
         gcn_degrees,
         gcn_degrees_plain,
         gcn_norm,
+        _with_loop,
     )
     from ccsd_tpu_torch.kernels.gmh_attention import (
         gmh_attention,
@@ -2309,6 +2319,23 @@ def timing_specs():
         norm = gcn_norm(adj.contiguous())
         return lambda: torch.matmul(norm, x[:, None])
 
+    def baddbmm_of_norm(x, adj, w, b, loop):  # norm and X W formed before
+        norm, xw = gcn_norm(adj, True, loop), x @ w
+        return lambda: torch.baddbmm(b, norm, xw)
+
+    # two calls, norm, the weights and the biases formed before: norm X by
+    # matmul, then (norm X) [Wq | Wk | Wv] + bias by one baddbmm over B C
+    def matmul_baddbmm_of_norm(x, adj, deg, wq, bq, wk, bk, wv, bv):
+        B, C, N, _ = adj.shape
+        norm = (deg[..., :, None] * _with_loop(adj, 1.0) * deg[..., None, :]).contiguous()
+        w = torch.cat([wq, wk, wv], -1).expand(B, -1, -1, -1).reshape(B * C, wq.shape[1], -1)
+        bias = torch.cat([bq, bk, bv], -1).expand(B, -1, -1).reshape(B * C, 1, -1)
+
+        def run():
+            nx = torch.matmul(norm, x[:, None])
+            return torch.baddbmm(bias, nx.view(B * C, N, -1), w)
+        return run
+
     # the pair the fused layer ran when the kernel took norm, not adj
     def norm_then_matmul(adj, x):
         return lambda: torch.matmul(gcn_norm(adj.contiguous()), x[:, None])
@@ -2319,12 +2346,12 @@ def timing_specs():
     return [
         ("gcn_aggregate", "ccsd_tpu_torch/csrc/gcn_aggregate.cu",
          "ccsd_tpu/ops/pallas/gcn.py:45", "gcn", gcn_inputs,
-         {"f32": (gcn_aggregate, gcn_aggregate_plain)}, None, {},
+         {"f32": (gcn_aggregate, gcn_aggregate_plain)}, baddbmm_of_norm, {},
          lambda c: gcn_cost(*c[1:5])),
         ("gmh_projection", "ccsd_tpu_torch/csrc/gmh_attention.cu",
          "ccsd_tpu/ops/pallas/gmh_attention.py:62 (the norm and Q, K, V stage of "
          "_gmh_kernel, :33-47, for graphs cut into row tiles)", "proj", proj_inputs,
-         {"f32": (gmh_projection, gmh_projection_plain)}, None, {},
+         {"f32": (gmh_projection, gmh_projection_plain)}, matmul_baddbmm_of_norm, {},
          lambda c: proj_cost(*c[1:7])),
         ("gcn_degrees", "ccsd_tpu_torch/csrc/gcn_degrees.cu",
          "ccsd_tpu/ops/pallas/gcn.py:37 (the degree stage of _gcn_kernel, for graphs "

@@ -2,7 +2,11 @@
 
 Times ``gmh_attention`` and ``gmh_scores`` (both product types) at the
 community_small layer shapes (B = 128, N = 20, attn = F_out = 32, 4 heads;
-C = 2 on F_in = 11 and C = 8 on F_in = 32):
+C = 2 on F_in = 11 and C = 8 on F_in = 32), and the tiled design's
+``gmh_projection`` at grid's attention layers (B = 8, N = 361, attn = F_out
+= 32: C = 2 on F_in = 5 with a contiguous adjacency, C = 8 on F_in = 32
+with the channels-last adjacency a later layer passes; the degrees formed
+once outside the timed loop):
 
 * each kernel whole, and with stages removed: a build with
   ``-DGMH_ABLATE=<mask>`` (``csrc/gmh_common.cuh``) puts a zero fill of the
@@ -14,7 +18,18 @@ C = 2 on F_in = 11 and C = 8 on F_in = 32):
   unfused path gives it: contiguous (the first layer's) and channels-last
   (a later layer's);
 * ``gmh_scores`` at every channel-group size G (channels per block), to
-  show what the wrapper's choice of G gives.
+  show what the wrapper's choice of G gives;
+* ``gmh_projection`` whole and without its aggregation (``no_norm_x``), its
+  product with the weights (``no_projection``), both (``skeleton``: the
+  loads, the degrees, the barriers and the stores) or its copies of the
+  adjacency and X (``no_loads``), at the wrapper's G, and whole at every G;
+* with ``--parent DIR``, a tree of an earlier commit unpacked by ``git
+  archive <commit> ccsd_tpu_torch | tar -x -C DIR`` whose
+  ``gmh_attention.cu`` has the same C entry points: its library built with
+  the same masks, at the G its wrapper chose (32-row tiles, G halved while
+  fewer blocks than SMs), the whole ``gmh_attention`` (N = 20) and
+  ``gmh_projection`` (grid) of both trees timed in turns (parent, this,
+  this, parent), then the parent's stages.
 
 Each variant is built from the unedited sources with the flags of
 ``ccsd_tpu_torch/kernels/build.py`` into ``build/stage_times/``, all in
@@ -22,13 +37,15 @@ parallel, and timed as ``chip_smoke.py`` times the kernels (CUDA-graph
 replay of 200 launches, CUDA events).  Run from the repo root on a machine
 with an NVIDIA H100:
 
-    python3 scripts/gmh_stage_times.py
+    python3 scripts/gmh_stage_times.py [--parent DIR]
 
-Prints one line per measurement and, last, a JSON object of them all.
+Prints the card's name and power limit, one line per measurement and,
+last, a JSON object of them all.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -41,32 +58,61 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from ccsd_tpu_torch.kernels import build  # noqa: E402
+from ccsd_tpu_torch.kernels.build import SMEM_LIMIT  # noqa: E402
+from ccsd_tpu_torch.kernels.gmh_attention import (  # noqa: E402
+    H100_SMS, TILE, channel_group, projection_group)
 from ccsd_tpu_torch.kernels.gmh_scores import scores_group  # noqa: E402
 
 OUT_DIR = os.path.join(ROOT, "build", "stage_times")
 # the Stage masks of csrc/gmh_common.cuh
-NORM_X, PROJECTION, HEAD_SUMS, STORE = 1, 2, 4, 8
+NORM_X, PROJECTION, HEAD_SUMS, STORE, LOADS = 1, 2, 4, 8, 16
 VARIANTS = {
     "gmh_attention": {"base": 0, "no_norm_x": NORM_X, "no_projection": PROJECTION,
                       "no_head_sums": HEAD_SUMS, "no_store": STORE,
                       "skeleton": NORM_X | PROJECTION | HEAD_SUMS | STORE},
     "gmh_scores": {"base": 0, "no_head_sums": HEAD_SUMS, "no_store": STORE},
 }
+# gmh_projection's variants (its library is gmh_attention's; no_loads is
+# built for it alone, and the parent has no such mask)
+PROJ_VARIANTS = ("base", "no_norm_x", "no_projection", "skeleton")
+# grid's attention layers: (name, B, C, N, F_in, attn, F_out, heads), the
+# first with a contiguous adjacency, the later with a channels-last one
+PROJ_CASES = [("grid.layers.0", 8, 2, 361, 5, 32, 32, 4),
+              ("grid.layers.1", 8, 8, 361, 32, 32, 32, 4)]
 
 
-def build_variants():
-    """{(kernel, variant): bound launcher}, all built in parallel."""
+def build_variants(parent_dir):
+    """{(tree, kernel, variant): bound library}, all built in parallel."""
     os.makedirs(OUT_DIR, exist_ok=True)
-    jobs = {(kname, variant): (os.path.join(build.CSRC_DIR, f"{kname}.cu"),
-                               os.path.join(OUT_DIR, f"lib{kname}_{variant}.so"),
-                               [f"-DGMH_ABLATE={mask}"])
+    jobs = {("new", kname, variant): (os.path.join(build.CSRC_DIR, f"{kname}.cu"),
+                                      os.path.join(OUT_DIR, f"lib{kname}_{variant}.so"),
+                                      [f"-DGMH_ABLATE={mask}"])
             for kname, variants in VARIANTS.items() for variant, mask in variants.items()}
+    jobs[("new", "gmh_attention", "no_loads")] = (
+        os.path.join(build.CSRC_DIR, "gmh_attention.cu"),
+        os.path.join(OUT_DIR, "libgmh_attention_no_loads.so"), [f"-DGMH_ABLATE={LOADS}"])
+    if parent_dir:
+        src = os.path.join(parent_dir, "ccsd_tpu_torch", "csrc", "gmh_attention.cu")
+        for variant, mask in VARIANTS["gmh_attention"].items():
+            jobs[("parent", "gmh_attention", variant)] = (
+                src, os.path.join(OUT_DIR, f"libgmh_attention_parent_{variant}.so"),
+                [f"-DGMH_ABLATE={mask}"])
     build.nvcc_parallel(jobs)
-    return {(kname, variant): getattr(build.bind(kname, lib), next(iter(build.SIGNATURES[kname])))
-            for (kname, variant), (_, lib, _) in jobs.items()}
+    return {key: build.bind(key[1], lib) for key, (_, lib, _) in jobs.items()}
 
 
-def main() -> int:
+def parent_projection_group(lib, B, C, N, Fi, A, O):
+    """G of the earlier gmh_projection wrapper: 32-row tiles, G halved from C
+    while fewer blocks than SMs or a block does not fit."""
+    return channel_group(B * -(-N // TILE), C, H100_SMS,
+                         lambda g: lib.gmh_projection_smem(N, Fi, A, O, g) <= SMEM_LIMIT)
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", metavar="DIR", default=None,
+                    help="an unpacked tree of an earlier commit")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gmh_stage_times: needs a CUDA device", file=sys.stderr)
         return 1
@@ -74,7 +120,10 @@ def main() -> int:
     dev = torch.device("cuda")
     card = cs.smi_name_power()
     print(card, flush=True)
-    fns = build_variants()
+    libs = build_variants(opts.parent)
+    fns = {key: getattr(lib, next(iter(build.SIGNATURES[key[1]]))) for key, lib in libs.items()}
+    trees = ["new", "parent"] if opts.parent else ["new"]
+    turns = ["parent", "new", "new", "parent"] if opts.parent else ["new"]
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
 
@@ -102,9 +151,15 @@ def main() -> int:
                     bk.data_ptr(), wv.data_ptr(), bv.data_ptr(), v_out.data_ptr(),
                     a_out.data_ptr(), B, C, N, Fi, A, O, H, A // H, *adj.stride(),
                     math.sqrt(O), 1, 1.0)
-            for variant in VARIANTS["gmh_attention"]:
-                record(fns[("gmh_attention", variant)], args, kernel="gmh_attention", C=C,
-                       adj=layout, variant=variant)
+            for tree in turns:
+                record(fns[(tree, "gmh_attention", "base")], args, kernel="gmh_attention",
+                       C=C, adj=layout, tree=tree, variant="base")
+            for tree in trees:
+                for variant in VARIANTS["gmh_attention"]:
+                    if variant != "base":
+                        record(fns[(tree, "gmh_attention", variant)], args,
+                               kernel="gmh_attention", C=C, adj=layout, tree=tree,
+                               variant=variant)
 
         q, k, _, _ = cs.scores_inputs(("stage", B, C, N, A, H, O), gen, dev)
         out = torch.empty(B, N, N, C, device=dev)
@@ -115,12 +170,42 @@ def main() -> int:
             for what, G, variant in runs:
                 args = (q.data_ptr(), k.data_ptr(), out.data_ptr(), B, C, N, A, H, A // H, G,
                         *q.stride()[:3], *k.stride()[:3], math.sqrt(O), bf16)
-                record(fns[("gmh_scores", variant)], args, kernel="gmh_scores",
+                record(fns[("new", "gmh_scores", variant)], args, kernel="gmh_scores",
                        product="bf16" if bf16 else "f32", C=C, G=G, wrapper_G=G0,
                        variant=variant, sweep=what)
+
+    for case in PROJ_CASES:
+        _, B, C, N, Fi, A, O, _ = case
+        x, adj, deg, wq, bq, wk, bk, wv, bv = cs.proj_inputs(case, gen, dev)
+        qk = torch.empty(B, C, N, 2 * A, device=dev)
+        v_out = torch.empty(B, N, C * O, device=dev)
+        G = {"new": projection_group(C, N, Fi, A, O)}
+        if opts.parent:
+            G["parent"] = parent_projection_group(libs[("parent", "gmh_attention", "base")],
+                                                  B, C, N, Fi, A, O)
+
+        def proj(tree, variant, g=None):
+            a = (x.data_ptr(), adj.data_ptr(), deg.data_ptr(), wq.data_ptr(), bq.data_ptr(),
+                 wk.data_ptr(), bk.data_ptr(), wv.data_ptr(), bv.data_ptr(), qk.data_ptr(),
+                 v_out.data_ptr(), B, C, N, Fi, A, O, g or G[tree], *adj.stride(), 1, 1.0)
+            return libs[(tree, "gmh_attention", variant)].gmh_projection_run, a
+
+        shape = dict(kernel="gmh_projection", case=case[0], C=C, F_in=Fi,
+                     adj="contiguous" if C == 2 else "channels-last")
+        for tree in turns:
+            record(*proj(tree, "base"), **shape, tree=tree, G=G[tree], variant="base")
+        for tree in trees:
+            for variant in PROJ_VARIANTS + (("no_loads",) if tree == "new" else ()):
+                if variant != "base":
+                    record(*proj(tree, variant), **shape, tree=tree, G=G[tree],
+                           variant=variant)
+        for g in (1, 2, 4, 8):
+            if g <= C and g != G["new"]:
+                record(*proj("new", "base", g), **shape, tree="new", G=g, variant="base",
+                       sweep="G")
     print(json.dumps({"card": card, "rows": rows}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -425,6 +425,91 @@ def test_tiled_gmh_kernel_matches_plain_on_card(cuda, B, N, C, Fi, layout):
         torch.testing.assert_close(o, rr, rtol=1e-5, atol=1e-5)
 
 
+def _layout(adj, layout):
+    """adj (B, C, N, N) contiguous, as the channels-last view a later layer
+    passes, or folded to (B, C*N, N)."""
+    B, C, N, _ = adj.shape
+    if layout == "channels-last":
+        return adj.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    return adj.view(B, C * N, N) if layout == "folded" else adj
+
+
+# the aggregation tile's edges above N = 64: C = 3 (no whole group of four
+# channels), F = 11 (not a multiple of the eight features of an mma), F = 40
+# (two passes of features), C = 12 (groups of four channels)
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "channels-last"])
+@pytest.mark.parametrize("C,F", [(3, 11), (8, 11), (3, 40), (12, 32)])
+@pytest.mark.parametrize("B,N", TILED)
+def test_tiled_channel_agg_edges_on_card(cuda, B, N, C, F, layout):
+    """channel_agg above N = 64 within rtol = atol = 1e-5 of the plain
+    version, and bit for bit the same on a second call."""
+    from ccsd_tpu_torch.kernels.channel_agg import channel_agg, channel_agg_plain
+
+    g = torch.Generator(device=cuda).manual_seed(N + C + F)
+    adj = _layout(_sym(torch.rand(B, C, N, N, device=cuda, generator=g)), layout)
+    x = torch.randn(B, N, F, device=cuda, generator=g)
+    out = channel_agg(adj, x)
+    again = channel_agg(adj, x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, channel_agg_plain(adj, x), rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("layout", ["folded", "channels-last"])
+@pytest.mark.parametrize("C,F", [(2, 5), (8, 32), (3, 11)])
+def test_tiled_channel_agg_folded_and_bf16_at_n100(cuda, C, F, layout, bf16):
+    """At N = 100 (three tiles of 32 rows and one of 4 in the parent's
+    tiling; six of 16 and one of 4 here): the folded (B, C*N, N) form and
+    the bf16 variant, f32 within 1e-5, bf16 within _bf16_agg_tol, both bit
+    for bit on a second call."""
+    from ccsd_tpu_torch.kernels.channel_agg import channel_agg, channel_agg_plain
+
+    B, N = 3, 100
+    g = torch.Generator(device=cuda).manual_seed(C + F)
+    adj = _layout(_sym(torch.rand(B, C, N, N, device=cuda, generator=g)), layout)
+    x = torch.randn(B, N, F, device=cuda, generator=g)
+    out = channel_agg(adj, x, bf16=bf16)
+    again = channel_agg(adj, x, bf16=bf16)
+    torch.cuda.synchronize()
+    ref = channel_agg_plain(adj, x, bf16=bf16)
+    if bf16:
+        err = (out - ref).abs()
+        assert bool((err <= _bf16_agg_tol(adj, x)).all()), f"max error {err.max().item():.3e}"
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "channels-last"])
+@pytest.mark.parametrize("add_loop,loop", [(True, 1.0), (True, 2.0), (False, 1.0)])
+@pytest.mark.parametrize("C,Fi", [(3, 11), (8, 11), (4, 40)])
+@pytest.mark.parametrize("B,N", TILED)
+def test_tiled_projection_edges_on_card(cuda, B, N, C, Fi, add_loop, loop, layout):
+    """gmh_projection above N = 64 on the degrees gcn_degrees gives, with
+    and without the loop and at loop 2: Q | K and V within rtol = atol =
+    1e-5 of the plain version, and bit for bit the same on a second call."""
+    from ccsd_tpu_torch.kernels.gcn import gcn_degrees
+    from ccsd_tpu_torch.kernels.gmh_attention import gmh_projection, gmh_projection_plain
+
+    A = O = 32
+    g = torch.Generator(device=cuda).manual_seed(N + C + Fi)
+    r = lambda *s: torch.randn(*s, device=cuda, generator=g)  # noqa: E731
+    x = r(B, N, Fi)
+    adj = _layout(_grid_adj(B, C, N, g, cuda), layout)
+    w = [r(C, Fi, A) * 0.3, r(C, A), r(C, Fi, A) * 0.3, r(C, A), r(C, Fi, O), r(C, O)]
+    deg = gcn_degrees(adj, add_loop, loop)
+    out = gmh_projection(x, adj, deg, *w, loop, add_loop)
+    again = gmh_projection(x, adj, deg, *w, loop, add_loop)
+    torch.cuda.synchronize()
+    for o, rr, o2 in zip(out, gmh_projection_plain(x, adj, deg, *w, loop, add_loop), again):
+        torch.testing.assert_close(o, rr, rtol=1e-5, atol=1e-5)
+        assert torch.equal(o, o2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("C", [2, 8])
@@ -480,15 +565,48 @@ def test_tile_pair_plan_writes_every_entry_once(N):
     assert (writes == 1).all()
 
 
+@pytest.mark.parametrize("C,G", [(1, 1), (2, 2), (3, 3), (4, 4), (8, 8), (10, 5),
+                                 (12, 4), (16, 8), (17, 6)])
+def test_aggregation_tile_channel_groups(C, G):
+    """Groups of 8 or 4 channels where they divide C (whole 16-byte copies
+    of a channels-last adjacency), else the least equal split into at most
+    8 a group."""
+    from ccsd_tpu_torch.kernels.gcn import agg_group
+
+    assert agg_group(C) == G
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 8])
+@pytest.mark.parametrize("N", [65, 100, 361])
+def test_aggregation_tile_plan_covers_each_row_and_channel_once(N, C):
+    """The blocks of an aggregation-tile launch over one graph, as
+    csrc/agg_tile.cuh maps them (row tile r0 = AGG_ROWS blockIdx.y, the last
+    ragged; channel group c0 = G blockIdx.x, the last short), take every
+    (row, channel) once."""
+    from ccsd_tpu_torch.kernels.gcn import AGG_MAX_GROUP, AGG_ROWS, agg_group
+
+    G = agg_group(C)
+    assert 1 <= G <= min(C, AGG_MAX_GROUP)
+    cover = np.zeros((N, C), np.int64)
+    for y in range(-(-N // AGG_ROWS)):
+        for x in range(-(-C // G)):
+            r0, c0 = AGG_ROWS * y, G * x
+            nr, nch = min(AGG_ROWS, N - r0), min(G, C - c0)
+            assert 1 <= nr <= AGG_ROWS and 1 <= nch <= G
+            cover[r0:r0 + nr, c0:c0 + nch] += 1
+    assert (cover == 1).all()
+
+
 def test_tiled_attention_raises_naming_n_past_what_it_holds():
-    """The projection holds a graph's X whole in one block: past that the
-    geometry raises, naming N, on the host, before any kernel is built."""
+    """The projection holds the degrees of a channel's N rows in one block:
+    past that the geometry raises, naming N, on the host, before any kernel
+    is built."""
     from ccsd_tpu_torch.kernels.build import SMEM_LIMIT
     from ccsd_tpu_torch.kernels.gmh_attention import projection_group
 
-    N = SMEM_LIMIT // (4 * 32) + 1
+    N = SMEM_LIMIT // 4 + 1
     with pytest.raises(ValueError, match=f"N={N}"):
-        projection_group(8, 8, N, 32, 32, 32)
+        projection_group(8, N, 32, 32, 32)
 
 
 def _graph_configs():
@@ -545,12 +663,12 @@ def test_launch_geometry_fits_every_graph_config(cuda, name):
         assert 0 < gcn_aggregate_smem(N, Fi, nhid) <= SMEM_LIMIT, (N, Fi, nhid)
     smem = kernel_fn("gmh_scores", "gmh_scores_smem")
     for C, Fi, A, O, H in _layer_shapes(data, model):
-        assert 0 < agg_smem(N, Fi) <= SMEM_LIMIT, (C, N, Fi)
+        assert 0 < agg_smem(N, C, Fi) <= SMEM_LIMIT, (C, N, Fi)
         if N > MAX_N:  # the tiled designs
+            G = projection_group(C, N, Fi, A, O)
+            assert 1 <= G <= C and 0 < kernel_fn(
+                "gmh_attention", "gmh_projection_smem")(N, Fi, A, O, G) <= SMEM_LIMIT
             for B in (data["batch_size"], 1):
-                G = projection_group(B, C, N, Fi, A, O)
-                assert 1 <= G <= C and 0 < kernel_fn(
-                    "gmh_attention", "gmh_projection_smem")(N, Fi, A, O, G) <= SMEM_LIMIT
                 for kern in ("gmh_scores", "gmh_attention"):
                     G = tiled_scores_group(kern, B, C, N, A)
                     assert 1 <= G <= C and 0 < kernel_fn(kern, "gmh_tiled_scores_smem")(
