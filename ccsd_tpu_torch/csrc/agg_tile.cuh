@@ -61,6 +61,9 @@
 
 namespace agg {
 
+using gcn::copy_run_async;
+using gcn::run_shift;
+
 using gmh::cdiv;
 using gmh::ld4;
 using gmh::round4;
@@ -181,18 +184,6 @@ __device__ __forceinline__ void stage_degrees(float* sD, const float* deg, int N
   for (int g = 0; g < nch; ++g)
     for (int m = threadIdx.x; m < N; m += blockDim.x)
       gmh::cp_async4(sD + m * G + g, deg + g * N + m);
-}
-
-// n contiguous floats from src (any 4-byte alignment) into dst (16-byte
-// aligned) by the lanes of a warp, in the 16-byte pieces that cover them:
-// src[i] lands at dst[run_shift(src) + i]; dst takes n + 6 floats at most.
-__device__ __forceinline__ int run_shift(const float* p) {
-  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
-}
-
-__device__ __forceinline__ void copy_run_async(float* dst, const float* src, int n, int lane) {
-  const int sh = run_shift(src);
-  for (int p = lane; p < (sh + n + 3) >> 2; p += 32) gmh::cp_async16(dst + 4 * p, src - sh + 4 * p);
 }
 
 // The product of one pass, features [f0, f0 + nf), nf <= 32: the slices'

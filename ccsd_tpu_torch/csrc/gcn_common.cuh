@@ -1,6 +1,7 @@
 // Device code shared by channel_agg.cu, gcn_aggregate.cu and
 // gcn_degrees.cu: the loop assignment, the degrees and their inverse square
-// roots, and the product of staged rows with a 16-byte-wide right operand.
+// roots, the product of staged rows with a 16-byte-wide right operand, and
+// the copy of a row at any alignment in 16-byte pieces.
 //
 // Both kernels apply the symmetric GCN normalisation of gcn_norm
 // (ccsd_tpu/models/gcn.py:23-35) to one N x N matrix at a time:
@@ -184,6 +185,18 @@ __device__ __forceinline__ void store4(float* row, int c0, int cols, float4 v) {
     const float o[4] = {v.x, v.y, v.z, v.w};
     for (int j = 0; j < 4 && c0 + j < cols; ++j) row[c0 + j] = o[j];
   }
+}
+
+// n contiguous floats from src (any 4-byte alignment) into dst (16-byte
+// aligned) by the lanes of a warp, in the 16-byte pieces that cover them:
+// src[i] lands at dst[run_shift(src) + i]; dst takes n + 6 floats at most.
+__device__ __forceinline__ int run_shift(const float* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+__device__ __forceinline__ void copy_run_async(float* dst, const float* src, int n, int lane) {
+  const int sh = run_shift(src);
+  for (int p = lane; p < (sh + n + 3) >> 2; p += 32) gmh::cp_async16(dst + 4 * p, src - sh + 4 * p);
 }
 
 }  // namespace gcn

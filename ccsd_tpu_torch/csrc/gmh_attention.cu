@@ -455,7 +455,7 @@ extern "C" int gmh_projection_run(const float* x, const float* adj, const float*
 // projection's scratch: shared bytes of a block of G channels, and the
 // launch over the wrapper's plan (pairs: npairs x (I, J)).
 extern "C" int gmh_tiled_scores_smem(int A, int G) {
-  return static_cast<int>(sizeof(float)) * gmh::TiledScoresLayout(A, G).total;
+  return gmh::tiled_scores_smem<false>(A, G);
 }
 
 extern "C" int gmh_tiled_scores_run(const float* q, const float* k, const int* pairs,

@@ -54,8 +54,10 @@ __host__ __device__ constexpr int map_ld(int N) { return odd(N); }
 // Stage ablation, for scripts/gmh_stage_times.py: a build with
 // -DGMH_ABLATE=<mask of the stages below> puts a zero fill of the buffer a
 // masked stage writes in its place (the store: nothing), so that the stages
-// after it see finite values; kLoads (gmh_projection only) zero-fills the
-// ring of its adjacency and X copies.  The default, 0, removes nothing.
+// after it see finite values; kLoads (gmh_projection and the tile-pair
+// stage) zero-fills the ring of their copies once, in place of the copies.
+// In the tile-pair stage kHeadSums removes the products and the tanh (the
+// maps get zeros).  The default, 0, removes nothing.
 #ifndef GMH_ABLATE
 #define GMH_ABLATE 0
 #endif
@@ -438,226 +440,325 @@ __device__ __forceinline__ void store_pairs(float* __restrict__ out,
 // A graph whose Q, K and N x N head sums do not fit one block (N > 64: at
 // grid's N = 361 the sums of one head alone are 521 KB against 227 KB) is
 // cut into tiles of kTile rows.  A block takes one tile pair (I, J), I <= J,
-// of one graph for a group of G channels; the pairs come from the wrapper's
-// plan (pairs[2 p], pairs[2 p + 1] = I, J), which covers every pair once.
-// Per channel g the block stages the Q and K rows of both tiles and takes
-//   T_IJ[n, m] = sum_h tanh(s_h(Q_n, K_m) / score_div)   n in I, m in J
-//   T_JI[m, n] = sum_h tanh(s_h(Q_m, K_n) / score_div)   m in J, n in I
-// into shared memory; after the group's channels it writes
-//   out[n, m, g] = out[m, n, g] = (T_IJ[n, m] / H + T_JI[m, n] / H) / 2
-// for the rows of I and then of J, as runs over (m, g) (with G = C, whole
-// rows of a tile's N_J x C floats), so the symmetrisation needs no second
-// pass and no scratch.  A diagonal pair (I == J) takes T_II once, reads it
-// both ways and writes its tile once.  The rounding points of the one-block
-// stage are kept: f32, or (kBf16) Q and K rounded to bf16 (a pass over the
-// staged rows), products exact in f32 and summed in f32 in d order, each
-// s_h rounded to bf16 once, tanhf and the head sums in f32.  The products
-// are f32 FMAs on the bf16-valued operands (a bf16 x bf16 product is exact
-// in f32, so an FMA rounds only its sum): the tensor cores would add in
-// another order, and at these sizes the tanh, not the products, sets the
-// time.
+// of one graph for a group of G <= kMaxGroup channels; the pairs come from
+// the wrapper's plan (pairs[2 p], pairs[2 p + 1] = I, J), which covers
+// every pair once.  For each entry (n, m), n in I and m in J, the block
+// takes both directions of every head,
+//   a = sum_h tanh(s_h(Q_n, K_m) / score_div)
+//   b = sum_h tanh(s_h(Q_m, K_n) / score_div)
+// in the same thread, and writes out[n, m, g] = out[m, n, g] = (a / H +
+// b / H) / 2: the map is exactly symmetric.  A diagonal pair (I == J)
+// takes each entry n <= m once and writes it both ways.  The rounding
+// points of the one-block stage are kept: f32 (FMAs in d order, tanhf, the
+// head sums in h order, then (a 1/H + b 1/H) 1/2: the maps of the T-plane
+// design this one replaced, bit for bit; scripts/gmh_stage_times.py
+// --parent checks it), or (kBf16) Q and K rounded to bf16 as they are
+// packed into mma operands (cvt.rn.bf16x2.f32), the products of a head on
+// the tensor cores (mma.sync m16n8k8, bf16 in, f32 sums; a head of ds <= 8
+// is one k-step, columns past it zero), each s_h rounded to bf16 once, its
+// tanh (tanh_bf16_path, within 6e-7 of tanh) and the head sums in f32.
 //
-// Work of a block, 256 threads: per channel, thread t takes direction
-// t / 128 (IJ, or JI; the JI threads idle on a diagonal pair) and a patch
-// of 2 rows x 4 columns, rows pm + 16 i and columns pn + 8 j (pm = p / 8,
-// pn = p % 8, p = t % 128): per head ds d cost 2 + 4 row loads (16-byte
-// loads of four d where ds % 4 == 0) for 8 ds FMAs, and 8 tanhf.  Rows
-// past a ragged tile's end read its last row and are never stored.
+// Work of a block, 256 threads: warp w takes the 16 x 8 sub-tile of rows
+// 16 (w / 4).. of I and columns 8 (w % 4).. of J, lane (g, t) = (lane / 4,
+// lane % 4) its entries n = g, g + 8 and m = 2t, 2t + 1 of it: the
+// accumulator layout of an m16n8k8 mma, whose two products a head are
+// Q_I K_J^T and K_I Q_J^T (s_h(Q_m, K_n) = s_h(K_n, Q_m)), so a lane holds
+// both directions of its four entries.  f32 takes the same entries with
+// 16-byte shared loads of four d: each 4 d of a head cost eight loads (the
+// rows of a warp's lanes are eight and four distinct rows, conflict-free)
+// for 32 FMAs.  Four heads of width 8 (every tiled config) have a
+// specialised body (kDs8): the heads unrolled, no k-loop, no bounds on the
+// operand loads.  A lane leaves its
+// entries' values of each channel in its warp's staging (an entry's G
+// values side by side), so that after the last channel the warp stores
+// its 16 x 8 entries as runs of the G channels (16 bytes an entry at
+// G = 4), consecutive lanes on consecutive entries along a row of the
+// (n, m) side and along a column (a row of the (m, n) side), the kept
+// entries only.  G is at most kMaxGroup = 4: blocks of eight channels (an
+// entry a 32-byte sector) were slower (PERF.md §6), their tail longer.
+// The channel loop is not unrolled: unrolled, with the values in
+// registers, it made the bf16 kernel several times its size, and slower.
+// A warp whose sub-tile holds no entry (past a ragged tile's end, or below
+// the diagonal of a diagonal pair) skips the channel's work; within a warp
+// that has one, every lane takes its four entries (a lane left out of a
+// step saves no issue slot: the warp issues it for the others), and only
+// the kept ones are stored.
 //
-// Shared layout (floats): two stages of [Q_I | K_I | Q_J | K_J], each
-// kTile x ld (ld4(A): 16-byte copies, eight distinct K rows a warp in
-// distinct banks), so the copies of channel g + 1 land while channel g is
-// computed; then T_IJ and T_JI of the G channels, tile_plane(G) floats a
-// channel, rows of kTileLd floats (odd).  tile_plane(G) = 32 / G (mod 32)
-// for G dividing 32, so the store phase's reads of both T (a warp over
-// 32 / G columns x G channels, once along a row and once down a column)
-// fall in distinct banks.
+// Shared layout (floats): a ring of two stages of [Q_I | K_I | Q_J | K_J]
+// of one channel, kTile rows of ld each (ld8(A) for bf16 fragments, ld4(A)
+// for 16-byte f32 loads; channel g + 1 is copied while g is computed), then
+// each warp's staging, kWarpEntries x kMaxGroup floats.  56 KB (bf16) or
+// 52 KB (f32) at attn 32: three blocks an SM, as the registers allow.
 
-constexpr int kTile = 32;        // rows of a tile
-constexpr int kTileLd = kTile + 1;
+constexpr int kTile = 32;          // rows of a tile
+constexpr int kMaxGroup = 4;       // channels of a block
+constexpr int kStages = 2;         // channels in the ring
+constexpr int kWarpEntries = 128;  // entries of a warp's 16 x 8 sub-tile
 
-__host__ __device__ constexpr int tile_plane(int G) {
-  return kTile * kTileLd + (32 % G == 0 ? (32 / G) & 31 : 1);
+__host__ __device__ constexpr int tile_ld(int A, bool bf16) { return bf16 ? ld8(A) : ld4(A); }
+
+// Shared bytes of a block of G channels (past kMaxGroup, more than a block
+// may use, so that a wrapper's fit test turns it down).
+template <bool kBf16>
+__host__ __device__ constexpr int tiled_scores_smem(int A, int G) {
+  return G > kMaxGroup ? kMaxSmem + 1
+                       : static_cast<int>(sizeof(float)) *
+                             (kStages * 4 * kTile * tile_ld(A, kBf16) +
+                              (kThreads / 32) * kWarpEntries * kMaxGroup);
 }
 
-struct TiledScoresLayout {
-  int ld;     // row stride of the staged Q and K
-  int stage;  // floats of one stage: Q_I, K_I, Q_J, K_J
-  int t;      // offset of T_IJ (T_JI follows at t + G * tile_plane(G))
-  int total;
-  __host__ __device__ TiledScoresLayout(int A, int G) {
-    ld = ld4(A);
-    stage = 4 * kTile * ld;
-    t = 2 * stage;
-    total = t + 2 * G * tile_plane(G);
-  }
-};
+// tanh(s / score_div) of the bf16 path, c = -2 log2(e) / score_div:
+// 2 / (1 + e^{-2|x|}) - 1 with s's sign, from the approximate exp2 and
+// reciprocal (two multi-function-unit operations and four others, no
+// branch).  Its error against tanh is below 6e-7 absolute, under a 2^-9
+// relative rounding of the head sum the path makes first; the f32 path
+// keeps tanhf.
+__device__ __forceinline__ float tanh_bf16_path(float s, float c) {
+  float t, r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(t) : "f"(c * fabsf(s)));
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.0f + t));
+  return copysignf(fmaf(2.0f, r, -1.0f), s);
+}
 
 // The f32 value rounded to the nearest bf16 (ties to even), as an f32.
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// One patch of T for one channel: rows r[i] of Qr against rows c[j] of Kc,
-// all heads, into Tp (rows of kTileLd floats).
-template <bool kBf16>
-__device__ __forceinline__ void tile_patch(const float* __restrict__ Qr,
-                                           const float* __restrict__ Kc, int ld, int pm,
-                                           int pn, int nr, int nc, int H, int ds, float inv,
-                                           float* __restrict__ Tp) {
-  int rq[2], rk[4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) rq[i] = min(pm + 16 * i, nr - 1) * ld;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) rk[j] = min(pn + 8 * j, nc - 1) * ld;
-  float acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  const bool vec = (ds & 3) == 0 && (ld & 3) == 0;
-  for (int h = 0; h < H; ++h) {
-    float s[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    int d = h * ds;
-    if (vec)
-      for (; d < (h + 1) * ds; d += 4) {
-        float4 a[2], b[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) a[i] = *reinterpret_cast<const float4*>(Qr + rq[i] + d);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(Kc + rk[j] + d);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-            s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-            s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-            s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-          }
+// The mma operand of columns off, off + 1 of a row, rounded to bf16.
+__device__ __forceinline__ unsigned bf16_frag(const float* row, int off) {
+  const float2 v = *reinterpret_cast<const float2*>(row + off);
+  return pack_bf16(v.x, v.y);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0, unsigned a1, unsigned b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+// The rows a lane reads: qn[i], kn[i] of its entries' n (f32) or of the
+// fragment's A rows g, g + 8 (bf16); qm[j], km[j] of its entries' m (f32)
+// or of the fragment's B row g (bf16, j = 0).
+struct LaneRows {
+  const float *qn[2], *kn[2], *qm[2], *km[2];
+};
+
+// s1[i][j] = s_h(Q_n_i, K_m_j) and s2[i][j] = s_h(Q_m_j, K_n_i) of a lane's
+// entries.
+template <bool kBf16, bool kDs8>
+__device__ __forceinline__ void head_sums(const LaneRows& R, int h, int ds, float (&s1)[2][2],
+                                          float (&s2)[2][2]) {
+  if constexpr (kBf16) {
+    const int t = threadIdx.x & 3;
+    float d1[4] = {0.f, 0.f, 0.f, 0.f}, d2[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (kDs8) {
+      const int off = h * 8 + 2 * t;
+      mma_bf16(d1, bf16_frag(R.qn[0], off), bf16_frag(R.qn[1], off), bf16_frag(R.km[0], off));
+      mma_bf16(d2, bf16_frag(R.kn[0], off), bf16_frag(R.kn[1], off), bf16_frag(R.qm[0], off));
+    } else {
+      for (int k0 = 0; k0 < ds; k0 += 8) {
+        const int kk = k0 + 2 * t;
+        mma_bf16(d1, bf16_pair(R.qn[0], 0, 0, h, kk, ds), bf16_pair(R.qn[1], 0, 0, h, kk, ds),
+                 bf16_pair(R.km[0], 0, 0, h, kk, ds));
+        mma_bf16(d2, bf16_pair(R.kn[0], 0, 0, h, kk, ds), bf16_pair(R.kn[1], 0, 0, h, kk, ds),
+                 bf16_pair(R.qm[0], 0, 0, h, kk, ds));
       }
-    for (; d < (h + 1) * ds; ++d) {
-      float a[2], b[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) a[i] = Qr[rq[i] + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Kc[rk[j] + d];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[i][j] += tanhf((kBf16 ? bf16_round(s[i][j]) : s[i][j]) * inv);
+      for (int j = 0; j < 2; ++j) {
+        s1[i][j] = bf16_round(d1[2 * i + j]);
+        s2[i][j] = bf16_round(d2[2 * i + j]);
+      }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) s1[i][j] = s2[i][j] = 0.f;
+    auto step = [&](int d) {  // four d, each sum's FMAs in d order
+      float4 qn[2], kn[2], qm[2], km[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        qn[i] = *reinterpret_cast<const float4*>(R.qn[i] + d);
+        kn[i] = *reinterpret_cast<const float4*>(R.kn[i] + d);
+        qm[i] = *reinterpret_cast<const float4*>(R.qm[i] + d);
+        km[i] = *reinterpret_cast<const float4*>(R.km[i] + d);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          s1[i][j] = fmaf(qn[i].x, km[j].x, s1[i][j]);
+          s1[i][j] = fmaf(qn[i].y, km[j].y, s1[i][j]);
+          s1[i][j] = fmaf(qn[i].z, km[j].z, s1[i][j]);
+          s1[i][j] = fmaf(qn[i].w, km[j].w, s1[i][j]);
+          s2[i][j] = fmaf(qm[j].x, kn[i].x, s2[i][j]);
+          s2[i][j] = fmaf(qm[j].y, kn[i].y, s2[i][j]);
+          s2[i][j] = fmaf(qm[j].z, kn[i].z, s2[i][j]);
+          s2[i][j] = fmaf(qm[j].w, kn[i].w, s2[i][j]);
+        }
+    };
+    if constexpr (kDs8) {
+      step(h * 8);
+      step(h * 8 + 4);
+    } else {
+      int d = h * ds;
+      if ((ds & 3) == 0)
+        for (; d < (h + 1) * ds; d += 4) step(d);
+      for (; d < (h + 1) * ds; ++d)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            s1[i][j] = fmaf(R.qn[i][d], R.km[j][d], s1[i][j]);
+            s2[i][j] = fmaf(R.qm[j][d], R.kn[i][d], s2[i][j]);
+          }
+    }
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) Tp[(pm + 16 * i) * kTileLd + pn + 8 * j] = acc[i][j];
 }
 
 // pairs: the plan, (I, J) of every pair; grid (pairs, channel groups, B).
 // q, k: (B, C, N, A) in strides (b, c, n), the feature stride 1.
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
+template <bool kBf16, bool kDs8>
+__global__ void __launch_bounds__(kThreads, 3)
 tiled_scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const int* __restrict__ pairs, float* __restrict__ out, int C, int N,
                     int A, int H, int ds, int G, long long qsb, long long qsc, long long qsn,
                     long long ksb, long long ksc, long long ksn, float score_div) {
   extern __shared__ __align__(16) float smem[];
-  const TiledScoresLayout L(A, G);
+  const int ld = tile_ld(A, kBf16), mat = kTile * ld, stride = 4 * mat;
   const int I = pairs[2 * blockIdx.x], J = pairs[2 * blockIdx.x + 1];
   const bool diag = I == J;
   const int I0 = I * kTile, J0 = J * kTile;
   const int nI = min(kTile, N - I0), nJ = min(kTile, N - J0);
   const int b = blockIdx.z, c0 = blockIdx.y * G;
   const int nch = min(G, C - c0);
-  const int plane = tile_plane(G);
-  float* tIJ = smem + L.t;
-  float* tJI = diag ? tIJ : tIJ + G * plane;
-  const int mat = kTile * L.ld;  // floats of one staged matrix
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  float* stg = smem + kStages * stride + warp * kWarpEntries * kMaxGroup;  // [entry][channel]
 
-  // stage s holds Q_I, K_I at 0, mat and Q_J, K_J at 2 mat, 3 mat
-  auto stage = [&](int g, float* dst) {
-    const float* qc = q + b * qsb + (c0 + g) * qsc;
-    const float* kc = k + b * ksb + (c0 + g) * ksc;
-    copy_tile_async(dst, L.ld, qc + I0 * qsn, qsn, 1, nI, A);
-    copy_tile_async(dst + mat, L.ld, kc + I0 * ksn, ksn, 1, nI, A);
-    if (!diag) {
-      copy_tile_async(dst + 2 * mat, L.ld, qc + J0 * qsn, qsn, 1, nJ, A);
-      copy_tile_async(dst + 3 * mat, L.ld, kc + J0 * ksn, ksn, 1, nJ, A);
+  // stage s holds Q_I, K_I at 0, mat and Q_J, K_J at 2 mat, 3 mat.  Where
+  // the rows take 16-byte copies, a thread copies piece pc of rows pr,
+  // pr + pstep, .. of each matrix (one division a thread, not one a piece)
+  const int cv = A >> 2;
+  const bool vec16 = (A & 3) == 0 && ((qsn | ksn | qsb | ksb | qsc | ksc) & 3) == 0 &&
+                     ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)) & 15) ==
+                         0 &&
+                     kThreads % cv == 0;
+  const int pr = vec16 ? threadIdx.x / cv : 0, pc = vec16 ? 4 * (threadIdx.x - pr * cv) : 0;
+  const int pstep = vec16 ? kThreads / cv : 0;
+  auto copy = [&](float* dst, const float* src, long long sn, int rows) {
+    if (vec16) {
+      for (int r = pr; r < rows; r += pstep) cp_async16(dst + r * ld + pc, src + r * sn + pc);
+    } else {
+      copy_tile_async(dst, ld, src, sn, 1, rows, A);
     }
   };
-  const float inv = 1.0f / score_div;
-  const int t = threadIdx.x, dir = t >> 7, p = t & 127, pm = p >> 3, pn = p & 7;
-  const int warp = t >> 5, lane = t & 31, nwarps = blockDim.x >> 5;
+  auto stage = [&](int g) {
+    if (ablated(kLoads) || g >= nch) return;
+    float* dst = smem + (g & 1) * stride;
+    const float* qc = q + b * qsb + (c0 + g) * qsc;
+    const float* kc = k + b * ksb + (c0 + g) * ksc;
+    copy(dst, qc + I0 * qsn, qsn, nI);
+    copy(dst + mat, kc + I0 * ksn, ksn, nI);
+    if (!diag) {
+      copy(dst + 2 * mat, qc + J0 * qsn, qsn, nJ);
+      copy(dst + 3 * mat, kc + J0 * ksn, ksn, nJ);
+    }
+  };
+  if (ablated(kLoads)) zero_fill(smem, kStages * stride);
 
-  stage(0, smem);
+  const int n0 = 16 * (warp >> 2), m0 = 8 * (warp & 3);  // the warp's sub-tile
+  const bool active = n0 < nI && m0 < nJ && (!diag || n0 <= m0 + 7);
+  // the lane's entries (n0 + g8 + 8 i, m0 + 2 t4 + j); rows past a ragged
+  // tile's end read its last row (never stored)
+  const int nJc = diag ? nI : nJ;
+  int rn[2], rm[2];
+  rn[0] = min(n0 + g8, nI - 1) * ld;
+  rn[1] = min(n0 + g8 + 8, nI - 1) * ld;
+  if constexpr (kBf16) {  // the fragments' rows: A rows g, g + 8; B row g
+    rm[0] = rm[1] = min(m0 + g8, nJc - 1) * ld;
+  } else {  // the lane's own entries' rows
+    rm[0] = min(m0 + 2 * t4, nJc - 1) * ld;
+    rm[1] = min(m0 + 2 * t4 + 1, nJc - 1) * ld;
+  }
+  const float inv = 1.0f / score_div, ih = 1.0f / static_cast<float>(H);
+  const float c2 = -2.8853900817779268f * inv;  // tanh_bf16_path's
+
+  stage(0);
   cp_async_commit();
   for (int g = 0; g < nch; ++g) {
-    float* cur = smem + (g & 1) * L.stage;
-    if (g + 1 < nch) {
-      stage(g + 1, smem + ((g + 1) & 1) * L.stage);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (kBf16) {  // Q and K rounded to bf16, every staged element once: rows by warp
-      const int rows = diag ? 2 * kTile : 4 * kTile;
-      for (int r = warp; r < rows; r += nwarps)
-        for (int c = lane; c < A; c += 32) {
-          float& v = cur[r * L.ld + c];
-          v = bf16_round(v);
-        }
-      __syncthreads();
-    }
-    if (ablated(kHeadSums)) {
-      if (dir == 0 || !diag) {
-        float* Tp = (dir ? tJI : tIJ) + g * plane;
+    stage(g + 1);  // into the stage channel g - 1 held
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // channel g landed
+    const float* cur = smem + (g & 1) * stride;
+    const float* Qm = diag ? cur : cur + 2 * mat;
+    const float* Km = diag ? cur + mat : cur + 3 * mat;
+    const LaneRows R = {{cur + rn[0], cur + rn[1]}, {cur + mat + rn[0], cur + mat + rn[1]},
+                        {Qm + rm[0], Qm + rm[1]}, {Km + rm[0], Km + rm[1]}};
+    if (active) {
+      // every lane of a warp with a kept entry takes the tanh of its four
+      // (a lane of a warp issues with the others; entries not kept are
+      // not stored)
+      float a[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, bsum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+      auto head = [&](int h) {
+        float s1[2][2], s2[2][2];
+        head_sums<kBf16, kDs8>(R, h, ds, s1, s2);
+#pragma unroll
         for (int i = 0; i < 2; ++i)
-          for (int j = 0; j < 4; ++j) Tp[(pm + 16 * i) * kTileLd + pn + 8 * j] = 0.f;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            if constexpr (kBf16) {
+              a[i][j] += tanh_bf16_path(s1[i][j], c2);
+              bsum[i][j] += tanh_bf16_path(s2[i][j], c2);
+            } else {
+              a[i][j] += tanhf(s1[i][j] * inv);
+              bsum[i][j] += tanhf(s2[i][j] * inv);
+            }
+          }
+      };
+      if (!ablated(kHeadSums)) {
+        if constexpr (kDs8) {  // four heads of width 8: unrolled, fixed offsets
+#pragma unroll
+          for (int h = 0; h < 4; ++h) head(h);
+        } else {
+          for (int h = 0; h < H; ++h) head(h);
+        }
       }
-    } else if (dir == 0) {  // rows of I against K_J (K_I on a diagonal pair)
-      tile_patch<kBf16>(cur, cur + (diag ? 1 : 3) * mat, L.ld, pm, pn, nI, diag ? nI : nJ, H,
-                        ds, inv, tIJ + g * plane);
-    } else if (!diag) {  // rows of J against K_I
-      tile_patch<kBf16>(cur + 2 * mat, cur + mat, L.ld, pm, pn, nJ, nI, H, ds, inv,
-                        tJI + g * plane);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          stg[((g8 + 8 * i) * 8 + 2 * t4 + j) * kMaxGroup + g] =
+              (a[i][j] * ih + bsum[i][j] * ih) * 0.5f;
     }
-    __syncthreads();  // T of channel g complete; stage g & 1 free for g + 2
+    __syncthreads();  // every warp is past channel g: its stage is free
   }
-  if (ablated(kStore)) return;
+  if (!active || ablated(kStore)) return;
 
-  // rows of I (pass 0), then of J (pass 1, off the diagonal), a warp an
-  // output row and its lanes along the row's run of (column, channel):
-  // both entries of a pair from the same two sums in the same order, so
-  // the map is exactly symmetric.  1/H multiplies (exact for a power of
-  // two, as the 4 heads of every config); a power-of-two group splits a
-  // lane's index by a shift, with no integer division
-  const float ih = 1.0f / static_cast<float>(H);
-  const bool pow2 = (nch & (nch - 1)) == 0;
-  const int gshift = __ffs(nch) - 1;
+  // each kept entry's run of the group's channels, to (n, m) and (m, n), a
+  // lane an entry: 16-, 8- or 4-byte pieces as the run's alignment allows
   float* ob = out + static_cast<size_t>(b) * N * N * C + c0;
-  for (int pass = 0; pass < (diag ? 1 : 2); ++pass) {
-    const int nr = pass ? nJ : nI, nc = pass ? nI : nJ;
-    const int r0 = pass ? J0 : I0, cc0 = pass ? I0 : J0;
-    for (int r = warp; r < nr; r += nwarps) {
-      float* orow = ob + (static_cast<size_t>(r0 + r) * N + cc0) * C;
-      for (int j = lane; j < nc * nch; j += 32) {
-        const int cidx = pow2 ? j >> gshift : j / nch, g = j - cidx * nch;
-        const int n = pass ? cidx : r, m = pass ? r : cidx;  // n in I, m in J
-        const float a = tIJ[g * plane + n * kTileLd + m];
-        const float bb = tJI[g * plane + m * kTileLd + n];
-        orow[cidx * C + g] = (a * ih + bb * ih) * 0.5f;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(ob) | (static_cast<uintptr_t>(C) << 2);
+  const int vw = (nch & 3) == 0 && (at & 15) == 0 ? 4 : (nch & 1) == 0 && (at & 7) == 0 ? 2 : 1;
+  for (int side = 0; side < 2; ++side) {
+    for (int e = lane; e < kWarpEntries; e += 32) {
+      const int rr = side ? e & 15 : e >> 3, cc = side ? e >> 4 : e & 7;
+      const int n = n0 + rr, m = m0 + cc;  // tile-local
+      if (n >= nI || m >= nJ || (diag && (side ? n >= m : n > m))) continue;
+      const int gn = I0 + n, gm = J0 + m;
+      float* o = ob + (static_cast<size_t>(side ? gm : gn) * N + (side ? gn : gm)) * C;
+      const float* src = stg + (rr * 8 + cc) * kMaxGroup;
+      for (int p = 0; p < nch; p += vw) {
+        if (vw == 4)
+          *reinterpret_cast<float4*>(o + p) = *reinterpret_cast<const float4*>(src + p);
+        else if (vw == 2)
+          *reinterpret_cast<float2*>(o + p) = *reinterpret_cast<const float2*>(src + p);
+        else
+          o[p] = src[p];
       }
     }
   }
@@ -669,22 +770,34 @@ tiled_scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // static flag: two libraries include this launcher, and a function-local
 // static of a template is one symbol shared by every library loaded (a
 // unique global symbol), so a flag set by one would skip the other's call.
+template <bool kBf16, bool kDs8>
+int tiled_scores_launch_ds(const float* q, const float* k, const int* pairs, float* out, int B,
+                           int C, int N, int A, int H, int ds, int G, int npairs,
+                           long long qsb, long long qsc, long long qsn, long long ksb,
+                           long long ksc, long long ksn, float score_div, cudaStream_t stream) {
+  const int smem = tiled_scores_smem<kBf16>(A, G);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(tiled_scores_kernel<kBf16, kDs8>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid(npairs, cdiv(C, G), B);
+  tiled_scores_kernel<kBf16, kDs8><<<grid, kThreads, smem, stream>>>(
+      q, k, pairs, out, C, N, A, H, ds, G, qsb, qsc, qsn, ksb, ksc, ksn, score_div);
+  return (int)cudaGetLastError();
+}
+
 template <bool kBf16>
 int tiled_scores_launch(const float* q, const float* k, const int* pairs, float* out, int B,
                         int C, int N, int A, int H, int ds, int G, int npairs, long long qsb,
                         long long qsc, long long qsn, long long ksb, long long ksc,
                         long long ksn, float score_div, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(float)) * TiledScoresLayout(A, G).total;
-  if (G < 1 || smem > kMaxSmem || B > 65535) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(tiled_scores_kernel<kBf16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(npairs, cdiv(C, G), B);
-  tiled_scores_kernel<kBf16><<<grid, kThreads, smem, stream>>>(
-      q, k, pairs, out, C, N, A, H, ds, G, qsb, qsc, qsn, ksb, ksc, ksn, score_div);
-  return (int)cudaGetLastError();
+  if (G < 1 || tiled_scores_smem<kBf16>(A, G) > kMaxSmem || B > 65535 || cdiv(C, G) > 65535)
+    return (int)cudaErrorInvalidValue;
+  auto launch = ds == 8 && H == 4 ? tiled_scores_launch_ds<kBf16, true>
+                                   : tiled_scores_launch_ds<kBf16, false>;
+  return launch(q, k, pairs, out, B, C, N, A, H, ds, G, npairs, qsb, qsc, qsn, ksb, ksc, ksn,
+                score_div, stream);
 }
 
 }  // namespace gmh

@@ -179,11 +179,19 @@ extern "C" int gmh_scores_run(const float* q, const float* k, float* out,
 // 33.4 MB of maps written (11.7 us at 3.35 TB/s), 0.53 GFLOP of products
 // (8 us at 67 TFLOP/s), and 33.4 M tanhf, each a sequence of instructions
 // with two multi-function-unit operations (exp and reciprocal) on its
-// exp branch: the tanh, not the bytes, is expected to set the floor
-// (gmh_tanh_rate_run measures its rate on the card).
+// exp branch: the tanh, not the bytes, sets the floor (gmh_tanh_rate_run
+// measures its rate on the card: 19.6 us for these 33.4 M on an NVIDIA
+// H100 80GB HBM3 at 700 W, PERF.md).  What the design does about it: each
+// tanh is taken once, for kept entries only, by the lane that holds both
+// directions of the entry, so nothing but the tanh (in bf16 a branch-free
+// one of two multi-function-unit operations), the few products (bf16 on
+// the tensor cores) and one 32-byte store of each side of an entry
+// (C = 8) stand beside it.
 
+// Shared bytes of a block of G channels in the larger of its two layouts
+// (bf16's rows are wider), for the wrapper's choice of G.
 extern "C" int gmh_tiled_scores_smem(int A, int G) {
-  return static_cast<int>(sizeof(float)) * gmh::TiledScoresLayout(A, G).total;
+  return gmh::tiled_scores_smem<true>(A, G);
 }
 
 // pairs: npairs x (I, J), the wrapper's plan; bf16 != 0 selects the bf16

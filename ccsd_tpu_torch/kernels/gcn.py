@@ -12,14 +12,14 @@ The kernel is ``csrc/gcn_aggregate.cu``.  With ``add_loop=False`` the
 diagonal is kept as given, as ``gcn_norm`` does.
 
 A block of ``csrc/gcn_aggregate.cu`` or ``csrc/channel_agg.cu`` holds a
-whole graph where N <= ``WHOLE_GRAPH_N`` and sums its degrees itself; a
-larger graph (grid: N = 361) is cut into blocks of ``ROW_TILE`` rows
-(``gcn_aggregate``) or taken by the normalised aggregation tile of
-``csrc/agg_tile.cuh`` (``channel_agg`` and the attention's
-``gmh_projection``: blocks of ``AGG_ROWS`` rows and ``agg_group`` channels),
-and ``gcn_degrees`` (``csrc/gcn_degrees.cu``, one
-more launch with a count of its own) first computes d once per row for
-them to read.
+whole graph where N <= ``WHOLE_GRAPH_N`` and sums its degrees itself.  A
+larger graph (grid: N = 361) is cut into row tiles (``gcn_aggregate``:
+``row_tiles(N, rows)`` of ``gcn_aggregate_plan``, at most ``MAX_ROW_TILES``
+tiles of at most ``ROW_TILE`` rows where they fit; ``channel_agg`` and the attention's
+``gmh_projection`` take the normalised aggregation tile of
+``csrc/agg_tile.cuh``, blocks of ``AGG_ROWS`` rows and ``agg_group``
+channels), and ``gcn_degrees`` (``csrc/gcn_degrees.cu``, one more launch
+with a count of its own) first computes d once per row for them to read.
 
 On a CUDA tensor that needs a gradient the wrapper runs the forward kernel
 inside a ``torch.autograd.Function`` whose backward is the kernel
@@ -46,7 +46,9 @@ from ccsd_tpu_torch.kernels import LAUNCHES
 from ccsd_tpu_torch.kernels.build import SMEM_LIMIT, check_status, kernel_fn
 
 WHOLE_GRAPH_N = 64  # up to this N a block holds all rows of a graph
-ROW_TILE = 32       # rows per block of a larger graph
+ROW_TILE = 32       # rows per block of a larger graph (channel_agg's rows argument, the
+                    # tiled backwards; at most, gcn_aggregate's row tiles)
+MAX_ROW_TILES = 16  # gcn_aggregate's row tiles of a graph, while they have at most ROW_TILE rows
 AGG_ROWS = 16       # rows of a block of the aggregation tile (agg::kRows)
 AGG_MAX_GROUP = 8   # channels of a block of the aggregation tile (agg::kMaxGroup)
 
@@ -63,10 +65,26 @@ def agg_group(C: int) -> int:
     return -(-C // -(-C // AGG_MAX_GROUP))
 
 
+def is_tiled(N: int) -> bool:
+    """Whether the normalising kernels cut a graph of N nodes into row
+    tiles, which read the degrees of a ``gcn_degrees`` launch before them."""
+    return N > WHOLE_GRAPH_N
+
+
 def rows_per_block(N: int) -> int:
-    """Rows of a graph (or graph-channel) that one block of the two
-    normalising kernels takes."""
-    return N if N <= WHOLE_GRAPH_N else ROW_TILE
+    """Rows of a graph-channel that ``channel_agg`` is told a block takes:
+    the whole graph up to WHOLE_GRAPH_N, else ROW_TILE (the kernel then
+    takes the aggregation tile, after a ``gcn_degrees`` launch)."""
+    return ROW_TILE if is_tiled(N) else N
+
+
+def gcn_rows(N: int) -> int:
+    """Rows of a block of ``gcn_aggregate`` as planned by N: the whole graph
+    up to WHOLE_GRAPH_N, else min(ROW_TILE, ceil(N / MAX_ROW_TILES)) (at
+    N = 361, 16 tiles of 23 rows: grid's 8 graphs make 128 blocks on the
+    H100's 132 SMs; the tiles are ``row_tiles(N, rows)``).
+    ``gcn_aggregate_plan`` takes fewer where a block would not fit."""
+    return min(ROW_TILE, -(-N // MAX_ROW_TILES)) if is_tiled(N) else N
 
 
 def _with_loop(adj: torch.Tensor, loop: float) -> torch.Tensor:
@@ -171,12 +189,25 @@ def gcn_degrees(adj: torch.Tensor, add_loop: bool = True,
 
 
 @functools.lru_cache(maxsize=None)
-def gcn_aggregate_smem(N: int, Fi: int, Fo: int) -> int:
-    """Shared bytes of a block of csrc/gcn_aggregate.cu (the library's own
-    count); raises where it exceeds the card's limit."""
-    nbytes = kernel_fn("gcn_aggregate", "gcn_aggregate_smem")(N, Fi, Fo, rows_per_block(N))
+def gcn_aggregate_plan(N: int, Fi: int, Fo: int) -> Tuple[int, int]:
+    """(rows, shared bytes) of a block of csrc/gcn_aggregate.cu: ``gcn_rows(N)``
+    rows, or where a row tile's block would exceed the card's limit, the
+    most rows below that fit (by the library's own count: the layout lives
+    in the CUDA source); raises where even one row does not fit."""
+    smem = kernel_fn("gcn_aggregate", "gcn_aggregate_smem")
+    rows = gcn_rows(N)
+    nbytes = smem(N, Fi, Fo, rows)
+    while is_tiled(N) and rows > 1 and nbytes > SMEM_LIMIT:
+        rows -= 1
+        nbytes = smem(N, Fi, Fo, rows)
     check_smem("gcn_aggregate", nbytes, N=N, F_in=Fi, F_out=Fo)
-    return nbytes
+    return rows, nbytes
+
+
+def gcn_aggregate_smem(N: int, Fi: int, Fo: int) -> int:
+    """Shared bytes of a block of csrc/gcn_aggregate.cu as planned; raises
+    where it exceeds the card's limit."""
+    return gcn_aggregate_plan(N, Fi, Fo)[1]
 
 
 def _launch_gcn_aggregate(x, adj, weight, bias, loop, add_loop):
@@ -190,8 +221,7 @@ def _launch_gcn_aggregate(x, adj, weight, bias, loop, add_loop):
             f"gcn_aggregate: shapes x {tuple(x.shape)}, adj {tuple(adj.shape)}, "
             f"weight {tuple(weight.shape)} do not agree"
         )
-    gcn_aggregate_smem(N, Fi, Fo)
-    rows = rows_per_block(N)
+    rows = gcn_aggregate_plan(N, Fi, Fo)[0]
     deg = gcn_degrees(adj[:, None], add_loop, loop) if rows < N else None
     out = torch.empty((B, N, Fo), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -313,7 +343,7 @@ def gcn_aggregate_bwd_smem(N: int, Fi: int, Fo: int, need_adj: bool = True) -> i
     of a graph (N <= 64) or, above, one row tile (with dA or without), by
     the library's own count; raises a ``ValueError`` naming N where it
     exceeds the card's limit."""
-    if N > WHOLE_GRAPH_N:
+    if is_tiled(N):
         nbytes = kernel_fn("gcn_aggregate_bwd", "gcn_aggregate_bwd_tiled_smem")(
             N, Fi, Fo, int(need_adj))
     else:
@@ -322,11 +352,11 @@ def gcn_aggregate_bwd_smem(N: int, Fi: int, Fo: int, need_adj: bool = True) -> i
     return nbytes
 
 
-def row_tiles(N: int) -> List[Tuple[int, int]]:
-    """(first row, rows) of each row tile of a graph in the tiled backward
-    designs (N > 64): ROW_TILE rows each, the last ragged.  The chunks of
-    their products over all rows are the same tiles."""
-    return [(r0, min(ROW_TILE, N - r0)) for r0 in range(0, N, ROW_TILE)]
+def row_tiles(N: int, rows: int = ROW_TILE) -> List[Tuple[int, int]]:
+    """(first row, rows) of each row tile of a graph: `rows` rows each, the
+    last ragged; ROW_TILE in the tiled backward designs (N > 64), whose
+    chunks of their products over all rows are the same tiles."""
+    return [(r0, min(rows, N - r0)) for r0 in range(0, N, rows)]
 
 
 def gcn_bwd_plan(B: int, N: int, Fi: int, Fo: int) -> Dict[str, object]:
@@ -378,7 +408,7 @@ def gcn_aggregate_bwd(x, adj, weight, g, loop: float = 1.0, add_loop: bool = Tru
         raise ValueError(
             f"gcn_aggregate_bwd: shapes x {tuple(x.shape)}, adj {tuple(adj.shape)}, "
             f"weight {tuple(weight.shape)}, g {tuple(g.shape)} do not agree")
-    if N > WHOLE_GRAPH_N:
+    if is_tiled(N):
         return _gcn_aggregate_bwd_tiled(x, adj, weight, g, loop, add_loop, need_x, need_adj)
     gcn_aggregate_bwd_smem(N, Fi, Fo)
     new = functools.partial(torch.empty, dtype=torch.float32, device=x.device)

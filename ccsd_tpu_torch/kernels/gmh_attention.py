@@ -26,8 +26,9 @@ cores in 3xTF32, then the product with the weights in f32 FMAs, Q and K
 into a scratch) and the tile-pair score stage
 of ``csrc/gmh_common.cuh`` in f32 over the plan of ``tile_pairs`` (counted
 as ``gmh_attention``: it writes the maps).  The plan covers every pair of
-tiles I <= J once; a block writes the entries (n, m) with n in tile I and m
-in tile J, and, off the diagonal, (m, n): every entry of the map once.
+tiles I <= J once; a block takes the entries (n, m) with n in tile I and m
+in tile J (on a diagonal pair, n <= m), a thread both directions of its
+entries, and writes (n, m) and (m, n): every entry of the map once.
 
 With ``add_loop=False`` the diagonal is kept as given, following
 ``gcn_norm`` (ccsd_tpu/models/gcn.py:31-33); the Pallas body writes 0 there
@@ -81,6 +82,7 @@ from ccsd_tpu_torch.kernels.gcn import (
 # it, both take the tiled designs
 MAX_N = 64
 TILE = 32  # rows of a tile of the tiled designs (kTile, csrc/gmh_common.cuh)
+TILED_MAX_GROUP = 4  # channels of a tile-pair score block (kMaxGroup, csrc/gmh_common.cuh)
 H100_SMS = 132
 
 
@@ -126,7 +128,10 @@ def tiled_scores_group(kernel: str, B: int, C: int, N: int, A: int,
                        sms: int = H100_SMS) -> int:
     """G of a tile-pair score launch of ``kernel``'s library (gmh_scores or
     gmh_attention), from the library's own count of a block's shared
-    memory (which depends on attn and G only: any N is tiled)."""
+    memory (which depends on attn only: any N is tiled; past
+    TILED_MAX_GROUP channels the count exceeds the card's limit, as each
+    warp stages its entries' values of every channel of the block): at
+    grid's C = 8, two groups of four."""
     def smem(g: int) -> int:
         return kernel_fn(kernel, "gmh_tiled_scores_smem")(A, g)
 

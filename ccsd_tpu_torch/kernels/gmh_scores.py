@@ -24,8 +24,11 @@ channels (``channel_group``), the bf16 head products on the tensor cores.
 Above N = 64 (``MAX_N``) a block cannot hold a graph's Q, K and N x N head
 sums, and one launch of the tile-pair stage of ``csrc/gmh_common.cuh``
 takes over: a block per pair of ``TILE``-row tiles of the plan
-``tile_pairs(N)`` (kernels/gmh_attention.py) for a group of channels,
-with the same rounding points (f32 FMAs on the bf16-valued operands).
+``tile_pairs(N)`` (kernels/gmh_attention.py) for a group of at most
+``TILED_MAX_GROUP`` channels, each entry's two directions in one thread,
+with the same rounding points (bf16: the head products on the tensor
+cores, Q and K rounded as the operands are packed, the tanh from the
+approximate exp2 and reciprocal, within 6e-7 of tanh).
 """
 
 from __future__ import annotations

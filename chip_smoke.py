@@ -32,7 +32,9 @@ Phases, each printing one line of its own results:
               and bf16, there and at N = 100); the two attention kernels
               (their tiled designs) and ``gmh_projection`` at grid's layer
               shapes (C = 2 on F_in 5, C = 8 on F_in 32, both adjacency
-              layouts) and at N = 100 (a ragged last tile).
+              layouts) and at N = 100 (a ragged last tile); above N = 64
+              every kernel also called twice on the same inputs, bit for
+              bit the same, and the attention maps exactly symmetric.
 4. models  -- ScoreNetworkX and ScoreNetworkA (unfused; fused f32; fused
               fast, the sampler's default) at B = 128 on the card (kernel
               path) against a float64 CPU copy of the same weights (plain
@@ -880,7 +882,15 @@ def kernel_specs():
     ]
 
 
+# the output that is a symmetric map, by kernel (phase 3 checks it exactly)
+MAP_OUTPUT = {"gmh_attention": 1, "gmh_scores": 0}
+
+
 def phase_kernels(shapes, dev):
+    """Each kernel against its plain version at every case of its shape
+    key; above N = 64 (the tiled designs) also a second call on the same
+    inputs, which must be bit for bit the first, and the maps exactly
+    symmetric."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -889,18 +899,27 @@ def phase_kernels(shapes, dev):
         for case in shapes[key] + shapes.get(f"{key}_more", []):
             args = mk(case, gen, dev)
             got = kern(*args)
+            tiled = case[2 if key == "gcn" else 3] > 64
+            again = kern(*args) if tiled else None
             torch.cuda.synchronize()
             ref = plain(*args)
             tol = tol_of(*args)
             got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+            again = again if again is None or isinstance(again, tuple) else (again,)
             for i, (g, r) in enumerate(zip(got, ref)):
                 check(g.shape == r.shape, f"{kname} {case[0]}: shape {g.shape} vs {r.shape}")
                 abs_err, rel_err, ok = compare(g, r, tol)
+                more = {}
+                if tiled:
+                    more["repeat_bit_identical"] = bool(torch.equal(g, again[i]))
+                    if MAP_OUTPUT.get(kname) == i:
+                        more["symmetric"] = bool(torch.equal(g, g.transpose(1, 2)))
                 say("kernels", kernel=kname, variant=variant, case=case[0], output=i,
                     shape="x".join(map(str, g.shape)), max_abs_err=f"{abs_err:.3e}",
-                    max_rel_err=f"{rel_err:.3e}", tol=tol_text(tol), ok=ok)
+                    max_rel_err=f"{rel_err:.3e}", tol=tol_text(tol), ok=ok, **more)
                 check(ok, f"{kname} ({variant}) {case[0]} output {i} disagrees "
                           "with its plain version")
+                check(all(more.values()), f"{kname} ({variant}) {case[0]} output {i}: {more}")
                 errs[kname] = max(errs.get(kname, 0.0), abs_err)
     return errs
 
@@ -1127,7 +1146,7 @@ def sample_launches(config, fused, rounds=1):
     ``gcn_degrees`` first, and an unfused AttentionLayer ``gmh_projection``
     between the two."""
     from ccsd_tpu_torch.kernels import LAUNCHES
-    from ccsd_tpu_torch.kernels.gcn import rows_per_block
+    from ccsd_tpu_torch.kernels.gcn import is_tiled
     from ccsd_tpu_torch.kernels.gmh_attention import MAX_N
 
     steps = int(config.sde.adj.num_scales)
@@ -1142,7 +1161,7 @@ def sample_launches(config, fused, rounds=1):
     expect["gcn_aggregate"] = evals * depth
     for k in per_layer:
         expect[k] = evals * L
-    expect["gcn_degrees"] = evals * (depth * (rows_per_block(N) < N) + L * (N > MAX_N))
+    expect["gcn_degrees"] = evals * (depth * is_tiled(N) + L * (N > MAX_N))
     return expect
 
 

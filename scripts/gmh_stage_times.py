@@ -23,13 +23,24 @@ once outside the timed loop):
   product with the weights (``no_projection``), both (``skeleton``: the
   loads, the degrees, the barriers and the stores) or its copies of the
   adjacency and X (``no_loads``), at the wrapper's G, and whole at every G;
+* the tile-pair score stage at grid's attention layers (B = 8, N = 361,
+  attn = F_out = 32, 4 heads; C = 2 and 8): ``gmh_scores``' launch in bf16
+  and f32 (Q and K strided column blocks of one projection, as the fused
+  layer hands them over) and ``gmh_attention``'s in f32 (Q | K of the
+  projection's scratch), whole, without the head sums (``no_head_sums``:
+  the products and the tanh), the stores (``no_store``) or the copies of
+  Q and K (``no_loads``), at the wrapper's G, and whole at every G; each
+  output checked (f32 within 1e-5 of the plain version, bf16 within
+  ``bf16_scores_tol``, the map exactly symmetric);
 * with ``--parent DIR``, a tree of an earlier commit unpacked by ``git
   archive <commit> ccsd_tpu_torch | tar -x -C DIR`` whose
-  ``gmh_attention.cu`` has the same C entry points: its library built with
-  the same masks, at the G its wrapper chose (32-row tiles, G halved while
-  fewer blocks than SMs), the whole ``gmh_attention`` (N = 20) and
-  ``gmh_projection`` (grid) of both trees timed in turns (parent, this,
-  this, parent), then the parent's stages.
+  ``gmh_attention.cu`` and ``gmh_scores.cu`` have the same C entry points:
+  its libraries built with the same masks, at the G its wrappers chose
+  (32-row tiles, G halved while fewer blocks than SMs), the whole
+  ``gmh_attention`` (N = 20), ``gmh_projection`` (grid) and tile-pair
+  stage (grid) of both trees timed in turns (parent, this, this, parent),
+  then the parent's stages; whether the two trees' f32 maps are equal bit
+  for bit.  ``--parent-only`` times the parent's kernels and stages alone.
 
 Each variant is built from the unedited sources with the flags of
 ``ccsd_tpu_torch/kernels/build.py`` into ``build/stage_times/``, all in
@@ -37,7 +48,7 @@ parallel, and timed as ``chip_smoke.py`` times the kernels (CUDA-graph
 replay of 200 launches, CUDA events).  Run from the repo root on a machine
 with an NVIDIA H100:
 
-    python3 scripts/gmh_stage_times.py [--parent DIR]
+    python3 scripts/gmh_stage_times.py [--parent DIR [--parent-only]]
 
 Prints the card's name and power limit, one line per measurement and,
 last, a JSON object of them all.
@@ -60,8 +71,8 @@ import chip_smoke as cs  # noqa: E402
 from ccsd_tpu_torch.kernels import build  # noqa: E402
 from ccsd_tpu_torch.kernels.build import SMEM_LIMIT  # noqa: E402
 from ccsd_tpu_torch.kernels.gmh_attention import (  # noqa: E402
-    H100_SMS, TILE, channel_group, projection_group)
-from ccsd_tpu_torch.kernels.gmh_scores import scores_group  # noqa: E402
+    H100_SMS, TILE, TILED_MAX_GROUP, channel_group, pair_plan, projection_group, tile_pairs)
+from ccsd_tpu_torch.kernels.gmh_scores import gmh_scores_plain, scores_group  # noqa: E402
 
 OUT_DIR = os.path.join(ROOT, "build", "stage_times")
 # the Stage masks of csrc/gmh_common.cuh
@@ -70,7 +81,8 @@ VARIANTS = {
     "gmh_attention": {"base": 0, "no_norm_x": NORM_X, "no_projection": PROJECTION,
                       "no_head_sums": HEAD_SUMS, "no_store": STORE,
                       "skeleton": NORM_X | PROJECTION | HEAD_SUMS | STORE},
-    "gmh_scores": {"base": 0, "no_head_sums": HEAD_SUMS, "no_store": STORE},
+    "gmh_scores": {"base": 0, "no_head_sums": HEAD_SUMS, "no_store": STORE,
+                   "no_loads": LOADS},
 }
 # gmh_projection's variants (its library is gmh_attention's; no_loads is
 # built for it alone, and the parent has no such mask)
@@ -79,26 +91,102 @@ PROJ_VARIANTS = ("base", "no_norm_x", "no_projection", "skeleton")
 # first with a contiguous adjacency, the later with a channels-last one
 PROJ_CASES = [("grid.layers.0", 8, 2, 361, 5, 32, 32, 4),
               ("grid.layers.1", 8, 8, 361, 32, 32, 32, 4)]
+# the tile-pair stage's variants (no_loads: this tree only; the parent's
+# stage had no such mask) and its instances: (library, product type)
+TILED_VARIANTS = ("base", "no_head_sums", "no_store", "no_loads")
+TILED_INSTANCES = (("gmh_scores", "bf16"), ("gmh_scores", "f32"), ("gmh_attention", "f32"))
 
 
-def build_variants(parent_dir):
+def build_variants(parent_dir, parent_only=False):
     """{(tree, kernel, variant): bound library}, all built in parallel."""
     os.makedirs(OUT_DIR, exist_ok=True)
-    jobs = {("new", kname, variant): (os.path.join(build.CSRC_DIR, f"{kname}.cu"),
-                                      os.path.join(OUT_DIR, f"lib{kname}_{variant}.so"),
-                                      [f"-DGMH_ABLATE={mask}"])
-            for kname, variants in VARIANTS.items() for variant, mask in variants.items()}
-    jobs[("new", "gmh_attention", "no_loads")] = (
-        os.path.join(build.CSRC_DIR, "gmh_attention.cu"),
-        os.path.join(OUT_DIR, "libgmh_attention_no_loads.so"), [f"-DGMH_ABLATE={LOADS}"])
+    jobs = {} if parent_only else {
+        ("new", kname, variant): (os.path.join(build.CSRC_DIR, f"{kname}.cu"),
+                                  os.path.join(OUT_DIR, f"lib{kname}_{variant}.so"),
+                                  [f"-DGMH_ABLATE={mask}"])
+        for kname, variants in VARIANTS.items() for variant, mask in variants.items()}
+    if not parent_only:
+        jobs[("new", "gmh_attention", "no_loads")] = (
+            os.path.join(build.CSRC_DIR, "gmh_attention.cu"),
+            os.path.join(OUT_DIR, "libgmh_attention_no_loads.so"), [f"-DGMH_ABLATE={LOADS}"])
     if parent_dir:
-        src = os.path.join(parent_dir, "ccsd_tpu_torch", "csrc", "gmh_attention.cu")
-        for variant, mask in VARIANTS["gmh_attention"].items():
-            jobs[("parent", "gmh_attention", variant)] = (
-                src, os.path.join(OUT_DIR, f"libgmh_attention_parent_{variant}.so"),
-                [f"-DGMH_ABLATE={mask}"])
+        for kname, variants in VARIANTS.items():
+            src = os.path.join(parent_dir, "ccsd_tpu_torch", "csrc", f"{kname}.cu")
+            for variant, mask in variants.items():
+                if variant != "no_loads":
+                    jobs[("parent", kname, variant)] = (
+                        src, os.path.join(OUT_DIR, f"lib{kname}_parent_{variant}.so"),
+                        [f"-DGMH_ABLATE={mask}"])
     build.nvcc_parallel(jobs)
     return {key: build.bind(key[1], lib) for key, (_, lib, _) in jobs.items()}
+
+
+def tiled_group(lib, B, C, N, A):
+    """G of a tile-pair launch as a tree's wrapper chooses it (this tree's
+    and the parent's alike): C, halved while fewer blocks than SMs or a
+    block of G channels does not fit, by that library's own count."""
+    return channel_group(B * len(tile_pairs(N)), C, H100_SMS,
+                         lambda g: lib.gmh_tiled_scores_smem(A, g) <= SMEM_LIMIT)
+
+
+def time_tiled_stage(libs, trees, turns, gen, dev, record, checks):
+    """The tile-pair score stage at grid's attention layers (TILED_INSTANCES,
+    C = 2 and 8): each tree's whole launch in turns, the stages, every G of
+    this tree; each output held to its plain version, the maps to exact
+    symmetry, and the f32 maps of the two trees to each other."""
+    for case in PROJ_CASES:
+        name, B, C, N, _, A, O, H = case
+        q, k, _, _ = cs.scores_inputs((name, B, C, N, A, H, O), gen, dev)
+        qk = torch.randn(B, C, N, 2 * A, generator=gen, device=dev)
+        pairs = pair_plan(N, dev)
+        for kname, product in TILED_INSTANCES:
+            bf16 = product == "bf16"
+            qq, kk = (q, k) if kname == "gmh_scores" else (qk[..., :A], qk[..., A:])
+            ref = gmh_scores_plain(qq, kk, H, O, bf16)
+            tol = cs.bf16_scores_tol(qq, kk, H, O) if bf16 else cs.KERNEL_TOL
+            G = {t: tiled_group(libs[(t, kname, "base")], B, C, N, A) for t in trees}
+            outs = {}
+
+            def call(tree, variant, g):
+                out = torch.empty(B, N, N, C, device=dev)
+                a = (qq.data_ptr(), kk.data_ptr(), pairs.data_ptr(), out.data_ptr(), B, C, N,
+                     A, H, A // H, g, pairs.shape[0], *qq.stride()[:3], *kk.stride()[:3],
+                     math.sqrt(O)) + ((int(bf16),) if kname == "gmh_scores" else ())
+                return libs[(tree, kname, variant)].gmh_tiled_scores_run, a, out
+
+            shape = dict(kernel=f"{kname} tile-pair stage", product=product, case=name, C=C)
+            for tree in turns:
+                fn, a, out = call(tree, "base", G[tree])
+                record(fn, a, **shape, tree=tree, G=G[tree], variant="base")
+                outs[tree] = out
+            for tree, out in outs.items():
+                torch.cuda.synchronize()
+                abs_err, _, ok = cs.compare(out, ref, tol)
+                sym = bool(torch.equal(out, out.transpose(1, 2)))
+                row = dict(check=f"{kname} {product} {name}", tree=tree,
+                           max_abs_err=abs_err, within_tol=ok, symmetric=sym)
+                if tree == "new":
+                    fn, a, again = call(tree, "base", G[tree])
+                    fn(*a, torch.cuda.current_stream().cuda_stream)
+                    torch.cuda.synchronize()
+                    row["repeat_bit_identical"] = bool(torch.equal(out, again))
+                checks.append(row)
+                print(" ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+            if len(outs) == 2 and not bf16:
+                row = dict(check=f"{kname} {product} {name}", parent_bit_equal=bool(
+                    torch.equal(outs["new"], outs["parent"])))
+                checks.append(row)
+                print(" ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+            for tree in trees:
+                for variant in TILED_VARIANTS[1:]:
+                    if (tree, kname, variant) in libs:
+                        fn, a, _ = call(tree, variant, G[tree])
+                        record(fn, a, **shape, tree=tree, G=G[tree], variant=variant)
+            if "new" in trees:
+                for g in (1, 2, 4, 8):
+                    if g <= min(C, TILED_MAX_GROUP) and g != G["new"]:
+                        fn, a, _ = call("new", "base", g)
+                        record(fn, a, **shape, tree="new", G=g, variant="base", sweep="G")
 
 
 def parent_projection_group(lib, B, C, N, Fi, A, O):
@@ -112,7 +200,11 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="an unpacked tree of an earlier commit")
+    ap.add_argument("--parent-only", action="store_true",
+                    help="with --parent: time the parent's kernels and stages alone")
     opts = ap.parse_args(argv)
+    if opts.parent_only and not opts.parent:
+        ap.error("--parent-only needs --parent DIR")
     if not torch.cuda.is_available():
         print("gmh_stage_times: needs a CUDA device", file=sys.stderr)
         return 1
@@ -120,12 +212,15 @@ def main(argv) -> int:
     dev = torch.device("cuda")
     card = cs.smi_name_power()
     print(card, flush=True)
-    libs = build_variants(opts.parent)
+    libs = build_variants(opts.parent, opts.parent_only)
     fns = {key: getattr(lib, next(iter(build.SIGNATURES[key[1]]))) for key, lib in libs.items()}
-    trees = ["new", "parent"] if opts.parent else ["new"]
-    turns = ["parent", "new", "new", "parent"] if opts.parent else ["new"]
+    if opts.parent_only:
+        trees, turns = ["parent"], ["parent"]
+    else:
+        trees = ["new", "parent"] if opts.parent else ["new"]
+        turns = ["parent", "new", "new", "parent"] if opts.parent else ["new"]
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = []
+    rows, checks = [], []
 
     def launch(fn, args):  # on the current stream, which a graph capture changes
         return fn(*args, torch.cuda.current_stream().cuda_stream)
@@ -163,7 +258,7 @@ def main(argv) -> int:
 
         q, k, _, _ = cs.scores_inputs(("stage", B, C, N, A, H, O), gen, dev)
         out = torch.empty(B, N, N, C, device=dev)
-        for bf16 in (1, 0):
+        for bf16 in (1, 0) if "new" in trees else ():
             G0 = scores_group(B, C, N, A, H, bool(bf16))
             runs = [("G", G, "base") for G in (1, 2, 4, 8) if G <= C]
             runs += [("stage", G0, v) for v in VARIANTS["gmh_scores"] if v != "base"]
@@ -179,7 +274,7 @@ def main(argv) -> int:
         x, adj, deg, wq, bq, wk, bk, wv, bv = cs.proj_inputs(case, gen, dev)
         qk = torch.empty(B, C, N, 2 * A, device=dev)
         v_out = torch.empty(B, N, C * O, device=dev)
-        G = {"new": projection_group(C, N, Fi, A, O)}
+        G = {} if opts.parent_only else {"new": projection_group(C, N, Fi, A, O)}
         if opts.parent:
             G["parent"] = parent_projection_group(libs[("parent", "gmh_attention", "base")],
                                                   B, C, N, Fi, A, O)
@@ -199,11 +294,12 @@ def main(argv) -> int:
                 if variant != "base":
                     record(*proj(tree, variant), **shape, tree=tree, G=G[tree],
                            variant=variant)
-        for g in (1, 2, 4, 8):
+        for g in (1, 2, 4, 8) if "new" in trees else ():
             if g <= C and g != G["new"]:
                 record(*proj("new", "base", g), **shape, tree="new", G=g, variant="base",
                        sweep="G")
-    print(json.dumps({"card": card, "rows": rows}))
+    time_tiled_stage(libs, trees, turns, gen, dev, record, checks)
+    print(json.dumps({"card": card, "rows": rows, "checks": checks}))
     return 0
 
 

@@ -66,7 +66,7 @@ from ccsd_tpu_torch.training.trainer import Trainer
 from ccsd_tpu_torch.utils.config import get_config
 from ccsd_tpu_torch.utils.from_jax import load_jax_params
 
-from test_torch_fused_kernels import _probe, _probe_bound, _qk
+from test_torch_fused_kernels import _probe, _probe_bound, _qk, bf16_ulp
 from test_torch_kernels import _jax_attention_params, _stack
 from test_torch_models import _perturb_biases
 from test_torch_sampler import _noise_feed
@@ -114,6 +114,50 @@ def test_gmh_scores_plain_matches_probe_past_one_block(N, dtype):
     else:
         np.testing.assert_allclose(att, ref, **TOL)
         np.testing.assert_allclose(out, sym, **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_gmh_scores_plain_matches_jax_expressions_past_one_block(dtype):
+    """The plain version the tile-pair stage is held to on the card, at a
+    tiled N (B = 1, C = 2, N = 100: three tiles of 32 and one of 4), against
+    the JAX package's own score expressions under jit: f32 against the
+    probe's ``scores_jnp`` (tools/pallas_scores_probe.py), rtol = atol =
+    1e-5; bf16 against the model's ``mulreduce_h_bf16`` path
+    (ccsd_tpu/models/attention.py:305-318: Q and K in bf16, each head's sum
+    from bf16, tanh in f32), within one bf16 ulp of the largest head sum
+    over sqrt(O) plus 1e-5, as tests/test_torch_fused_kernels.py holds it at
+    small N; both symmetrised and channels-last as the layer returns them."""
+    B, C, N, A, H, O = 1, 2, 100, 32, 4, 32
+    ds = A // H
+    q, k = _qk(B, C, N, A, scale=1.0, seed=3)
+    if dtype == "f32":
+        mod = _probe("pallas_scores_probe", B=B, C=C, N=N, A=A, H=H, O=O, DS=ds,
+                     INV=1.0 / math.sqrt(O))
+        ql, kl = (np.ascontiguousarray(a.transpose(1, 3, 2, 0)) for a in (q, k))
+        ref = np.asarray(mod.scores_jnp(ql, kl)).transpose(3, 0, 1, 2)  # (B, C, N, N)
+        tol = dict(rtol=1e-5, atol=1e-5)
+    else:
+        @jax.jit
+        def model_path(Q, K):
+            Qh = Q.reshape(B, C, N, H, ds).astype(jnp.bfloat16)
+            Kh = K.reshape(B, C, N, H, ds).astype(jnp.bfloat16)
+            acc = None
+            for h in range(H):
+                s = (Qh[:, :, :, None, h, :] * Kh[:, :, None, :, h, :]).sum(-1)
+                t = jnp.tanh(s.astype(jnp.float32) / math.sqrt(O))
+                acc = t if acc is None else acc + t
+            return acc / H
+
+        ref = np.asarray(model_path(q, k))
+        s_max = np.abs(np.einsum("bcnhd,bcmhd->bchnm", q.reshape(B, C, N, H, ds),
+                                 k.reshape(B, C, N, H, ds))).max()
+        tol = dict(rtol=0.0, atol=float(bf16_ulp(s_max)) / math.sqrt(O) + 1e-5)
+    sym = ((ref + np.swapaxes(ref, -1, -2)) / 2).transpose(0, 2, 3, 1)
+    out = gmh_scores_plain(_t(q), _t(k), H, O, bf16=dtype == "bf16").numpy()
+    np.testing.assert_allclose(out, sym, **tol)
+    if dtype == "bf16":  # and bf16 rounding moves the map here by more than f32 rounding
+        f32 = gmh_scores_plain(_t(q), _t(k), H, O).numpy()
+        assert np.abs(f32 - sym).max() > 1e-4
 
 
 @pytest.mark.parametrize("N", [100, 361])

@@ -119,10 +119,16 @@ def cuda():
 
 
 # community_small's layers, a whole-graph block at N = 64 and F = 128, and
-# grid's layers (N = 361: row tiles reading the gcn_degrees pass)
+# row tiles reading the gcn_degrees pass: grid's layers (N = 361) at B = 8
+# and 1, N = 65, 97 and 100 (ragged last tiles), and the largest graphs the
+# earlier 32-row tiles held at F 32 -> 32, 5 -> 32 and 128 -> 128 (the plan
+# takes fewer rows a tile where a block of gcn_rows(N) would not fit)
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(128, 20, 11, 32), (128, 20, 32, 32), (3, 64, 128, 128),
-                                   (8, 361, 5, 32), (8, 361, 32, 32)])
+                                   (8, 361, 5, 32), (8, 361, 32, 32), (1, 361, 5, 32),
+                                   (1, 361, 32, 32), (8, 65, 5, 32), (1, 97, 32, 32),
+                                   (8, 100, 32, 32), (1, 860, 32, 32), (1, 1400, 5, 32),
+                                   (2, 231, 128, 128)])
 def test_gcn_kernel_matches_plain_on_card(cuda, shape):
     from ccsd_tpu_torch.kernels import LAUNCHES
     from ccsd_tpu_torch.kernels.gcn import gcn_aggregate, gcn_aggregate_plain
@@ -136,14 +142,15 @@ def test_gcn_kernel_matches_plain_on_card(cuda, shape):
     adj = adj + adj.transpose(1, 2)
     w = torch.randn(Fi, Fo, device=cuda, generator=g)
     b = torch.randn(Fo, device=cuda, generator=g)
-    for loop in (1.0, 2.0):
-        out = gcn_aggregate(x, adj, w, b, loop)
+    for bias, loop in ((b, 1.0), (b, 2.0), (None, 2.0)):
+        out = gcn_aggregate(x, adj, w, bias, loop)
         torch.cuda.synchronize()
-        torch.testing.assert_close(out, gcn_aggregate_plain(x, adj, w, b, loop),
+        torch.testing.assert_close(out, gcn_aggregate_plain(x, adj, w, bias, loop),
                                    rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, gcn_aggregate(x, adj, w, None, 2.0))  # bit for bit again
     # the degree pass runs only where a graph is cut into row tiles
-    assert LAUNCHES["gcn_aggregate"] == before["gcn_aggregate"] + 2
-    assert LAUNCHES["gcn_degrees"] == before["gcn_degrees"] + (2 if N > 64 else 0)
+    assert LAUNCHES["gcn_aggregate"] == before["gcn_aggregate"] + 4
+    assert LAUNCHES["gcn_degrees"] == before["gcn_degrees"] + (4 if N > 64 else 0)
 
 
 @pytest.mark.cuda
@@ -374,6 +381,26 @@ def test_gmh_scores_kernel_matches_plain_on_card_at_every_shape(cuda, N, ds, C, 
 # an N that is not a multiple of the tile (100: three tiles of 32 and one
 # of 4), and grid's 361 (eleven tiles of 32 and one of 9) at its batch
 TILED = [(3, 65), (3, 100), (8, 361)]
+# the tile-pair stage's: one tile past the one-block limit, a ragged last
+# tile of 1 and of 4 rows, grid's N (a last tile of 9), at B = 1, 3 and 8,
+# with grid's four heads of width 8; and heads of width 6 and 3 (the
+# stage's general body: a k-loop of bf16 mma steps with the columns past a
+# head zeroed, f32 FMAs in fours and one at a time) at N = 65 and 100
+TILE_PAIR = [(B, N) for B in (1, 3, 8) for N in (65, 97, 100, 361)]
+TILE_PAIR_HEADS = [(B, N, 8) for B, N in TILE_PAIR] + [
+    (B, N, ds) for B, N in ((1, 65), (3, 100)) for ds in (6, 3)]
+
+
+def _bf16_scores_tol(q, k, H, O):
+    """gmh_scores in bf16, kernel vs plain, element by element: one bf16 ulp
+    of each head sum over sqrt(O), averaged over heads and symmetrised, plus
+    1e-5 (chip_smoke.py bf16_scores_tol)."""
+    B, C, N, _ = q.shape
+    s = torch.einsum("bcnhd,bcmhd->bchnm", q.reshape(B, C, N, H, -1),
+                     k.reshape(B, C, N, H, -1))
+    ulp = torch.exp2(torch.floor(torch.log2(s.abs().clamp_min(1e-30))) - 7)
+    b = ulp.mean(dim=2) / math.sqrt(O)
+    return 1e-5 + ((b + b.transpose(-1, -2)) / 2).permute(0, 2, 3, 1)
 
 
 def _grid_adj(B, C, N, g, dev):
@@ -387,14 +414,14 @@ def _grid_adj(B, C, N, g, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["contiguous", "channels-last"])
 @pytest.mark.parametrize("C,Fi", [(2, 5), (8, 32)])
-@pytest.mark.parametrize("B,N", TILED)
-def test_tiled_gmh_kernel_matches_plain_on_card(cuda, B, N, C, Fi, layout):
+@pytest.mark.parametrize("B,N,ds", TILE_PAIR_HEADS)
+def test_tiled_gmh_kernel_matches_plain_on_card(cuda, B, N, ds, C, Fi, layout):
     """Above N = 64 the wrapper launches gcn_degrees, gmh_projection and the
     tile-pair scores once each; V, the maps and the projection's own
     outputs within rtol = atol = 1e-5 of the plain versions, the maps
-    exactly symmetric.  C and F_in of grid's first and later layers; the
-    adjacency contiguous (a first layer's) and channels-last (a later
-    one's)."""
+    exactly symmetric, a second call bit for bit the first.  C and F_in of
+    grid's first and later layers, four heads of width ds; the adjacency
+    contiguous (a first layer's) and channels-last (a later one's)."""
     from ccsd_tpu_torch.kernels import LAUNCHES
     from ccsd_tpu_torch.kernels.gcn import gcn_degrees_plain
     from ccsd_tpu_torch.kernels.gmh_attention import (
@@ -404,7 +431,7 @@ def test_tiled_gmh_kernel_matches_plain_on_card(cuda, B, N, C, Fi, layout):
         gmh_projection_plain,
     )
 
-    A = O = 32
+    A = O = 4 * ds
     g = torch.Generator(device=cuda).manual_seed(N + C)
     r = lambda *s: torch.randn(*s, device=cuda, generator=g)  # noqa: E731
     x = r(B, N, Fi)
@@ -417,8 +444,10 @@ def test_tiled_gmh_kernel_matches_plain_on_card(cuda, B, N, C, Fi, layout):
     torch.cuda.synchronize()
     moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
     assert moved == {"gcn_degrees": 1, "gmh_projection": 1, "gmh_attention": 1}
-    for o, rr in zip(out, gmh_attention_plain(x, adj, *w, 4, O)):
+    again = gmh_attention(x, adj, *w, 4, O)
+    for o, rr, o2 in zip(out, gmh_attention_plain(x, adj, *w, 4, O), again):
         torch.testing.assert_close(o, rr, rtol=1e-5, atol=1e-5)
+        assert torch.equal(o, o2)
     assert torch.equal(out[1], out[1].transpose(1, 2))
     deg = gcn_degrees_plain(adj)
     for o, rr in zip(gmh_projection(x, adj, deg, *w), gmh_projection_plain(x, adj, deg, *w)):
@@ -513,16 +542,18 @@ def test_tiled_projection_edges_on_card(cuda, B, N, C, Fi, add_loop, loop, layou
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("C", [2, 8])
-@pytest.mark.parametrize("B,N", TILED)
-def test_tiled_gmh_scores_kernel_matches_plain_on_card(cuda, B, N, C, bf16):
+@pytest.mark.parametrize("B,N,ds", TILE_PAIR_HEADS)
+def test_tiled_gmh_scores_kernel_matches_plain_on_card(cuda, B, N, ds, C, bf16):
     """One tile-pair launch; Q and K strided column blocks of one
     projection, as the fused layer hands them over.  f32 within 1e-5;
     bf16 within one bf16 ulp of each head sum over sqrt(O), element by
-    element, plus 1e-5; the map exactly symmetric."""
+    element, plus 1e-5; the map exactly symmetric, a second call bit for
+    bit the first."""
     from ccsd_tpu_torch.kernels import LAUNCHES
     from ccsd_tpu_torch.kernels.gmh_scores import gmh_scores, gmh_scores_plain
 
-    H, A, O = 4, 32, 32
+    H = 4
+    A = O = H * ds
     g = torch.Generator(device=cuda).manual_seed(N * 10 + C)
     qkv = torch.randn(C, B, N, 2 * A + O, device=cuda, generator=g).transpose(0, 1)
     q, k = qkv[..., :A], qkv[..., A:2 * A]
@@ -531,16 +562,72 @@ def test_tiled_gmh_scores_kernel_matches_plain_on_card(cuda, B, N, C, bf16):
     torch.cuda.synchronize()
     assert LAUNCHES["gmh_scores"] == before["gmh_scores"] + 1
     ref = gmh_scores_plain(q, k, H, O, bf16=bf16)
-    tol = torch.full_like(ref, 1e-5)
-    if bf16:
-        s = torch.einsum("bcnhd,bcmhd->bchnm", q.reshape(B, C, N, H, -1),
-                         k.reshape(B, C, N, H, -1))
-        ulp = torch.exp2(torch.floor(torch.log2(s.abs().clamp_min(1e-30))) - 7)
-        b = ulp.mean(dim=2) / math.sqrt(O)
-        tol += ((b + b.transpose(-1, -2)) / 2).permute(0, 2, 3, 1)
+    tol = _bf16_scores_tol(q, k, H, O) if bf16 else torch.full_like(ref, 1e-5)
     err = (out - ref).abs()
     assert bool((err <= tol).all()), f"max error {err.max().item():.3e}"
     assert torch.equal(out, out.transpose(1, 2))
+    assert torch.equal(out, gmh_scores(q, k, H, O, bf16=bf16))
+
+
+# N of the tiled designs: one tile past the one-block limit, a multiple of
+# the tile, ragged last tiles (of 4 and 9 rows) and grid's N
+SCHEDULE_N = [65, 96, 100, 361]
+
+
+@pytest.mark.parametrize("N", SCHEDULE_N)
+def test_tile_pair_schedule_writes_every_entry_once(N):
+    """The tile-pair stage's schedule, as csrc/gmh_common.cuh
+    tiled_scores_kernel maps it: over the plan's pairs, warp w takes the
+    16 x 8 sub-tile at rows 16 (w // 4), columns 8 (w % 4) of (I, J), lane
+    (g, t) the entries (g + 8 i, 2 t + j) of it; a lane keeps an entry
+    inside both tiles (on a diagonal pair, n <= m), writes (n, m) and, off
+    the diagonal n == m, (m, n).  Every entry of the N x N map is written
+    exactly once, no kept entry lies in a warp the kernel skips (a warp
+    wholly past a ragged tile's end or below a diagonal pair's diagonal
+    takes no tanh), and each entry n <= m is kept once."""
+    from ccsd_tpu_torch.kernels.gmh_attention import TILE, tile_pairs
+
+    writes = np.zeros((N, N), np.int64)
+    kept = 0
+    w, g, t, i, j = np.meshgrid(np.arange(8), np.arange(8), np.arange(4), np.arange(2),
+                                np.arange(2), indexing="ij")
+    n0, m0 = 16 * (w // 4), 8 * (w % 4)
+    n, m = n0 + g + 8 * i, m0 + 2 * t + j
+    for I, J in tile_pairs(N).tolist():
+        nI, nJ = min(TILE, N - I * TILE), min(TILE, N - J * TILE)
+        off_diag = I != J
+        active = (n0 < nI) & (m0 < nJ) & (off_diag | (n0 <= m0 + 7))
+        valid = (n < nI) & (m < nJ) & (off_diag | (n <= m))
+        assert not (valid & ~active).any()
+        rows, cols = I * TILE + n[valid], J * TILE + m[valid]
+        np.add.at(writes, (rows, cols), 1)
+        off = rows != cols
+        np.add.at(writes, (cols[off], rows[off]), 1)
+        kept += int(valid.sum())
+    assert (writes == 1).all()
+    assert kept == N * (N + 1) // 2
+
+
+@pytest.mark.parametrize("N", [65, 100, 361, 512, 513])
+def test_gcn_row_plan_covers_each_row_once(N):
+    """gcn_aggregate's row tiles above N = 64, as csrc/gcn_aggregate.cu
+    takes them (block x: rows r0 = rows x .., the last ragged): at most 32
+    rows a tile and at most 16 tiles while that allows (17 of 32 rows at
+    N = 513), covering the graph's rows once in order; at grid's N = 361,
+    16 tiles of 23 rows (128 blocks at B = 8 on the H100's 132 SMs)."""
+    from ccsd_tpu_torch.kernels.gcn import MAX_ROW_TILES, ROW_TILE, gcn_rows, row_tiles
+
+    rows = gcn_rows(N)
+    tiles = row_tiles(N, rows)
+    assert 1 <= rows <= ROW_TILE and rows < N
+    assert len(tiles) <= MAX_ROW_TILES if N <= 512 else len(tiles) == 17
+    cover = np.zeros(N, np.int64)
+    for k, (r0, nr) in enumerate(tiles):
+        assert r0 == k * rows and 1 <= nr <= rows
+        cover[r0:r0 + nr] += 1
+    assert (cover == 1).all() and tiles[-1][0] + tiles[-1][1] == N
+    if N == 361:
+        assert (rows, len(tiles)) == (23, 16)
 
 
 @pytest.mark.parametrize("N", [49, 65, 100, 361])
