@@ -65,7 +65,8 @@ enum Stage : unsigned {
   kGradAdj = 128,   // gN (gcn: with Y = X W)
   kReduce = 256,    // the cluster and ticket sums (gmh: dX over channels too)
   kGradY = 512,     // gcn: dY = norm^T G
-  kGradV = 1024,    // gmh, N > 64: the row-tile kernel's V = A'[:, R]^T (d o gP)
+  kGradV = 1024,    // gmh, N > 64: the row-tile kernel's V = A'[:, R]^T (d o gP);
+                    // gcn, N > 64: the fold of V's chunk partials
 };
 // In gmh_attention_bwd.cu's designs above N = 64, kScores is the dots and
 // tanh of gmh_score_grad, kGradQK its two products, kReduce also its sum of
@@ -396,18 +397,16 @@ __device__ __forceinline__ float degree_slope(float s) {
   return s > 1.0f ? -0.5f * dn * dn * dn : (s == 1.0f ? -0.25f : 0.0f);
 }
 
-// The double-buffered loop over the cdiv(N, kTile) chunks of kTile rows:
-// load(k, buf) issues chunk k's copies into buffer buf (0 or 1), not
-// committed; body(k, buf) runs once every copy of chunk k, and every copy
-// committed before the loop, has landed.  All threads call it; it ends
-// with a barrier.
+// The double-buffered loop over n steps: load(k, buf) issues step k's
+// copies into buffer buf (0 or 1), not committed; body(k, buf) runs once
+// every copy of step k, and every copy committed before the loop, has
+// landed.  All threads call it; it ends with a barrier.
 template <typename Load, typename Body>
-__device__ __forceinline__ void chunk_loop(int N, Load load, Body body) {
-  const int nk = cdiv(N, kTile);
+__device__ __forceinline__ void ring_loop(int n, Load load, Body body) {
   load(0, 0);
   gmh::cp_async_commit();
-  for (int k = 0; k < nk; ++k) {
-    if (k + 1 < nk) {
+  for (int k = 0; k < n; ++k) {
+    if (k + 1 < n) {
       load(k + 1, (k + 1) & 1);  // buffer (k + 1) & 1 was freed by body(k - 1)
       gmh::cp_async_commit();
       gmh::cp_async_wait<1>();
@@ -418,6 +417,12 @@ __device__ __forceinline__ void chunk_loop(int N, Load load, Body body) {
     body(k, k & 1);
     __syncthreads();
   }
+}
+
+// ring_loop over the cdiv(N, kTile) chunks of kTile rows.
+template <typename Load, typename Body>
+__device__ __forceinline__ void chunk_loop(int N, Load load, Body body) {
+  ring_loop(cdiv(N, kTile), load, body);
 }
 
 // Let `kernel` take as much dynamic shared memory as the card leaves beside

@@ -94,10 +94,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # B, N -> clusters of a launch
         "gcn_aggregate_bwd_clusters": [_I] * 2,
         # above N = 64: x, adj, degrees, w, dL/dout, dx, dadj, partials,
-        # out_w, tickets, B, N, F_in, F_out, clusters, add_loop, loop, stream
-        "gcn_aggregate_bwd_tiled_run": [_P] * 10 + [_I] * 6 + [_F, _P],
-        # N, F_in, F_out, need_adj -> shared bytes of a block
-        "gcn_aggregate_bwd_tiled_smem": [_I] * 4,
+        # out_w, tickets, B, N, F_in, F_out, rows of a row tile, chunks a
+        # pass, add_loop, loop, stream
+        "gcn_aggregate_bwd_tiled_run": [_P] * 10 + [_I] * 7 + [_F, _P],
+        # N, F_in, F_out, rows of a row tile, chunks a pass, need_adj ->
+        # shared bytes of a block
+        "gcn_aggregate_bwd_tiled_smem": [_I] * 6,
     },
     "gmh_attention_bwd": {
         # x, adj, wq, bq, wk, bk, wv, bv, dL/dV, dL/dA, dx, dadj, partials of

@@ -25,8 +25,9 @@ On a CUDA tensor that needs a gradient the wrapper runs the forward kernel
 inside a ``torch.autograd.Function`` whose backward is the kernel
 ``csrc/gcn_aggregate_bwd.cu`` (a graph's rows over a few blocks, N <= 64;
 one launch, its batch sums ordered by the tickets of ``ticket_buffer``;
-above N = 64 a ``gcn_degrees`` launch, then the file's row-tile kernel
-over the ``gcn_bwd_plan``), with ``gcn_aggregate_bwd_plain`` beside it: the
+above N = 64 the file's row-tile kernel over the ``gcn_bwd_plan``, on the
+degrees the forward's ``gcn_degrees`` launch computed), with
+``gcn_aggregate_bwd_plain`` beside it: the
 gradients of x, adj, the weight and the bias written out by hand
 (``csrc/grad_common.cuh`` gives the formulas).  The degree clamp follows
 ``jnp.clip``: at a row sum of exactly 1 (a node with only its loop) half
@@ -211,6 +212,7 @@ def gcn_aggregate_smem(N: int, Fi: int, Fo: int) -> int:
 
 
 def _launch_gcn_aggregate(x, adj, weight, bias, loop, add_loop):
+    """-> (out, the degrees (B, N) where the row tiles read them, else None)."""
     check_cuda_f32("gcn_aggregate", x=x, adj=adj, weight=weight, bias=bias)
     B, N, Fi = x.shape
     Fo = weight.shape[1]
@@ -232,25 +234,27 @@ def _launch_gcn_aggregate(x, adj, weight, bias, loop, add_loop):
     )
     check_status("gcn_aggregate", status)
     LAUNCHES["gcn_aggregate"] += 1
-    return out
+    return out, None if deg is None else deg[:, 0]
 
 
 class _GCNAggregate(torch.autograd.Function):
-    """The forward kernel, with ``gcn_aggregate_bwd`` as its backward."""
+    """The forward kernel, with ``gcn_aggregate_bwd`` as its backward; above
+    N = 64 the backward reads the degrees the forward's launch computed."""
 
     @staticmethod
     def forward(ctx, x, adj, weight, bias, loop, add_loop):
-        ctx.save_for_backward(x, adj, weight)
+        out, deg = _launch_gcn_aggregate(x, adj, weight, bias, loop, add_loop)
+        ctx.save_for_backward(x, adj, weight, deg)
         ctx.loop, ctx.add_loop, ctx.has_bias = loop, add_loop, bias is not None
-        return _launch_gcn_aggregate(x, adj, weight, bias, loop, add_loop)
+        return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        x, adj, weight = ctx.saved_tensors
+        x, adj, weight, deg = ctx.saved_tensors
         need_x, need_adj = ctx.needs_input_grad[:2]
         dx, dadj, dw, db = gcn_aggregate_bwd(x, adj, weight, g.contiguous(), ctx.loop,
-                                             ctx.add_loop, need_x, need_adj)
+                                             ctx.add_loop, need_x, need_adj, deg=deg)
         return dx, dadj, dw, db if ctx.has_bias else None, None, None
 
 
@@ -264,7 +268,7 @@ def gcn_aggregate(x: torch.Tensor, adj: torch.Tensor, weight: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, adj, weight, bias)):
         return _GCNAggregate.apply(x, adj, weight, bias, loop, add_loop)
-    return _launch_gcn_aggregate(x, adj, weight, bias, loop, add_loop)
+    return _launch_gcn_aggregate(x, adj, weight, bias, loop, add_loop)[0]
 
 
 # ------------------------------------------------------------------ backward
@@ -328,6 +332,7 @@ def ticket_buffer(device: torch.device, need: int) -> torch.Tensor:
 
 
 MAX_CLUSTER = 8  # blocks of a backward kernel's cluster, at most
+BWD_GROUP = 8    # tile partials the tiled gcn_aggregate_bwd sums together (csrc kGroup)
 
 
 @functools.lru_cache(maxsize=None)
@@ -338,45 +343,80 @@ def gcn_aggregate_bwd_clusters(B: int, N: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
+def gcn_bwd_geometry(N: int, Fi: int, Fo: int, need_adj: bool) -> Tuple[int, int, int]:
+    """(rows of a row tile, chunks a pass, shared bytes) of a block of the
+    tiled gcn_aggregate_bwd (N > 64): row tiles of gcn_aggregate's
+    ``gcn_rows(N)`` rows (at N = 361, 16 tiles of 23 rows: grid's 8 graphs
+    make 128 blocks on the H100's 132 SMs), every ROW_TILE-row chunk of V's
+    sum in one pass; where the block would not fit the card, fewer chunks
+    a pass (two passes' buffers then), down to one, then fewer rows, by the
+    library's own count; raises a ``ValueError`` naming N where one row
+    and one chunk do not fit."""
+    smem = kernel_fn("gcn_aggregate_bwd", "gcn_aggregate_bwd_tiled_smem")
+    rows, pc = gcn_rows(N), -(-N // ROW_TILE)
+    nbytes = smem(N, Fi, Fo, rows, pc, int(need_adj))
+    while nbytes > SMEM_LIMIT and (pc > 1 or rows > 1):
+        if pc > 1:
+            pc -= 1
+        else:
+            rows -= 1
+        nbytes = smem(N, Fi, Fo, rows, pc, int(need_adj))
+    check_smem("gcn_aggregate_bwd", nbytes, N=N, F_in=Fi, F_out=Fo)
+    return rows, pc, nbytes
+
+
+@functools.lru_cache(maxsize=None)
 def gcn_aggregate_bwd_smem(N: int, Fi: int, Fo: int, need_adj: bool = True) -> int:
     """Shared bytes of a block of csrc/gcn_aggregate_bwd.cu: one row group
     of a graph (N <= 64) or, above, one row tile (with dA or without), by
     the library's own count; raises a ``ValueError`` naming N where it
     exceeds the card's limit."""
     if is_tiled(N):
-        nbytes = kernel_fn("gcn_aggregate_bwd", "gcn_aggregate_bwd_tiled_smem")(
-            N, Fi, Fo, int(need_adj))
-    else:
-        nbytes = kernel_fn("gcn_aggregate_bwd", "gcn_aggregate_bwd_smem")(N, Fi, Fo)
+        return gcn_bwd_geometry(N, Fi, Fo, need_adj)[2]
+    nbytes = kernel_fn("gcn_aggregate_bwd", "gcn_aggregate_bwd_smem")(N, Fi, Fo)
     check_smem("gcn_aggregate_bwd", nbytes, N=N, F_in=Fi, F_out=Fo)
     return nbytes
 
 
 def row_tiles(N: int, rows: int = ROW_TILE) -> List[Tuple[int, int]]:
     """(first row, rows) of each row tile of a graph: `rows` rows each, the
-    last ragged; ROW_TILE in the tiled backward designs (N > 64), whose
+    last ragged; ROW_TILE in the tiled attention backward (N > 64), whose
     chunks of their products over all rows are the same tiles."""
     return [(r0, min(rows, N - r0)) for r0 in range(0, N, rows)]
 
 
-def gcn_bwd_plan(B: int, N: int, Fi: int, Fo: int) -> Dict[str, object]:
+def gcn_bwd_plan(B: int, N: int, Fi: int, Fo: int, rows: Optional[int] = None,
+                 pc: Optional[int] = None) -> Dict[str, object]:
     """The host side of the tiled ``gcn_aggregate_bwd`` (N > 64): its row
-    tiles, its clusters of MAX_CLUSTER blocks (one block a row tile of a
-    graph, the last cluster padded), and the scratch it allocates (a
-    weight partial a cluster; tickets)."""
-    tiles = row_tiles(N)
-    clusters = -(-B * len(tiles) // MAX_CLUSTER)
-    return {"tiles": tiles, "clusters": clusters, "part": (clusters, Fi * Fo + Fo),
-            "tickets": MAX_CLUSTER}
+    tiles of ``rows`` rows (by default ``gcn_rows(N)``, as
+    ``gcn_bwd_geometry`` starts), a block each; the ROW_TILE-row chunks of
+    V's sum over rows, which every block takes in passes of ``pc`` chunks
+    (by default all), in chunk order (``passes``: (first chunk, chunks));
+    the groups of BWD_GROUP tiles whose partials are summed together; the
+    scratch it allocates (a weight partial a tile, then one a group) and
+    its tickets (one a group, then one)."""
+    rows = gcn_rows(N) if rows is None else rows
+    tiles, chunks = row_tiles(N, rows), row_tiles(N)
+    pc = len(chunks) if pc is None else pc
+    groups = -(-B * len(tiles) // BWD_GROUP)
+    return {"tiles": tiles, "rows": rows, "chunks": chunks, "pass": pc,
+            "passes": [(k, min(pc, len(chunks) - k)) for k in range(0, len(chunks), pc)],
+            "groups": groups, "part": (B * len(tiles) + groups, Fi * Fo + Fo),
+            "tickets": groups + 1}
 
 
-def _gcn_aggregate_bwd_tiled(x, adj, weight, g, loop, add_loop, need_x, need_adj):
-    """N > 64: the degrees, then the row-tile kernel."""
+def _gcn_aggregate_bwd_tiled(x, adj, weight, g, loop, add_loop, need_x, need_adj, deg):
+    """N > 64: the row-tile kernel, on the given degrees or, where none are
+    given, after a gcn_degrees launch."""
     B, N, Fi = x.shape
     Fo = weight.shape[1]
-    gcn_aggregate_bwd_smem(N, Fi, Fo, need_adj)
-    plan = gcn_bwd_plan(B, N, Fi, Fo)
-    deg = gcn_degrees(adj[:, None], add_loop, loop)
+    plan = gcn_bwd_plan(B, N, Fi, Fo, *gcn_bwd_geometry(N, Fi, Fo, need_adj)[:2])
+    if deg is None:
+        deg = gcn_degrees(adj[:, None], add_loop, loop)
+    elif deg.numel() != B * N or not deg.is_contiguous():
+        raise ValueError(f"gcn_aggregate_bwd: deg {tuple(deg.shape)} is not the contiguous "
+                         f"degrees of {B} graphs of {N} nodes")
+    check_cuda_f32("gcn_aggregate_bwd", x=x, deg=deg)
     new = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
     dx = new((B, N, Fi)) if need_x else None
     dadj = new((B, N, N)) if need_adj else None
@@ -387,17 +427,19 @@ def _gcn_aggregate_bwd_tiled(x, adj, weight, g, loop, add_loop, need_x, need_adj
     status = kernel_fn("gcn_aggregate_bwd", "gcn_aggregate_bwd_tiled_run")(
         x.data_ptr(), adj.data_ptr(), deg.data_ptr(), weight.data_ptr(), g.data_ptr(), ptr(dx),
         ptr(dadj), part.data_ptr(), out_w.data_ptr(), tickets.data_ptr(), B, N, Fi, Fo,
-        plan["clusters"], int(add_loop), float(loop), stream)
-    check_status("gcn_aggregate_bwd", status)
+        plan["rows"], plan["pass"], int(add_loop), float(loop), stream)
+    check_status(f"gcn_aggregate_bwd (N={N})", status)
     LAUNCHES["gcn_aggregate_bwd"] += 1
     return dx, dadj, out_w[:Fi * Fo].view(Fi, Fo), out_w[Fi * Fo:]
 
 
 def gcn_aggregate_bwd(x, adj, weight, g, loop: float = 1.0, add_loop: bool = True,
-                      need_x: bool = True, need_adj: bool = True):
+                      need_x: bool = True, need_adj: bool = True,
+                      deg: Optional[torch.Tensor] = None):
     """Backward of ``gcn_aggregate``: the CUDA kernel for CUDA tensors (a
-    row-tile design after a ``gcn_degrees`` launch above N = 64), the plain
-    backward for CPU tensors -> (dx or None, dadj or None, dweight,
+    row-tile design above N = 64, which reads ``deg``, the degrees (B, N)
+    of adj, or launches ``gcn_degrees`` for them where none are given), the
+    plain backward for CPU tensors -> (dx or None, dadj or None, dweight,
     dbias)."""
     if x.device.type == "cpu":
         return gcn_aggregate_bwd_plain(x, adj, weight, g, loop, add_loop, need_x, need_adj)
@@ -409,7 +451,8 @@ def gcn_aggregate_bwd(x, adj, weight, g, loop: float = 1.0, add_loop: bool = Tru
             f"gcn_aggregate_bwd: shapes x {tuple(x.shape)}, adj {tuple(adj.shape)}, "
             f"weight {tuple(weight.shape)}, g {tuple(g.shape)} do not agree")
     if is_tiled(N):
-        return _gcn_aggregate_bwd_tiled(x, adj, weight, g, loop, add_loop, need_x, need_adj)
+        return _gcn_aggregate_bwd_tiled(x, adj, weight, g, loop, add_loop, need_x, need_adj,
+                                        deg)
     gcn_aggregate_bwd_smem(N, Fi, Fo)
     new = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
     dx = new((B, N, Fi)) if need_x else None

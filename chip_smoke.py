@@ -92,8 +92,9 @@ Phases, each printing one line of its own results:
               phase's bound), then ``Trainer`` for GRID_TRAIN_EPOCHS epochs
               (ten train and three test batches of 8 an epoch): finite
               losses, the last epoch's mean below the first's, exact
-              launches an epoch (the tiled backwards: gcn_degrees,
-              gmh_projection, gmh_bwd_layout, gmh_score_grad and
+              launches an epoch (the tiled backwards: gcn_degrees for the
+              attention's, none for gcn_aggregate_bwd's, which reads its
+              forward's; gmh_projection, gmh_bwd_layout, gmh_score_grad and
               gmh_attention_bwd_tiled), train steps/s and peak memory.
    grid_small_eval -- its EMA checkpoint (``sample.use_ema: true``) through
               ``Sampler`` by the JAX protocol (20 test graphs, three rounds
@@ -168,7 +169,10 @@ Phases, each printing one line of its own results:
               ``torch.baddbmm(b, norm, x W)`` for ``gcn_aggregate``, and
               ``torch.matmul(norm, x)`` then one ``torch.baddbmm`` over the
               stacked weights for ``gmh_projection`` (norm, x W and the
-              weights formed before).
+              weights formed before), ``torch.bmm(norm^T, dL/dout)`` (the
+              dY product, norm formed before) for ``gcn_aggregate_bwd``,
+              with the library's whole route beside it (that bmm, the dX
+              matmul where dx is asked for, the dW einsum, dbias's sum).
 
 Each phase prints its seconds.
 
@@ -1832,7 +1836,8 @@ def phase_grid_train(dev):
     test batches of 8 an epoch): finite losses, the last epoch's mean below
     the first's, the exact launches of an epoch (the tiled backwards: the
     gcn_degrees, gmh_projection, gmh_bwd_layout, gmh_score_grad and
-    gmh_attention_bwd_tiled launches; no one-block gmh_attention_bwd),
+    gmh_attention_bwd_tiled launches; no one-block gmh_attention_bwd; no
+    gcn_degrees of gcn_aggregate_bwd's own, which reads its forward's),
     train steps/s and peak memory; returns the launches."""
     import shutil
 
@@ -1860,7 +1865,7 @@ def phase_grid_train(dev):
     steps = n_train + n_test  # forwards; the train steps also run a backward
     per_epoch = {"gcn_aggregate": steps * depth, "gmh_attention": steps * L,
                  "gmh_projection": (steps + n_train) * L,
-                 "gcn_degrees": (steps + n_train) * (depth + L),
+                 "gcn_degrees": steps * (depth + L) + n_train * L,
                  "gcn_aggregate_bwd": n_train * depth, "gmh_bwd_layout": n_train * L,
                  "gmh_score_grad": n_train * L, "gmh_attention_bwd_tiled": n_train * L}
     reset_launches()
@@ -2362,6 +2367,22 @@ def timing_specs():
     def contiguous_first(adj, x):
         return (adj.contiguous(), x)
 
+    # dY = norm^T dL/dout by one bmm, norm formed before (as baddbmm_of_norm)
+    def bmm_of_norm_t(x, adj, w, g, loop, add_loop, need_x, need_adj):
+        norm = gcn_norm(adj, add_loop, loop)
+        return lambda: torch.bmm(norm.mT, g)
+
+    # the library's whole route to dx, dW and dbias: that bmm, the dX matmul
+    # where dx is asked for, the dW einsum and dbias's sum
+    def library_route(x, adj, w, g, loop, add_loop, need_x, need_adj):
+        norm = gcn_norm(adj, add_loop, loop)
+
+        def run():
+            dy = torch.bmm(norm.mT, g)
+            return (dy @ w.T if need_x else None, torch.einsum("bnf,bno->fo", x, dy),
+                    g.sum(dim=(0, 1)))
+        return run
+
     return [
         ("gcn_aggregate", "ccsd_tpu_torch/csrc/gcn_aggregate.cu",
          "ccsd_tpu/ops/pallas/gcn.py:45", "gcn", gcn_inputs,
@@ -2400,7 +2421,8 @@ def timing_specs():
         ("gcn_aggregate_bwd", "ccsd_tpu_torch/csrc/gcn_aggregate_bwd.cu",
          "ccsd_tpu/ops/pallas/gcn.py:45 (the gradient of gcn_aggregate_pallas; the JAX "
          "package differentiates the plain layer)", "gcn_bwd", gcn_bwd_inputs,
-         {"f32": (gcn_aggregate_bwd, gcn_aggregate_bwd_plain)}, None, {},
+         {"f32": (gcn_aggregate_bwd, gcn_aggregate_bwd_plain)}, bmm_of_norm_t,
+         {"library_route": library_route},
          lambda c: gcn_bwd_cost(*c[1:5], *c[6:8])),
         ("gmh_attention_bwd", "ccsd_tpu_torch/csrc/gmh_attention_bwd.cu",
          "ccsd_tpu/ops/pallas/gmh_attention.py:62 (the gradient of gmh_attention_pallas; "

@@ -1,6 +1,6 @@
 """Where the time of the backward kernels goes, on the card.
 
-Two sets of shapes, each asking for the gradients the training path asks
+Three sets of shapes, each asking for the gradients the training path asks
 for (``chip_smoke.gcn_bwd_inputs``, ``chip_smoke.gmh_bwd_inputs``):
 
 * community_small's training shapes (B = 80, N = 20): ``gcn_aggregate_bwd``
@@ -9,6 +9,11 @@ for (``chip_smoke.gcn_bwd_inputs``, ``chip_smoke.gmh_bwd_inputs``):
   one-block ``gmh_attention_bwd`` on ScoreNetworkA's first AttentionLayer
   (C = 2, F_in 11, a contiguous adjacency, no dx or dadj) and a later one
   (C = 8, F_in 32, the channels-last adjacency, with dx and dadj);
+* grid's ScoreNetworkX layers (B = 8, N = 361: the tiled
+  ``gcn_aggregate_bwd``; F_in 5 without dx, F_in 32 with dx, F_out 32):
+  the whole call as a direct caller makes it (a ``gcn_degrees`` launch,
+  then the kernel: ``whole``) and the kernel alone on the degrees of the
+  forward (``kernel``: the one launch a training step makes);
 * grid's attention layers (B = 8, N = 361: the tiled design; C = 2 on F_in
   5 without dx or dadj, C = 8 on F_in 32 with both and the channels-last
   adjacency): the whole ``gmh_attention_bwd`` call and each of the tiled
@@ -25,24 +30,26 @@ edited (clusters of 4 and of 2 blocks in place of 8; 192 threads a block,
 five blocks an SM).
 
 With ``--parent DIR``, a tree of an earlier commit unpacked by ``git
-archive <commit> | tar -x -C DIR`` whose tiled attention backward has the
-C entry points of 80a8d86 (``gmh_score_grad_run`` taking dL/dA,
-``gmh_attention_bwd_tiled_run`` taking the adjacency's four strides): its
-``gmh_attention_bwd.cu`` built the same way (its own ``GRAD_ABLATE``
-masks), its two tiled kernels called through ctypes after this tree's
-``gcn_degrees`` and ``gmh_projection`` (unchanged), at grid's shapes: the
-earlier whole call and each earlier kernel, whole and with stages removed;
-the earlier and this tree's whole calls and kernels are timed in turns
-(parent, this, this, parent).  ``--parent-only`` times only the parent's.
+archive <commit> | tar -x -C DIR`` whose tiled ``gcn_aggregate_bwd`` has
+the C entry point of 9375191 (``gcn_aggregate_bwd_tiled_run``: one block a
+32-row tile, clusters of eight tiles, the degrees an argument): its
+``gcn_aggregate_bwd.cu`` built the same way (its own ``GRAD_ABLATE``
+masks) and called through ctypes after this tree's ``gcn_degrees``
+(unchanged), at grid's ScoreNetworkX shapes: the earlier whole call and
+kernel, whole and with stages removed; the earlier and this tree's whole
+calls and kernels are timed in turns (parent, this, this, parent), and
+this tree's dx, dW and dbias are compared with the parent's bit for bit.
+``--parent-only`` times only the parent's.
 
 Each variant is built with the flags of ``ccsd_tpu_torch/kernels/build.py``
 into ``build/stage_times_grad/``, all in parallel, and timed as
 ``chip_smoke.py`` times the kernels (CUDA-graph replay, CUDA events: 200
-launches at N = 20, 20 at N = 361); this tree's variants run through the
-wrappers, with the variant's library bound in place of the kernel's.  Run
-from the repo root on a machine with an NVIDIA H100:
+launches, 20 for the tiled attention); this tree's variants run through
+the wrappers, with the variant's library bound in place of the kernel's.
+Run from the repo root on a machine with an NVIDIA H100:
 
     python3 scripts/grad_stage_times.py [--parent DIR [--parent-only]] [--tiled-only]
+        [--kernel gcn_aggregate_bwd|gmh_attention_bwd]
 
 Prints the card's name and power limit, the ptxas report of each base
 build, one line per measurement and, last, a JSON object of them all.
@@ -54,7 +61,6 @@ import argparse
 import ctypes
 import glob
 import json
-import math
 import os
 import shutil
 import sys
@@ -65,7 +71,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from ccsd_tpu_torch.kernels import build  # noqa: E402
+from ccsd_tpu_torch.kernels import build, gcn  # noqa: E402
 from ccsd_tpu_torch.kernels.gcn import (  # noqa: E402
     MAX_CLUSTER, gcn_aggregate_bwd, gcn_degrees, row_tiles, ticket_buffer)
 from ccsd_tpu_torch.kernels.gmh_attention import (  # noqa: E402
@@ -79,19 +85,18 @@ OUT_DIR = os.path.join(ROOT, "build", "stage_times_grad")
 GMH_STAGES = {"no_recompute": RECOMPUTE, "no_scores": SCORES, "no_grad_qk": GRAD_QK,
               "no_grad_w": GRAD_W, "no_grad_nx": GRAD_NX, "no_grad_x": GRAD_X,
               "no_grad_adj": GRAD_ADJ, "no_reduce": REDUCE}
+GCN_STAGES = {"base": 0, "no_loads": LOADS, "no_grad_y": GRAD_Y, "no_grad_x": GRAD_X,
+              "no_grad_w": GRAD_W, "no_grad_adj": GRAD_ADJ, "no_reduce": REDUCE,
+              "skeleton": GRAD_Y | GRAD_X | GRAD_W | GRAD_ADJ | REDUCE}
 VARIANTS = {
-    "gcn_aggregate_bwd": {"base": 0, "no_loads": LOADS, "no_grad_y": GRAD_Y,
-                          "no_grad_x": GRAD_X, "no_grad_w": GRAD_W, "no_grad_adj": GRAD_ADJ,
-                          "no_reduce": REDUCE,
-                          "skeleton": GRAD_Y | GRAD_X | GRAD_W | GRAD_ADJ | REDUCE},
+    # this tree's tiled kernel also: no_fold, its sum of V over the cluster;
+    # empty, every stage and the loads removed (the launch, barriers, stores)
+    "gcn_aggregate_bwd": {**GCN_STAGES, "no_fold": GRAD_V,
+                          "empty": sum(GCN_STAGES.values()) | LOADS | GRAD_V},
     "gmh_attention_bwd": {"base": 0, "no_loads": LOADS, **GMH_STAGES, "no_grad_v": GRAD_V,
                           "no_da_pass": GRAD_Y,
                           "skeleton": sum(GMH_STAGES.values()) | GRAD_V},
 }
-# the earlier tree's gmh_attention_bwd.cu (its masks: its tiled row kernel
-# has its V product under GRAD_X)
-PARENT_VARIANTS = {"base": 0, "no_loads": LOADS, **GMH_STAGES,
-                   "skeleton": sum(GMH_STAGES.values())}
 # this tree's one-block gmh_attention_bwd in other geometries, as {variant:
 # [(file, line, replacement)]}
 _LAUNCH = ("gmh_attention_bwd.cu", "gmh_attention_bwd_kernel<<<grid, kThreads, smem",
@@ -102,16 +107,16 @@ GEOMETRIES = {
     "cluster2": [("grad_common.cuh", "constexpr int kCluster = 8;", "constexpr int kCluster = 2;")],
     "threads192": [_LAUNCH, _BOUNDS],
 }
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-PARENT_SYMBOLS = {  # the earlier tiled design's C entry points
-    "gmh_score_grad_run": [_P] * 3 + [_I] * 6 + [_L] * 4 + [_F, _P],
-    "gmh_attention_bwd_tiled_run": [_P] * 14 + [_I] * 7 + [_L] * 8 + [_I, _F, _P],
-}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the earlier tiled gcn_aggregate_bwd's C entry point (9375191)
+PARENT_SYMBOL = ("gcn_aggregate_bwd_tiled_run", [_P] * 10 + [_I] * 6 + [_F, _P])
 
 # (name, B, N, F_in, F_out, loop, need_x, need_adj): chip_smoke.gcn_bwd_inputs
 GCN_CASES = [("x.layers.0", 80, 20, 11, 32, 1.0, False, False),
              ("x.layers.1", 80, 20, 32, 32, 1.0, True, False),
              ("x.layers.1 with dadj", 80, 20, 32, 32, 1.0, True, True)]
+GCN_TILED_CASES = [("grid.x.layers.0", 8, 361, 5, 32, 1.0, False, False),
+                   ("grid.x.layers.1", 8, 361, 32, 32, 1.0, True, False)]
 # (name, B, C, N, F_in, attn, F_out, H, need_x, need_adj): chip_smoke.gmh_bwd_inputs
 # (layer 0: a contiguous adjacency; later layers: channels-last)
 GMH_CASES = [("adj.layers.0", 80, 2, 20, 11, 32, 32, 4, False, False),
@@ -139,25 +144,26 @@ def edited_copy(src_dir, kname, vdir, edits):
     return os.path.join(vdir, f"{kname}.cu")
 
 
-def build_variants(parent_dir, new):
-    """{(tree, kernel, variant): library path}, all built in parallel."""
+def build_variants(parent_dir, new, kernels):
+    """{(tree, kernel, variant): library path} of the named kernels, all
+    built in parallel."""
     os.makedirs(OUT_DIR, exist_ok=True)
     jobs = {}
     if new:
         jobs = {("new", kname, variant): (os.path.join(build.CSRC_DIR, f"{kname}.cu"),
                                           os.path.join(OUT_DIR, f"lib{kname}_new_{variant}.so"),
                                           [f"-DGRAD_ABLATE={mask}"])
-                for kname, variants in VARIANTS.items() for variant, mask in variants.items()}
-        for variant, edits in GEOMETRIES.items():
+                for kname in kernels for variant, mask in VARIANTS[kname].items()}
+        for variant, edits in GEOMETRIES.items() if "gmh_attention_bwd" in kernels else ():
             src = edited_copy(build.CSRC_DIR, "gmh_attention_bwd",
                               os.path.join(OUT_DIR, "geometry_src", variant), edits)
             jobs[("new", "gmh_attention_bwd", variant)] = (
                 src, os.path.join(OUT_DIR, f"libgmh_attention_bwd_new_{variant}.so"), [])
     if parent_dir:
-        src = os.path.join(parent_dir, "ccsd_tpu_torch", "csrc", "gmh_attention_bwd.cu")
-        for variant, mask in PARENT_VARIANTS.items():
-            jobs[("parent", "gmh_attention_bwd", variant)] = (
-                src, os.path.join(OUT_DIR, f"libgmh_attention_bwd_parent_{variant}.so"),
+        src = os.path.join(parent_dir, "ccsd_tpu_torch", "csrc", "gcn_aggregate_bwd.cu")
+        for variant, mask in GCN_STAGES.items():
+            jobs[("parent", "gcn_aggregate_bwd", variant)] = (
+                src, os.path.join(OUT_DIR, f"libgcn_aggregate_bwd_parent_{variant}.so"),
                 [f"-DGRAD_ABLATE={mask}"])
     logs = build.nvcc_parallel(jobs)
     for (tree, kname, variant) in jobs:
@@ -169,56 +175,36 @@ def build_variants(parent_dir, new):
     return {key: lib for key, (_, lib, _) in jobs.items()}
 
 
-class Parent:
-    """The earlier tiled design through its C entry points: ``score_grad``
-    (qk, dL/dA in its strides) and ``rows`` (its row-tile kernel, the
-    adjacency in its strides, scratch allocated as its wrapper did)."""
+class ParentGcn:
+    """The earlier tiled ``gcn_aggregate_bwd`` through its C entry point:
+    ``kernel`` on given degrees, scratch allocated as its wrapper did (a
+    weight partial for each cluster of eight row tiles); ``whole`` after
+    this tree's ``gcn_degrees``, as its wrapper launched the pair."""
 
     def __init__(self, lib_path):
-        lib = ctypes.CDLL(lib_path)
-        self.fns = {}
-        for sym, argtypes in PARENT_SYMBOLS.items():
-            fn = getattr(lib, sym)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-            self.fns[sym] = fn
+        self.fn = getattr(ctypes.CDLL(lib_path), PARENT_SYMBOL[0])
+        self.fn.argtypes, self.fn.restype = PARENT_SYMBOL[1], ctypes.c_int
 
-    def _call(self, sym, *args):
-        if self.fns[sym](*args, torch.cuda.current_stream().cuda_stream):
-            raise RuntimeError(f"parent {sym}: launch failed")
-
-    def score_grad(self, qk, ga, H, O):
-        B, C, N, A2 = qk.shape
-        gqk = torch.empty_like(qk)
-        self._call("gmh_score_grad_run", qk.data_ptr(), ga.data_ptr(), gqk.data_ptr(), B, C, N,
-                   A2 // 2, H, A2 // 2 // H, *ga.stride(), math.sqrt(O))
-        return gqk
-
-    def rows(self, x, adj, deg, wq, wk, wv, gqk, gv, loop, add_loop, need_x, need_adj):
+    def kernel(self, x, adj, w, g, loop, add_loop, need_x, need_adj, deg):
         B, N, Fi = x.shape
-        C, _, A = wq.shape
-        O = wv.shape[-1]
-        nt = len(row_tiles(N))
-        clusters = -(-B * nt // MAX_CLUSTER)
-        T = Fi * (2 * A + O) + 2 * A + O
+        Fo = w.shape[1]
+        clusters = -(-B * len(row_tiles(N)) // MAX_CLUSTER)
         new = lambda *s: torch.empty(*s, device=x.device)  # noqa: E731
-        out_w, part_w = new(C * T), new(clusters, C * T)
-        dx, part_x = (new(B, N, Fi), new(B, C, N, Fi)) if need_x else (None, None)
-        dadj = torch.empty_like(adj) if need_adj else None
-        tickets = ticket_buffer(x.device, MAX_CLUSTER * C + B * nt)
+        dx = new(B, N, Fi) if need_x else None
+        dadj = new(B, N, N) if need_adj else None
+        out_w, part = new(Fi * Fo + Fo), new(clusters, Fi * Fo + Fo)
+        tickets = ticket_buffer(x.device, MAX_CLUSTER)
         ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-        self._call("gmh_attention_bwd_tiled_run", x.data_ptr(), adj.data_ptr(), deg.data_ptr(),
-                   wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), gqk.data_ptr(), gv.data_ptr(),
-                   ptr(dx), ptr(dadj), ptr(part_x), part_w.data_ptr(), out_w.data_ptr(),
-                   tickets.data_ptr(), B, C, N, Fi, A, O, clusters, *adj.stride(),
-                   *(dadj.stride() if need_adj else (0,) * 4), int(add_loop), float(loop))
-        return out_w
+        if self.fn(x.data_ptr(), adj.data_ptr(), deg.data_ptr(), w.data_ptr(), g.data_ptr(),
+                   ptr(dx), ptr(dadj), part.data_ptr(), out_w.data_ptr(), tickets.data_ptr(),
+                   B, N, Fi, Fo, clusters, int(add_loop), float(loop),
+                   torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("parent gcn_aggregate_bwd_tiled_run: launch failed")
+        return dx, dadj, out_w[:Fi * Fo].view(Fi, Fo), out_w[Fi * Fo:]
 
-    def whole(self, args):
-        x, adj, wq, bq, wk, bk, wv, bv, gv, ga, H, O, loop, add_loop, need_x, need_adj = args
-        deg = gcn_degrees(adj, add_loop, loop)
-        qk, _ = gmh_projection(x, adj, deg, wq, bq, wk, bk, wv, bv, loop, add_loop)
-        return self.rows(x, adj, deg, wq, wk, wv, self.score_grad(qk, ga, H, O), gv.contiguous(),
-                         loop, add_loop, need_x, need_adj)
+    def whole(self, x, adj, w, g, loop, add_loop, need_x, need_adj):
+        deg = gcn_degrees(adj[:, None], add_loop, loop)
+        return self.kernel(x, adj, w, g, loop, add_loop, need_x, need_adj, deg)
 
 
 def main(argv) -> int:
@@ -228,7 +214,9 @@ def main(argv) -> int:
     ap.add_argument("--parent-only", action="store_true",
                     help="time only the parent's kernels")
     ap.add_argument("--tiled-only", action="store_true",
-                    help="only grid's shapes (the tiled design)")
+                    help="only grid's shapes (the tiled designs)")
+    ap.add_argument("--kernel", choices=list(VARIANTS), default=None,
+                    help="only this backward kernel")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("grad_stage_times: needs a CUDA device", file=sys.stderr)
@@ -238,7 +226,8 @@ def main(argv) -> int:
     card = cs.smi_name_power()
     print(card, flush=True)
     new = not args.parent_only
-    libs = build_variants(args.parent, new)
+    kernels = [args.kernel] if args.kernel else list(VARIANTS)
+    libs = build_variants(args.parent if "gcn_aggregate_bwd" in kernels else None, new, kernels)
     wrappers = {"gcn_aggregate_bwd": gcn_aggregate_bwd, "gmh_attention_bwd": gmh_attention_bwd}
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -250,32 +239,87 @@ def main(argv) -> int:
         rows.append(kv)
         print(" ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
 
-    def use(variant):  # this tree's variant in place of the kernel's library
-        build._LIBS["gmh_attention_bwd"] = build.bind("gmh_attention_bwd",
-                                                      libs[("new", "gmh_attention_bwd", variant)])
+    def use(kname, variant):  # this tree's variant in place of the kernel's library
+        build._LIBS[kname] = build.bind(kname, libs[("new", kname, variant)])
 
     # N = 20: this tree's one-block kernels, whole and by stages
     if new and not args.tiled_only:
         for kname, cases, mk in (("gcn_aggregate_bwd", GCN_CASES, cs.gcn_bwd_inputs),
                                  ("gmh_attention_bwd", GMH_CASES, cs.gmh_bwd_inputs)):
-            for case in cases:
+            for case in cases if kname in kernels else []:
                 args_ = mk(case, gen, dev)
-                for (tree, k, variant), lib in libs.items():
-                    if tree != "new" or k != kname:
-                        continue
-
-                    def run(lib=lib, kname=kname, args_=args_):
-                        build._LIBS[kname] = build.bind(kname, lib)
+                for variant in VARIANTS[kname]:
+                    def run(kname=kname, args_=args_):
                         wrappers[kname](*args_)
-                    record(run, cs.TIMING_ITERS, kernel=kname, case=case[0], tree=tree,
+                    use(kname, variant)
+                    record(run, cs.TIMING_ITERS, kernel=kname, case=case[0], tree="new",
                            variant=variant)
         build._LIBS.clear()
 
-    # N = 361: the tiled design, this tree's and the parent's
-    parents = {v: Parent(libs[("parent", "gmh_attention_bwd", v)])
-               for v in PARENT_VARIANTS} if args.parent else {}
+    # N = 361, ScoreNetworkX: the tiled gcn_aggregate_bwd, this tree's and the parent's
+    parents = {v: ParentGcn(libs[("parent", "gcn_aggregate_bwd", v)])
+               for v in GCN_STAGES} if ("parent", "gcn_aggregate_bwd", "base") in libs else {}
+    for case in GCN_TILED_CASES if "gcn_aggregate_bwd" in kernels else []:
+        a = cs.gcn_bwd_inputs(case, gen, dev)
+        deg = gcn_degrees(a[1][:, None], a[5], a[4])
+        mine = {"whole": lambda: gcn_aggregate_bwd(*a),
+                "kernel": lambda: gcn_aggregate_bwd(*a, deg=deg)}
+        theirs = lambda p: {"whole": lambda: p.whole(*a),  # noqa: E731
+                            "kernel": lambda: p.kernel(*a, deg)}
+        shape = dict(kernel="gcn_aggregate_bwd", case=case[0])
+        if new:
+            use("gcn_aggregate_bwd", "base")
+        for what in mine:  # base against base, in turns
+            turns = ((["parent"] if parents else []) + (["new", "new"] if new else [])
+                     + (["parent"] if parents else []))
+            for tree in turns:
+                run = theirs(parents["base"])[what] if tree == "parent" else mine[what]
+                record(run, cs.TIMING_ITERS, **shape, call=what, tree=tree, variant="base")
+        if new and parents:
+            got, want = mine["kernel"](), theirs(parents["base"])["kernel"]()
+            torch.cuda.synchronize()
+            same = {out: (g is None and w is None) or (g is not None and w is not None
+                                                       and torch.equal(g, w))
+                    for out, g, w in zip(("dx", "dadj", "dweight", "dbias"), got, want)}
+            rows.append({**shape, "bit_equal_to_parent": same})
+            print(f"check {case[0]}: bit equal to the parent: {json.dumps(same)}", flush=True)
+        if new:
+            for variant in VARIANTS["gcn_aggregate_bwd"]:
+                if variant == "base":
+                    continue
+                use("gcn_aggregate_bwd", variant)
+                for what, run in mine.items():
+                    record(run, cs.TIMING_ITERS, **shape, call=what, tree="new",
+                           variant=variant)
+            # the base and empty kernels at row tiles of the plan's rows, of
+            # 11 and 12 (two blocks an SM at grid) and of 32, each with every
+            # chunk in one pass, in two and in three (the base outputs' dX
+            # bit-equal to the plan's)
+            use("gcn_aggregate_bwd", "base")
+            want, geometry = mine["kernel"](), gcn.gcn_bwd_geometry
+            nk = len(row_tiles(case[2]))
+            for tile in sorted({geometry(*case[2:4], 32, False)[0], 11, 12, 32}):
+                for pc in (nk, -(-nk // 2), -(-nk // 3)):
+                    gcn.gcn_bwd_geometry = lambda *k, tile=tile, pc=pc: (tile, pc, 0)  # noqa: E731
+                    for variant in ("base", "empty"):
+                        use("gcn_aggregate_bwd", variant)
+                        got = mine["kernel"]()
+                        same = variant != "base" or got[0] is None or torch.equal(got[0], want[0])
+                        record(mine["kernel"], cs.TIMING_ITERS, **shape, call="kernel",
+                               tree="new", variant=variant, rows=tile, chunks_a_pass=pc,
+                               dx_bit_equal=same)
+            gcn.gcn_bwd_geometry = geometry
+        for variant, p in parents.items():
+            if variant == "base":
+                continue
+            for what, run in theirs(p).items():
+                record(run, cs.TIMING_ITERS, **shape, call=what, tree="parent",
+                       variant=variant)
+        build._LIBS.clear()
+
+    # N = 361, ScoreNetworkA: this tree's tiled attention backward
     iters = cs.GRID_TIMING_ITERS
-    for case in TILED_CASES:
+    for case in TILED_CASES if new and "gmh_attention_bwd" in kernels else []:
         a = cs.gmh_bwd_inputs(case, gen, dev)
         x, adj, wq, bq, wk, bk, wv, bv, gv, ga, H, O, loop, add_loop, need_x, need_adj = a
         deg = gcn_degrees(adj, add_loop, loop)
@@ -290,40 +334,10 @@ def main(argv) -> int:
                 x, adj, wq, bq, wk, bk, wv, bv, gqk, gv, deg, ac, loop, add_loop, need_x,
                 need_adj),
         }
-
-        def theirs(p):
-            gqk_p = p.score_grad(qk, ga, H, O)
-            return {"whole": lambda: p.whole(a),
-                    "gmh_score_grad": lambda: p.score_grad(qk, ga, H, O),
-                    "gmh_attention_bwd_tiled": lambda: p.rows(x, adj, deg, wq, wk, wv, gqk_p,
-                                                              gv, loop, add_loop, need_x,
-                                                              need_adj)}
-
-        shape = dict(case=case[0])
-        for what in mine:  # base against base, in turns
-            turns = ((["parent"] if parents else []) + (["new", "new"] if new else [])
-                     + (["parent"] if parents else []))
-            for tree in turns:
-                if tree == "parent":
-                    if what == "gmh_bwd_layout":
-                        continue
-                    record(theirs(parents["base"])[what], iters, kernel=what, **shape,
-                           tree=tree, variant="base")
-                else:
-                    use("base")
-                    record(mine[what], iters, kernel=what, **shape, tree=tree, variant="base")
-        if new:
-            for variant in VARIANTS["gmh_attention_bwd"]:
-                if variant == "base":
-                    continue
-                use(variant)
-                for what, run in mine.items():
-                    record(run, iters, kernel=what, **shape, tree="new", variant=variant)
-        for variant, p in parents.items():
-            if variant == "base":
-                continue
-            for what, run in theirs(p).items():
-                record(run, iters, kernel=what, **shape, tree="parent", variant=variant)
+        for variant in VARIANTS["gmh_attention_bwd"]:
+            use("gmh_attention_bwd", variant)
+            for what, run in mine.items():
+                record(run, iters, kernel=what, case=case[0], tree="new", variant=variant)
         build._LIBS.clear()
     print(json.dumps({"card": card, "rows": rows}))
     return 0

@@ -200,10 +200,72 @@ def test_backward_geometry_raises_above_one_block_naming_n():
         assert plan["part_x"] == (B, C, N, Fi)
         assert plan["tickets"] == MAX_CLUSTER * C + B * nt <= TICKETS
         gplan = gcn_bwd_plan(B, N, Fi, 32)
-        assert gplan["tiles"] == tiles and gplan["clusters"] == clusters
-        assert gplan["part"] == (clusters, Fi * 32 + 32) and gplan["tickets"] == MAX_CLUSTER
+        assert gplan["chunks"] == tiles
+        groups = gplan["groups"]
+        assert gplan["part"] == (B * len(gplan["tiles"]) + groups, Fi * 32 + 32)
+        assert gplan["tickets"] == groups + 1 <= TICKETS
     # grid's batch of 8 graphs: 96 row tiles, twelve whole clusters
     assert bwd_plan(8, 8, 361, 32, 32, 32)["clusters"] == 12
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("N", [65, 100, 200, 361, 513])
+def test_tiled_gcn_backward_plan_covers_tiles_and_chunks(N, B):
+    """The host plan of the tiled ``gcn_aggregate_bwd``: its row tiles (a
+    block each, the launch's grid (tiles, B)) cover every row once, with at
+    most ROW_TILE rows each; every block takes every ROW_TILE-row chunk of
+    V's sum once, in chunk order, in passes of the plan's chunks, so its
+    fold meets them in chunk order; the groups of BWD_GROUP tiles cover the
+    batch's tiles once; the scratch holds a partial a tile and a group, and
+    the tickets fit the device's buffer.  At grid's N = 361: 16 tiles of 23
+    rows (128 blocks for 8 graphs), twelve chunks in one pass."""
+    from ccsd_tpu_torch.kernels.gcn import (BWD_GROUP, ROW_TILE, TICKETS, gcn_bwd_plan,
+                                            gcn_rows, row_tiles)
+
+    Fi, Fo = 32, 32
+    T = Fi * Fo + Fo
+    for rows, pc in ((None, None), (None, 1), (7, 2), (ROW_TILE, 5)):
+        plan = gcn_bwd_plan(B, N, Fi, Fo, rows, pc)
+        rows = plan["rows"]
+        assert rows <= ROW_TILE and (rows == gcn_rows(N) or pc is not None)
+        tiles, chunks = plan["tiles"], plan["chunks"]
+        assert tiles == row_tiles(N, rows) and chunks == row_tiles(N)
+        covered = np.zeros(N, int)
+        for r0, nr in tiles:
+            assert 0 < nr <= rows
+            covered[r0:r0 + nr] += 1
+        assert (covered == 1).all(), N
+        order = []
+        for first, count in plan["passes"]:
+            assert 1 <= count <= plan["pass"]
+            order += range(first, first + count)
+        assert order == list(range(len(chunks))), (N, pc)  # each chunk once, in order
+        nt, groups = len(tiles), plan["groups"]
+        members = np.zeros(B * nt, int)
+        for grp in range(groups):
+            members[grp * BWD_GROUP:(grp + 1) * BWD_GROUP] += 1
+        assert (members == 1).all() and (groups - 1) * BWD_GROUP < B * nt
+        assert plan["part"] == (B * nt + groups, T)
+        assert plan["tickets"] == groups + 1 <= TICKETS
+    if N == 361:
+        plan = gcn_bwd_plan(B, N, Fi, Fo)
+        assert plan["rows"] == 23 and len(plan["tiles"]) == 16
+        assert plan["passes"] == [(0, 12)]
+
+
+def test_gcn_backward_takes_degrees_and_routes_cpu_to_plain():
+    """A CPU call given the degrees (as the autograd path passes the
+    forward's) is the plain backward, with no launch."""
+    from ccsd_tpu_torch.kernels.gcn import gcn_degrees_plain
+
+    g = torch.Generator().manual_seed(4)
+    x, adj = torch.randn(2, 70, 3, generator=g), _adj((2, 70, 70), g)
+    w, go = torch.randn(3, 4, generator=g), torch.randn(2, 70, 4, generator=g)
+    before = dict(LAUNCHES)
+    got = gcn_aggregate_bwd(x, adj, w, go, deg=gcn_degrees_plain(adj))
+    for a, r in zip(got, gcn_aggregate_bwd_plain(x, adj, w, go)):
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
+    assert LAUNCHES == before
 
 
 @pytest.mark.parametrize("N", [65, 100, 200, 361])
@@ -571,7 +633,10 @@ def test_backward_geometry_fits_every_graph_config(cuda, name):
 # one-block kernels: ragged last tiles at N = 65 and 100, grid's layers at
 # N = 361 (B = 8; C = 2 on F_in 5 and C = 8 on F_in 32), and a batch that
 # leaves the last cluster partly padding
-GCN_TILED = [(8, 65, 32, 32), (3, 100, 5, 32), (8, 361, 5, 32), (8, 361, 32, 32)]
+GCN_TILED = [(8, 65, 32, 32), (3, 100, 5, 32), (8, 361, 5, 32), (8, 361, 32, 32),
+             (1, 65, 32, 32), (3, 65, 5, 32), (1, 97, 32, 32), (3, 97, 5, 32),
+             (8, 97, 32, 32), (1, 100, 32, 32), (8, 100, 32, 32), (1, 361, 32, 32),
+             (3, 361, 5, 32)]
 GMH_TILED = [(8, 8, 65, 32, 32, 32, 4), (3, 2, 100, 5, 32, 32, 4), (8, 2, 361, 5, 32, 32, 4),
              (8, 8, 361, 32, 32, 32, 4)]
 
@@ -581,12 +646,13 @@ GMH_TILED = [(8, 8, 65, 32, 32, 32, 4), (3, 2, 100, 5, 32, 32, 4), (8, 2, 361, 5
 @pytest.mark.parametrize("add_loop", [True, False])
 def test_tiled_gcn_backward_matches_plain_on_card(cuda, shape, add_loop):
     """Above N = 64 the row-tile kernel (after one gcn_degrees launch)
-    against the plain backward, for every choice of dx and dadj; two calls
-    give the same bits."""
+    against the plain backward, for every choice of dx and dadj, on padded
+    graphs (each graph's trailing nodes absent, node 1 too: rows at the
+    degree clamp's tie); two calls give the same bits."""
     B, N, Fi, Fo = shape
-    g = torch.Generator(device=cuda).manual_seed(N + Fi)
+    g = torch.Generator(device=cuda).manual_seed(N + Fi + B)
     x = torch.randn(B, N, Fi, generator=g, device=cuda)
-    adj = _adj((B, N, N), g, cuda)
+    adj = _padded(_adj((B, N, N), g, cuda), g)
     w = torch.randn(Fi, Fo, generator=g, device=cuda) * 0.3
     go = torch.randn(B, N, Fo, generator=g, device=cuda)
     ref = gcn_aggregate_bwd_plain(x, adj, w, go, 1.0, add_loop)
@@ -603,6 +669,89 @@ def test_tiled_gcn_backward_matches_plain_on_card(cuda, shape, add_loop):
                 continue
             assert torch.equal(a, again[i]), i
             assert a.shape == r.shape and grad_tol_ok(a, r), (i, (a - r).abs().max().item())
+
+
+def _padded(adj, gen):
+    """adj (B, N, N) with graph b's nodes from N // 2 + 1 on absent (rows and
+    columns zero) for a random count of them, as a training batch pads."""
+    B, N = adj.shape[0], adj.shape[-1]
+    n = torch.randint(N // 2, N + 1, (B,), generator=gen, device=adj.device)
+    f = (torch.arange(N, device=adj.device)[None] < n[:, None]).to(adj.dtype)
+    return adj * f[:, :, None] * f[:, None, :]
+
+
+@pytest.mark.cuda
+def test_tiled_gcn_backward_through_autograd_reads_the_forward_degrees_on_card(cuda):
+    """At grid's N = 361 the gradient through ``gcn_aggregate`` equals the
+    direct backward call's bit for bit (x, adj, the weight and the bias),
+    and one forward and backward launch gcn_degrees once: the backward
+    reads the forward's degrees."""
+    B, N, Fi, Fo = 8, 361, 32, 32
+    g = torch.Generator(device=cuda).manual_seed(17)
+    x = torch.randn(B, N, Fi, generator=g, device=cuda)
+    adj = _padded(_adj((B, N, N), g, cuda), g)
+    w = torch.randn(Fi, Fo, generator=g, device=cuda) * 0.3
+    b = torch.randn(Fo, generator=g, device=cuda)
+    go = torch.randn(B, N, Fo, generator=g, device=cuda)
+    for need_adj in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (x, adj, w, b)]
+        leaves[1].requires_grad_(need_adj)
+        before = dict(LAUNCHES)
+        gcn_aggregate(*leaves).backward(go)
+        torch.cuda.synchronize()
+        counts = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        assert counts == {**{k: 0 for k in LAUNCHES}, "gcn_aggregate": 1, "gcn_degrees": 1,
+                          "gcn_aggregate_bwd": 1}, counts
+        want = gcn_aggregate_bwd(x, adj, w, go, need_x=True, need_adj=need_adj)
+        torch.cuda.synchronize()
+        for leaf, ref in zip(leaves, want):
+            assert (leaf.grad is None) == (ref is None)
+            assert ref is None or torch.equal(leaf.grad, ref)
+
+
+def _earlier_tiled_bytes(N, Fi, Fo, need_adj):
+    """Shared bytes of a block of the earlier tiled gcn_aggregate_bwd (a
+    block a 32-row tile; commit 9375191's TiledLayout): W, X of every row,
+    G[R], two chunk buffers of A' columns and of G, V, dY, the partial, d;
+    for dA also Y, A[R, :], P1 and dr."""
+    def ld4(n):
+        return n + (12 - n % 8) % 8
+
+    def r4(n):
+        return (n + 3) & ~3
+
+    ldo, ldx, ldc = ld4(Fo), ld4(Fi), ld4(32)
+    floats = (Fi * ldo + N * ldx + 32 * ldo + 2 * 32 * ldc + 2 * 32 * ldo + 2 * 32 * ldo
+              + r4(Fi * Fo + Fo) + r4(N))
+    if need_adj:
+        floats += N * ldo + 32 * ld4(N) + 32 * ldo + 32
+    return 4 * floats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Fi,need_adj", [(5, False), (5, True), (32, False), (32, True)])
+def test_tiled_gcn_backward_takes_the_earlier_largest_n_on_card(cuda, Fi, need_adj):
+    """The largest N the earlier tiled design took at F_out 32 (its block
+    within the card's shared memory beside its 4-byte static flag) still
+    runs, with dA and without, and agrees with the plain backward."""
+    from ccsd_tpu_torch.kernels.build import SMEM_LIMIT
+
+    Fo = 32
+    N = 65
+    while _earlier_tiled_bytes(N + 1, Fi, Fo, need_adj) <= SMEM_LIMIT - 4:
+        N += 1
+    assert N > 400, N
+    g = torch.Generator(device=cuda).manual_seed(N)
+    x = torch.randn(1, N, Fi, generator=g, device=cuda)
+    adj = _adj((1, N, N), g, cuda)
+    w = torch.randn(Fi, Fo, generator=g, device=cuda) * 0.3
+    go = torch.randn(1, N, Fo, generator=g, device=cuda)
+    got = gcn_aggregate_bwd(x, adj, w, go, need_x=True, need_adj=need_adj)
+    torch.cuda.synchronize()
+    for a, r in zip(got, gcn_aggregate_bwd_plain(x, adj, w, go, need_x=True,
+                                                 need_adj=need_adj)):
+        assert (a is None) == (r is None)
+        assert a is None or grad_tol_ok(a, r), (N, (a - r).abs().max().item())
 
 
 @pytest.mark.cuda
