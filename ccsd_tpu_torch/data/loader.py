@@ -6,7 +6,8 @@ padded adjacencies instead of a list of graphs.  Port copies of
 ccsd_tpu/data/loader.py: ``init_features`` (:97-124), ``init_flags`` (the
 graph branch of :127-145), ``ArrayDataset`` (:160-209, single-process) and
 ``_split`` (:212-216); with the same seed they give the JAX package's
-features, split and batch order exactly.  ``community_small_adjs`` and
+features, split and batch order exactly, ``ArrayDataset`` over arrays
+held on a torch device.  ``community_small_adjs`` and
 ``grid_adjs`` make such an array by the JAX package's community_small and
 grid recipes (ccsd_tpu/data/generators.py:20-48, 77-84, 87-113, 196-225)
 with numpy and the standard library only, graph for graph and edge for
@@ -14,7 +15,9 @@ edge the graphs ``gen_graph_list`` gives after ``np.random.seed(seed)``.
 A CC dataset (community_small_CC, grid_small_CC) is its graph recipe's
 adjacencies and the rank-2 incidence of their lift (``lifted_rank2``), as
 the JAX package lifts and pads them (generators.py:244-255,
-loader.py:270-300).
+loader.py:270-300), in uint8 where a caller asks (the entries are 0/1:
+grid_small_CC's 100 incidences of 1176 × 18,424 take 2.17 GB so, 8.67 GB in
+f32).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import random
 from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 
 def init_features(init: str, adjs: np.ndarray, nfeat: int = 10) -> np.ndarray:
@@ -53,12 +57,17 @@ def init_features(init: str, adjs: np.ndarray, nfeat: int = 10) -> np.ndarray:
 
 
 class ArrayDataset:
-    """Shuffled minibatches of aligned numpy arrays: a new permutation from
-    ``np.random.default_rng(seed)`` every pass, the last batch ragged."""
+    """Shuffled minibatches of aligned arrays, copied once to ``device``
+    (the CPU by default) as tensors: a new permutation from
+    ``np.random.default_rng(seed)`` every pass, the last batch ragged, each
+    batch gathered on the device.  A uint8 array (0/1 incidences) stays
+    uint8 there and its batches are cast to float32, so a pass copies only
+    its order from the host."""
 
     def __init__(self, arrays: Sequence[np.ndarray], batch_size: int,
-                 shuffle: bool = True, seed: int = 0):
-        self.arrays = [np.asarray(a) for a in arrays]
+                 shuffle: bool = True, seed: int = 0, device=None):
+        self.device = torch.device(device or "cpu")
+        self.arrays = [torch.as_tensor(np.asarray(a)).to(self.device) for a in arrays]
         self.n = self.arrays[0].shape[0]
         if any(a.shape[0] != self.n for a in self.arrays):
             raise ValueError("arrays of different lengths")
@@ -69,13 +78,15 @@ class ArrayDataset:
     def __len__(self) -> int:
         return (self.n + self.batch_size - 1) // self.batch_size
 
-    def __iter__(self) -> Iterator[Tuple[np.ndarray, ...]]:
+    def __iter__(self) -> Iterator[Tuple[torch.Tensor, ...]]:
         idx = np.arange(self.n)
         if self.shuffle:
             self.rng.shuffle(idx)
+        idx = torch.from_numpy(idx).to(self.device)
         for s in range(0, self.n, self.batch_size):
             b = idx[s:s + self.batch_size]
-            yield tuple(a[b] for a in self.arrays)
+            yield tuple(a.index_select(0, b).to(torch.float32) if a.dtype == torch.uint8
+                        else a.index_select(0, b) for a in self.arrays)
 
 
 def split(n: int, test_split: float) -> Tuple[slice, slice]:
@@ -224,16 +235,30 @@ def generated_adjs(data: str, seed: int, max_node_num: int) -> np.ndarray:
     return recipe(num, seed, max_node_num, **params)
 
 
-def lifted_rank2(adjs: np.ndarray, data) -> np.ndarray:
+def lifted_rank2(adjs: np.ndarray, data, dtype=np.float32) -> np.ndarray:
     """(M, E, K) rank-2 incidences of the graphs ``adjs`` lifted by the
     config's ``data.lifting_procedure`` (with ``basic`` kwargs: paths of 3
     nodes from every node of the largest graph), each padded to
     ``data.max_node_num`` with cells of ``data.d_min``..``data.d_max``
-    nodes."""
-    from ccsd_tpu_torch.data.cc_codec import ccs_to_tensors, convert_graphs_to_CCs
+    nodes: ``ccs_to_tensors``' incidences, written graph by graph into one
+    array of ``dtype``, which must hold each entry exactly."""
+    from ccsd_tpu_torch.data.cc_codec import (
+        CC_to_incidence_matrices,
+        convert_graphs_to_CCs,
+        pad_rank2,
+    )
     from ccsd_tpu_torch.eval.graphs import adjs_to_graphs
+    from ccsd_tpu_torch.ops.cells import get_spec
 
     ccs = convert_graphs_to_CCs(adjs_to_graphs(adjs),
                                 lifting_procedure=data.lifting_procedure,
                                 lifting_procedure_kwargs=data.get("lifting_procedure_kwargs"))
-    return ccs_to_tensors(ccs, int(data.max_node_num), int(data.d_min), int(data.d_max))[1]
+    N, d_min, d_max = int(data.max_node_num), int(data.d_min), int(data.d_max)
+    spec = get_spec(N, d_min, d_max)
+    out = np.zeros((len(ccs), spec.num_edges, spec.num_cells), dtype)
+    for i, cc in enumerate(ccs):
+        r = pad_rank2(CC_to_incidence_matrices(cc, d_min, d_max)[2], N, d_min, d_max)
+        out[i] = r
+        if not np.array_equal(out[i], r):
+            raise ValueError(f"rank-2 incidence {i} does not fit {np.dtype(dtype).name}")
+    return out

@@ -1,6 +1,8 @@
 """Stochastic differential equations (VP / VE / subVP) on torch tensors.
 
-Port of ccsd_tpu/diffusion/sde.py:27-305.  The discrete tables
+Port of ccsd_tpu/diffusion/sde.py:27-305, with the S4 solver's
+transition kernels of VPSDE and VESDE (:136, :191; subVPSDE has none and
+raises, as the JAX base class does).  The discrete tables
 (``discrete_betas``, ``discrete_sigmas``) are evaluated in closed form from
 the timestep index, as in the JAX package, so the sampler never gathers
 from a host table.  ``timestep_of`` truncates toward zero, as the reference
@@ -36,6 +38,11 @@ class SDE:
 
     def marginal_std(self, t: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def transition(self, x, t, dt) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Mean and std of the transition kernel from t over dt (the S4
+        solver's)."""
+        raise NotImplementedError(f"{type(self).__name__} has no transition kernel")
 
     def discretize(self, x, t) -> Tuple[torch.Tensor, torch.Tensor]:
         """Euler discretisation x_{i+1} = x_i + f_i + G_i z."""
@@ -104,6 +111,10 @@ class VPSDE(SDE):
         f = _bcast(torch.sqrt(1.0 - beta), x) * x - x
         return f, torch.sqrt(beta)
 
+    def transition(self, x, t, dt):
+        lmc = 0.25 * dt * (2 * self.beta_min + (2 * t + dt) * (self.beta_max - self.beta_min))
+        return torch.exp(_bcast(-lmc, x)) * x, torch.sqrt(1.0 - torch.exp(2.0 * lmc))
+
 
 @dataclass(frozen=True)
 class VESDE(SDE):
@@ -141,6 +152,10 @@ class VESDE(SDE):
         sigma = self.discrete_sigma(i)
         adjacent = torch.where(i == 0, torch.zeros_like(t), self.discrete_sigma(i - 1))
         return torch.zeros_like(x), torch.sqrt(sigma**2 - adjacent**2)
+
+    def transition(self, x, t, dt):
+        var = torch.square(self.sigma_t(t)) - torch.square(self.sigma_t(t + dt))
+        return x, torch.sqrt(var)
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,8 @@
-"""Predictor-corrector reverse-diffusion sampler, graph and CC mode.
+"""Predictor-corrector and S4 reverse-diffusion samplers, graph and CC mode.
 
-Port of ccsd_tpu/diffusion/solvers.py:56-145 and :193-360 (the graph and
-the CC branch of ``get_pc_sampler``).  The JAX ``lax.scan`` becomes a Python loop over
+Port of ccsd_tpu/diffusion/solvers.py:56-145, :193-360 (the graph and the
+CC branch of ``get_pc_sampler``) and :366-500 (``get_s4_solver``).  The JAX
+``lax.scan`` becomes a Python loop over
 ``torch.linspace(T, eps, N)``; noise comes from one ``torch.Generator``.
 Semantics kept exactly:
 
@@ -16,8 +17,9 @@ Semantics kept exactly:
   * with ``denoise`` the sampler returns the last step's means.
 
 Noise is drawn in the JAX package's call order (corrector x, corrector adj
-[, corrector rank2], predictor x, predictor adj [, predictor rank2]), so a
-test that feeds both packages one noise sequence compares like with like.
+[, corrector rank2], predictor x, predictor adj [, predictor rank2]; the S4
+predictor draws twice, once for each half-step transition), so a test that
+feeds both packages one noise sequence compares like with like.
 The rank-2 noise and prior are masked by ``mask_rank2`` and not
 symmetrised.
 """
@@ -229,3 +231,88 @@ def get_pc_sampler(
         )
 
     return sampler_cc
+
+
+def get_s4_solver(
+    sde_x: SDE,
+    sde_adj: SDE,
+    shape_x: Sequence[int],
+    shape_adj: Sequence[int],
+    snr: float = 0.1,
+    scale_eps: float = 1.0,
+    denoise: bool = True,
+    eps: float = 1e-3,
+    is_cc: bool = False,
+    sde_rank2: Optional[SDE] = None,
+    shape_rank2: Optional[Sequence[int]] = None,
+    spec: Optional[ComplexSpec] = None,
+) -> Callable:
+    """The S4 splitting solver (ccsd_tpu/diffusion/solvers.py:366-500): each
+    step evaluates every network once on the step's state, corrects each
+    tensor by one Langevin step on that score, then moves it by the SDE's
+    transition kernel over half a step, the score drift over a whole one
+    and the kernel over the second half.  Returns ``solver(score_fn_x,
+    score_fn_adj, init_flags, generator)``, or with ``is_cc``
+    ``solver(score_fn_x, score_fn_adj, score_fn_rank2, init_flags,
+    generator)``; with ``denoise`` the last step's transition means.  The
+    SDEs must have a transition kernel (VP, VE)."""
+    shape_x, shape_adj = tuple(shape_x), tuple(shape_adj)
+    diff_steps = sde_adj.N
+    dt = -1.0 / diff_steps
+    if is_cc and (sde_rank2 is None or shape_rank2 is None or spec is None):
+        raise ValueError("CC sampling needs sde_rank2, shape_rank2 and spec")
+    shape_rank2 = tuple(shape_rank2) if is_cc else None
+
+    def drift(sde, v, score, vec_t):
+        return -_bcast(sde.sde(v, vec_t)[1], v) ** 2 * score
+
+    def correct(generator, sde, score, v, obj, flags, vec_t):
+        noise = _noise_for(obj, v, flags, generator, spec)
+        return _langevin_step(sde, score, v, noise, vec_t, snr, scale_eps)[0]
+
+    def predict(generator, sde, v, s_drift, obj, flags, vec_t, vec_dt):
+        mu, sigma = sde.transition(v, vec_t, vec_dt)
+        v = mu + _bcast(sigma, v) * _noise_for(obj, v, flags, generator, spec)
+        v = v + s_drift * dt
+        mu, sigma = sde.transition(v, vec_t + vec_dt, vec_dt)
+        return mu + _bcast(sigma, v) * _noise_for(obj, v, flags, generator, spec), mu
+
+    @torch.no_grad()
+    def run(score_fns, sdes, objs, init_flags, generator):
+        flags = init_flags
+        dev = flags.device
+        state = [mask_x(sde_x.prior_sampling(shape_x, generator, dev), flags),
+                 mask_adjs(sde_adj.prior_sampling_sym(shape_adj, generator, dev), flags)]
+        if is_cc:
+            state.append(mask_rank2(sde_rank2.prior_sampling(shape_rank2, generator, dev),
+                                    spec, flags))
+        means = list(state)
+        timesteps = torch.linspace(sde_adj.T, eps, diff_steps, device=dev)
+        vec_dt = torch.full((shape_adj[0],), dt / 2, device=dev)
+        for i in range(diff_steps):
+            vec_t = timesteps[i].expand(shape_adj[0])
+            scores = [fn(*state, flags, vec_t) for fn in score_fns]
+            drifts = [drift(sde, v, s, vec_t) for sde, v, s in zip(sdes, state, scores)]
+            state = [correct(generator, sde, s, v, obj, flags, vec_t)
+                     for sde, s, v, obj in zip(sdes, scores, state, objs)]
+            moved = [predict(generator, sde, v, d, obj, flags, vec_t, vec_dt)
+                     for sde, v, d, obj in zip(sdes, state, drifts, objs)]
+            state, means = [m[0] for m in moved], [m[1] for m in moved]
+        out = means if denoise else state
+        return SamplerOutput(x=out[0], adj=out[1], n_model_evals=diff_steps,
+                             rank2=out[2] if is_cc else None)
+
+    if not is_cc:
+        def solver(score_fn_x, score_fn_adj, init_flags: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> SamplerOutput:
+            return run((score_fn_x, score_fn_adj), (sde_x, sde_adj), ("x", "adj"),
+                       init_flags, generator)
+
+        return solver
+
+    def solver_cc(score_fn_x, score_fn_adj, score_fn_rank2, init_flags: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> SamplerOutput:
+        return run((score_fn_x, score_fn_adj, score_fn_rank2), (sde_x, sde_adj, sde_rank2),
+                   ("x", "adj", "rank2"), init_flags, generator)
+
+    return solver_cc

@@ -1,13 +1,16 @@
 """Hodge-domain layers: the HCN convolution and HCCMH attention on the
-E × E dual, and the channel MLP over rank-2 channels.
+E × E dual, the ablation network's baseline layers, and the channel MLP
+over rank-2 channels.
 
-Port of ccsd_tpu/models/hodge_nn.py:23-218 (``HodgeNetworkLayer``,
-``DenseHCNConv``, ``HodgeAttention``, ``HodgeAdjAttentionLayer``); the
-baseline layers (:221-308) are not ported.  Plain PyTorch: the JAX package
-computes these in plain ``jnp``, outside any Pallas kernel.  State-dict
-names follow the reference (ccsd_tpu/utils/torch_convert.py:116-149):
-``ccnn_q``/``ccnn_k`` of an attention, ``attn.{i}``, ``mlp_value`` and
-``mlp_attention`` of a layer, ``layer`` of a network layer.
+Port of ccsd_tpu/models/hodge_nn.py:23-308 (``HodgeNetworkLayer``,
+``DenseHCNConv``, ``HodgeAttention``, ``HodgeAdjAttentionLayer``,
+``BaselineBlock``, ``HodgeBaselineLayer``).  Plain PyTorch: the JAX package
+computes these in plain ``jnp``, outside any Pallas kernel, and their
+E × E × K products are ``torch.bmm``.  State-dict names follow the
+reference (ccsd_tpu/utils/torch_convert.py:116-149): ``ccnn_q``/``ccnn_k``
+of an attention, ``attn.{i}``, ``mlp_value`` and ``mlp_attention`` of a
+layer, ``layers.{i}.mlp_layer``, ``mlp_rank2`` and ``mlp_hodge`` of a
+baseline layer, ``layer`` of a network layer.
 """
 
 from __future__ import annotations
@@ -137,4 +140,52 @@ class HodgeAdjAttentionLayer(nn.Module):
         h = self.mlp_attention(torch.stack([o[1] for o in outs], -1)).movedim(-1, 1)
         h = torch.tanh(mask_hodge_adjs(h, self.spec, flags))
         r = self.mlp_value(torch.stack([o[0] for o in outs], -1))[..., 0]
+        return h + h.transpose(-1, -2), mask_rank2(r, self.spec, flags)
+
+
+class BaselineBlock(nn.Module):
+    """An ELU MLP of two layers over the rows of one E × E dual channel H,
+    then h = tanh(MLP(H)): returns (h F (B, E, K), (h + hᵀ) / 2 (B, E, E))."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.mlp_layer = MLP(2, in_dim, hidden_dim, out_dim, act="elu", generator=generator)
+
+    def forward(self, hodge_adj: torch.Tensor, rank2: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        h = torch.tanh(self.mlp_layer(hodge_adj))
+        return torch.bmm(h, rank2), (h + h.transpose(-1, -2)) / 2
+
+
+class HodgeBaselineLayer(nn.Module):
+    """The ablation network's Hodge layer: one BaselineBlock per input
+    channel (each its own parameters, hidden width ``hidden_dim``), then ELU
+    MLP heads over the channels: ``mlp_hodge`` over the blocks' symmetrised
+    maps (-> the next dual channels, masked, tanh, h + hᵀ) and
+    ``mlp_rank2`` over their products with F (-> the next rank-2 tensor)."""
+
+    def __init__(self, num_linears: int, input_dim: int, hidden_dim: int,
+                 conv_output_dim: int, spec: ComplexSpec, use_bn: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        check_no_bn(use_bn)
+        self.spec = spec
+        E = spec.num_edges
+        self.layers = nn.ModuleList(
+            BaselineBlock(E, hidden_dim, E, generator=generator) for _ in range(input_dim))
+        hidden = 2 * max(input_dim, conv_output_dim)
+        self.mlp_rank2 = MLP(num_linears, input_dim, hidden, 1, act="elu",
+                             generator=generator)
+        self.mlp_hodge = MLP(num_linears, input_dim, hidden, conv_output_dim,
+                             act="elu", generator=generator)
+
+    def forward(self, hodge_adj: torch.Tensor, rank2: torch.Tensor,
+                flags: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """hodge_adj: (B, C_i, E, E), rank2: (B, E, K) ->
+        ((B, C_o, E, E), (B, E, K))."""
+        outs = [b(hodge_adj[:, k], rank2) for k, b in enumerate(self.layers)]
+        h = self.mlp_hodge(torch.stack([o[1] for o in outs], -1)).movedim(-1, 1)
+        h = torch.tanh(mask_hodge_adjs(h, self.spec, flags))
+        r = self.mlp_rank2(torch.stack([o[0] for o in outs], -1))[..., 0]
         return h + h.transpose(-1, -2), mask_rank2(r, self.spec, flags)

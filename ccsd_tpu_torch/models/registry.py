@@ -2,8 +2,8 @@
 mode.
 
 Port of ccsd_tpu/models/registry.py:28-66 and :95-200 (the CC branch for
-ScoreNetworkA_CC and ScoreNetworkF; the ``*_Base_CC`` networks and
-ScoreNetworkX_GMH are not ported).  A CC config whose adjacency model is
+ScoreNetworkA_CC, ScoreNetworkA_Base_CC and ScoreNetworkF; ScoreNetworkX_GMH
+is the one JAX model the port lacks).  A CC config whose adjacency model is
 the graph ScoreNetworkA (the two-stage model's) gets the graph X and A
 definitions, marked ``is_cc``, beside its ScoreNetworkF.  A model definition
 may carry ``fused`` (``model.fused`` in a training config, or ``with_fused``
@@ -19,17 +19,18 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ccsd_tpu_torch.models.score_a import ScoreNetworkA
-from ccsd_tpu_torch.models.score_a_cc import ScoreNetworkA_CC
+from ccsd_tpu_torch.models.score_a_cc import ScoreNetworkA_Base_CC, ScoreNetworkA_CC
 from ccsd_tpu_torch.models.score_f import ScoreNetworkF
 from ccsd_tpu_torch.models.score_x import ScoreNetworkX
 
 MODELS = {"ScoreNetworkX": ScoreNetworkX, "ScoreNetworkA": ScoreNetworkA,
-          "ScoreNetworkA_CC": ScoreNetworkA_CC, "ScoreNetworkF": ScoreNetworkF}
+          "ScoreNetworkA_CC": ScoreNetworkA_CC,
+          "ScoreNetworkA_Base_CC": ScoreNetworkA_Base_CC, "ScoreNetworkF": ScoreNetworkF}
 
-# the ported models whose definitions accept the channel-folded ``fused``
-# path (the JAX set, ccsd_tpu/models/registry.py:31-37, less what is not
-# ported yet: ScoreNetworkX_GMH and ScoreNetworkA_Base_CC)
-FUSED_CAPABLE = {"ScoreNetworkA", "ScoreNetworkA_CC", "ScoreNetworkF"}
+# the models whose definitions accept the channel-folded ``fused`` path
+# (the JAX set, ccsd_tpu/models/registry.py:31-37, less ScoreNetworkX_GMH)
+FUSED_CAPABLE = {"ScoreNetworkA", "ScoreNetworkA_CC", "ScoreNetworkA_Base_CC",
+                 "ScoreNetworkF"}
 
 
 def with_fused(defs: Dict[str, Dict[str, Any]], enable: bool = True,
@@ -61,7 +62,7 @@ def load_model(params: Dict[str, Any],
     model_type = params_.pop("model_type", None)
     if model_type not in MODELS:
         raise ValueError(
-            f"Model Name <{model_type}> is not ported. Please select from "
+            f"Model Name <{model_type}> is unknown or not ported. Please select from "
             f"{sorted(MODELS)}"
         )
     return MODELS[model_type](**params_, generator=generator)
@@ -112,6 +113,12 @@ def load_model_params(config, is_cc: bool = False) -> Tuple[Dict[str, Any], ...]
             num_layers_h=cm.num_layers_h, num_linears_h=cm.num_linears_h,
             c_hid_h=cm.c_hid_h, c_final_h=cm.c_final_h, adim_h=cm.adim_h,
             num_heads_h=cm.num_heads_h, conv_hodge=cm.conv_hodge,
+        )
+    elif cm.adj == "ScoreNetworkA_Base_CC":
+        params_adj.update(
+            d_min=d_min, d_max=d_max, nhid_h=cm.nhid_h,
+            num_layers_h=cm.num_layers_h, num_linears_h=cm.num_linears_h,
+            c_hid_h=cm.c_hid_h, c_final_h=cm.c_final_h, hidden_h=cm.hidden_h,
         )
     params_rank2 = {
         "is_cc": is_cc,

@@ -1,8 +1,9 @@
 """Graph and CC sampler: weights -> PC reverse diffusion -> quantized
 graphs (and rank-2 incidences) -> MMD.
 
-Port of ccsd_tpu/sampling/sampler.py:210-433, graph and dense CC mode,
-without the trajectory figures, the mesh and the S4 solver;
+Port of ccsd_tpu/sampling/sampler.py:49-93 (``load_sampling_fn``: the PC
+sampler, or the S4 solver for ``sampler.predictor: S4``) and :210-433,
+graph and dense CC mode, without the trajectory figures and the mesh;
 ``get_sampler_from_config`` hands a ``sample.two_stage`` config to
 ``sampling/two_stage_sampler.py``.  As in the JAX package (:220-223), the models are
 built by ``with_fused(defs, sample.fused, fast=sample.fast)``, both on by
@@ -25,9 +26,10 @@ graphs go to ``<folder>/samples/<data>/samples.npz`` (adjacency, x,
 flags), the port's counterpart of the JAX sampler's ``samples.pkl`` of
 networkx graphs.
 
-In CC mode (``is_cc``: ScoreNetworkX, ScoreNetworkA_CC, ScoreNetworkF) the
-reverse diffusion also carries the rank-2 incidence; each kept sample's
-quantized (x, adjacency, rank-2) becomes a CC (``cc_from_incidence``), its
+In CC mode (``is_cc``: ScoreNetworkX, ScoreNetworkA_CC or the ablation
+network ScoreNetworkA_Base_CC, and ScoreNetworkF) the reverse diffusion
+also carries the rank-2 incidence; each kept sample's quantized (x,
+adjacency, rank-2) becomes a CC (``cc_from_incidence``), its
 1-skeleton graph (``convert_CC_to_graphs``) is scored by the graph MMDs
 against the test split's, and the CCs by ``eval_CC_list`` against the test
 graphs lifted by the config's ``data.lifting_procedure`` (``cc_mmd``);
@@ -57,7 +59,7 @@ from ccsd_tpu_torch.data.cc_codec import (
 from ccsd_tpu_torch.data.loader import init_flags
 from ccsd_tpu_torch.diffusion.losses import get_score_fn, get_score_fn_cc
 from ccsd_tpu_torch.diffusion.sde import load_sde
-from ccsd_tpu_torch.diffusion.solvers import get_pc_sampler
+from ccsd_tpu_torch.diffusion.solvers import get_pc_sampler, get_s4_solver
 from ccsd_tpu_torch.eval.cc_stats import eval_CC_list
 from ccsd_tpu_torch.eval.graphs import adjs_to_graphs
 from ccsd_tpu_torch.eval.stats import eval_graph_list, load_eval_settings
@@ -118,6 +120,30 @@ def cc_eval_tractable(cfg) -> bool:
     sampler.py:186-206): at most ``sample.cc_eval_max_cells`` cells (grid's
     N = 361 gives ~7.8e6, an incidence no implementation can hold)."""
     return cc_eval_cells(cfg) <= int(cfg.sample.get("cc_eval_max_cells", CC_EVAL_MAX_CELLS))
+
+
+def load_sampling_fn(config_train, config_sampler, config_sample, batch_size: int,
+                     is_cc: bool = False):
+    """The reverse-diffusion closure of a config (JAX ``load_sampling_fn``,
+    ccsd_tpu/sampling/sampler.py:49-93): ``get_s4_solver`` for
+    ``sampler.predictor: S4`` (which takes no corrector, step count or
+    probability flow), else ``get_pc_sampler``; in CC mode over the
+    config's full cell universe."""
+    d = config_train.data
+    N = int(d.max_node_num)
+    sdes = [load_sde(config_train.sde[k]) for k in ("x", "adj")]
+    kw = dict(snr=config_sampler.snr, scale_eps=config_sampler.scale_eps,
+              denoise=config_sample.noise_removal, eps=config_sample.eps)
+    if is_cc:
+        spec = get_spec(N, int(d.d_min), int(d.d_max))
+        kw.update(is_cc=True, sde_rank2=load_sde(config_train.sde.rank2), spec=spec,
+                  shape_rank2=(batch_size, spec.num_edges, spec.num_cells))
+    shapes = ((batch_size, N, int(d.max_feat_num)), (batch_size, N, N))
+    if config_sampler.predictor == "S4":
+        return get_s4_solver(*sdes, *shapes, **kw)
+    return get_pc_sampler(*sdes, *shapes, predictor=config_sampler.predictor,
+                          corrector=config_sampler.corrector, n_steps=config_sampler.n_steps,
+                          probability_flow=config_sample.probability_flow, **kw)
 
 
 def sampling_rounds(batch_size: int, num_test: int, divide_batch=None,
@@ -209,23 +235,9 @@ class Sampler:
             n = int(num_samples)
             n_rounds = max(1, math.ceil(n / batch_size))
         check_score_dtype(cfg, configt, self.is_cc)
-        N = int(configt.data.max_node_num)
         sdes = {k: load_sde(configt.sde[k]) for k in self.names}
-        cc_kw = {}
-        if self.is_cc:
-            d = configt.data
-            spec = get_spec(N, int(d.d_min), int(d.d_max))
-            cc_kw = dict(is_cc=True, sde_rank2=sdes["rank2"], spec=spec,
-                         shape_rank2=(batch_size, spec.num_edges, spec.num_cells))
-        sampling_fn = get_pc_sampler(
-            sdes["x"], sdes["adj"],
-            (batch_size, N, int(configt.data.max_feat_num)), (batch_size, N, N),
-            predictor=cfg.sampler.predictor, corrector=cfg.sampler.corrector,
-            snr=cfg.sampler.snr, scale_eps=cfg.sampler.scale_eps,
-            n_steps=cfg.sampler.n_steps,
-            probability_flow=cfg.sample.probability_flow,
-            denoise=cfg.sample.noise_removal, eps=cfg.sample.eps, **cc_kw,
-        )
+        sampling_fn = load_sampling_fn(configt, cfg.sampler, cfg.sample, batch_size,
+                                       self.is_cc)
         score = get_score_fn_cc if self.is_cc else get_score_fn
         score_fns = [score(sdes[k], models[k]) for k in self.names]
 

@@ -1,15 +1,18 @@
 """Load a JAX parameter tree into the port's modules.
 
 The tree is the nested dict/list of numpy arrays that the ``init`` of
-ccsd_tpu's ScoreNetworkX, ScoreNetworkA, ScoreNetworkA_CC or ScoreNetworkF
-returns (or that a ``.ckpt.pkl`` holds).  This is the exact inverse of
-ccsd_tpu/utils/torch_convert.py:59-85, :116-149 and :152-203:
+ccsd_tpu's ScoreNetworkX, ScoreNetworkA, ScoreNetworkA_CC,
+ScoreNetworkA_Base_CC or ScoreNetworkF returns (or that a ``.ckpt.pkl``
+holds).  This is the exact inverse of ccsd_tpu/utils/torch_convert.py:59-85,
+:116-149 and :152-220:
 
   * a Linear's ``w`` (in, out) becomes ``nn.Linear.weight`` (out, in);
   * a DenseGCNConv or DenseHCNConv ``weight`` (in, out) and ``bias`` are
     copied as they are;
   * an MLP of one layer maps onto ``linear``, a deeper one onto ``linears.{i}``;
-  * a HodgeAttention's ``q``/``k`` map onto ``ccnn_q``/``ccnn_k``.
+  * a HodgeAttention's ``q``/``k`` map onto ``ccnn_q``/``ccnn_k``;
+  * a HodgeBaselineLayer's ``layers[i].mlp_layer`` maps onto
+    ``layers.{i}.mlp_layer``, beside ``mlp_rank2`` and ``mlp_hodge``.
 """
 
 from __future__ import annotations
@@ -23,14 +26,16 @@ from torch import nn
 from ccsd_tpu_torch.models.attention import Attention, AttentionLayer
 from ccsd_tpu_torch.models.gcn import DenseGCNConv
 from ccsd_tpu_torch.models.hodge_nn import (
+    BaselineBlock,
     DenseHCNConv,
     HodgeAdjAttentionLayer,
     HodgeAttention,
+    HodgeBaselineLayer,
     HodgeNetworkLayer,
 )
 from ccsd_tpu_torch.models.nn import MLP
 from ccsd_tpu_torch.models.score_a import ScoreNetworkA
-from ccsd_tpu_torch.models.score_a_cc import ScoreNetworkA_CC
+from ccsd_tpu_torch.models.score_a_cc import ScoreNetworkA_Base_CC, ScoreNetworkA_CC
 from ccsd_tpu_torch.models.score_f import ScoreNetworkF
 from ccsd_tpu_torch.models.score_x import ScoreNetworkX
 
@@ -72,9 +77,17 @@ def _walk(m: nn.Module, tree: Any, p: str, sd: SD) -> None:
             _walk(a, tree["attn"][i], f"{p}attn.{i}.", sd)
         _walk(m.mlp_value, tree["mlp_value"], f"{p}mlp_value.", sd)
         _walk(m.mlp_attention, tree["mlp_attention"], f"{p}mlp_attention.", sd)
+    elif isinstance(m, BaselineBlock):
+        _walk(m.mlp_layer, tree["mlp_layer"], f"{p}mlp_layer.", sd)
+    elif isinstance(m, HodgeBaselineLayer):
+        for i, b in enumerate(m.layers):
+            _walk(b, tree["layers"][i], f"{p}layers.{i}.", sd)
+        _walk(m.mlp_rank2, tree["mlp_rank2"], f"{p}mlp_rank2.", sd)
+        _walk(m.mlp_hodge, tree["mlp_hodge"], f"{p}mlp_hodge.", sd)
     elif isinstance(m, HodgeNetworkLayer):
         _walk(m.layer, tree["layer"], f"{p}layer.", sd)
-    elif isinstance(m, (ScoreNetworkX, ScoreNetworkA, ScoreNetworkA_CC, ScoreNetworkF)):
+    elif isinstance(m, (ScoreNetworkX, ScoreNetworkA, ScoreNetworkA_CC, ScoreNetworkA_Base_CC,
+                        ScoreNetworkF)):
         for k, layer in enumerate(m.layers):
             _walk(layer, tree["layers"][k], f"{p}layers.{k}.", sd)
         for k, layer in enumerate(getattr(m, "layers_hodge", ())):

@@ -147,6 +147,31 @@ Phases, each printing one line of its own results:
               present nodes, finite graph and CC MMDs; prints each stage's
               steps/s, K_max, cells per CC, peak memory and stage 2's
               margin to overflow (its steps while finite, its largest |F|).
+   base_cc_models -- the ablation network's configs: community_small_Base_CC's
+              three networks at CC_NET_B and grid_small_Base_CC's at
+              GRID_CC_NET_B (N = 49, E = 1176, K = 18,424), each adjacency
+              network (ScoreNetworkA_Base_CC, whose graph branch runs the
+              attention kernels) and F unfused and fused, on the card
+              against a float64 CPU copy (cc_models' bound), with exact
+              launches per call.
+   base_cc_train -- community_small_Base_CC through ``Trainer`` as cc_train
+              (BASE_CC_TRAIN_EPOCHS epochs, a resume at the half).
+   base_cc_sample -- its checkpoint through ``Sampler`` by the JAX protocol
+              (one round of 32: ``divide_batch`` 4) on both paths, with
+              cc_sample's gates.
+   grid_cc -- dense grid_small_CC and grid_small_Base_CC at full width
+              (B = 8; the lift of the 100 generated grids held on the card,
+              its incidences in uint8): GRID_CC_EPOCHS epochs each through
+              ``Trainer`` (exact launches an epoch, finite losses, train
+              steps/s, peak memory), then the checkpoint through
+              ``Sampler`` with its SDEs at GRID_CC_SAMPLE_STEPS steps, one
+              round at the protocol's batch (8 and 1) on each path: exact
+              launches, valid finite outputs, steps/s (the 1000-step
+              sample is the quality run's).
+   s4_sample -- the train phase's checkpoint through ``Sampler`` with
+              ``sampler.predictor: S4`` (B = 128, 1000 steps, one
+              evaluation of each network a step) on both paths: exact
+              launches, valid graphs, steps/s.
 7. timing  -- CUDA-event times of each kernel and its plain version at the
               path's shapes and layouts (device time from a CUDA-graph
               replay, and the time of an eager host loop), beside the
@@ -275,6 +300,34 @@ GRID_PROFILE_STEPS = 10  # grid's train steps under --profile
 TS_CONFIG = "community_small_CC_two_stage"
 TS_NET_B = 16
 TS_TRAIN_EPOCHS = 100
+# the ablation network ScoreNetworkA_Base_CC: community_small_Base_CC's
+# networks against float64 at CC_NET_B, and its training run, cut from the
+# config's 5000 epochs (one train and one test batch an epoch)
+BASE_CC_CONFIG = "community_small_Base_CC"
+# (at the smoke's seed 0 its 200-epoch checkpoint samples finite graphs;
+# trained from seed 42 it does not: scripts/port_quality_run.py, PERF.md)
+BASE_CC_TRAIN_EPOCHS = 200
+# dense CC at grid_small's full size (N = 49, E = 1176, K = 18,424):
+# grid_small_Base_CC's networks against float64 at GRID_CC_NET_B (the CPU's
+# float64 copy of its four 1176 x 1176 x 18,424 products a graph stays
+# short); grid_small_CC and grid_small_Base_CC through Trainer on the
+# dataset held on the card (ten train and three test batches of 8 an
+# epoch), GRID_CC_EPOCHS of 5000 epochs; then Sampler with the SDEs at
+# GRID_CC_SAMPLE_STEPS steps on each path (the 1000-step sample is the
+# quality run's: scripts/port_quality_run.py).  A barely trained F can take
+# the reverse diffusion out of f32 (grid_small_CC's HF channel is cubic in
+# F): scripts/cc_finite_sweep.py on the H100 found grid_small_CC's
+# checkpoints finite on both paths at 5 and 10 epochs and not at 20, 30 or
+# 50, grid_small_Base_CC's finite at all five, so both train 10
+GRID_CC_CONFIG = "grid_small_CC"
+GRID_BASE_CC_CONFIG = "grid_small_Base_CC"
+GRID_CC_NET_B = 2
+GRID_CC_EPOCHS = {GRID_CC_CONFIG: 10, GRID_BASE_CC_CONFIG: 10}
+GRID_CC_SAMPLE_STEPS = 50
+# config/grid_small_Base_CC.yaml sets model.num_layers_mlp: null, with which
+# neither package builds ScoreNetworkF (an MLP of None layers raises); the
+# smoke runs it with grid_small_CC's value
+GRID_BASE_CC_NUM_LAYERS_MLP = 1
 
 
 class PhaseError(RuntimeError):
@@ -1143,7 +1196,8 @@ def smoke_sampler(config, train_adjs, weights=None):
 
 def sample_launches(config, fused, rounds=1):
     """The exact launches of ``rounds`` sampling rounds: every score
-    evaluation (one a predictor step, one a corrector step) launches
+    evaluation (one a predictor step, one a corrector step; one a step of
+    the S4 solver) launches
     ``gcn_aggregate`` once a ScoreNetworkX layer, and ``channel_agg`` and
     ``gmh_scores`` (fused) or ``gmh_attention`` (unfused) once an
     AttentionLayer.  Above N = 64 (grid) each of those layers also launches
@@ -1154,8 +1208,11 @@ def sample_launches(config, fused, rounds=1):
     from ccsd_tpu_torch.kernels.gmh_attention import MAX_N
 
     steps = int(config.sde.adj.num_scales)
-    evals = rounds * steps * (int(config.sampler.n_steps) + 1
-                              if config.sampler.corrector == "Langevin" else 1)
+    if config.sampler.predictor == "S4":  # one evaluation a step, whatever the corrector
+        evals = rounds * steps
+    else:
+        evals = rounds * steps * (int(config.sampler.n_steps) + 1
+                                  if config.sampler.corrector == "Langevin" else 1)
     N = int(config.data.max_node_num)
     depth, L = int(config.model.depth), int(config.model.num_layers)
     per_layer = ["channel_agg", "gmh_scores"] if fused else ["gmh_attention"]
@@ -1167,6 +1224,27 @@ def sample_launches(config, fused, rounds=1):
         expect[k] = evals * L
     expect["gcn_degrees"] = evals * (depth * is_tiled(N) + L * (N > MAX_N))
     return expect
+
+
+def check_graphs(res, config, graphs, path):
+    """A sampler's result on the card: ``graphs`` finite graphs of the
+    config's shapes, quantized, symmetric, zero-diagonal, with no edge or
+    feature on an absent node."""
+    import numpy as np
+
+    adj, x, flags = res["adj"], res["x"], res["flags"]
+    N, F = int(config.data.max_node_num), int(config.data.max_feat_num)
+    check(res["device"].startswith("cuda"), f"{path}: sampler ran on {res['device']}")
+    check(adj.shape == (graphs, N, N) and x.shape == (graphs, N, F),
+          f"{path}: shapes adj {adj.shape}, x {x.shape}")
+    check(res["finite"], f"{path}: non-finite sampler output")
+    check(set(np.unique(adj)) <= {0.0, 1.0}, f"{path}: adjacency not quantized")
+    check(np.array_equal(adj, adj.transpose(0, 2, 1)), f"{path}: adjacency not symmetric")
+    check(not adj[:, np.arange(N), np.arange(N)].any(), f"{path}: non-zero diagonal")
+    absent = flags == 0
+    check(not adj[absent].any() and not adj.transpose(0, 2, 1)[absent].any(),
+          f"{path}: edges on absent nodes")
+    check(not x[absent].any(), f"{path}: features on absent nodes")
 
 
 def sample_once(train_adjs, fused, name="community_small", graphs=128, phase="sample",
@@ -1191,21 +1269,10 @@ def sample_once(train_adjs, fused, name="community_small", graphs=128, phase="sa
 
     path = "default (sample.fused, sample.fast on)" if fused else "sample.fused: false"
     path = f"{name} {path}"
-    adj, x, flags = res["adj"], res["x"], res["flags"]
-    B, N = adj.shape[0], adj.shape[1]
-    N_, F_ = int(config.data.max_node_num), int(config.data.max_feat_num)
-    check(res["device"].startswith("cuda"), f"sampler ran on {res['device']}")
-    check(adj.shape == (graphs, N_, N_) and x.shape == (graphs, N_, F_),
-          f"shapes adj {adj.shape}, x {x.shape}")
-    check(res["finite"], "non-finite sampler output")
-    check(set(np.unique(adj)) <= {0.0, 1.0}, "adjacency not quantized")
-    check(np.array_equal(adj, adj.transpose(0, 2, 1)), "adjacency not symmetric")
-    check(not adj[:, np.arange(N), np.arange(N)].any(), "non-zero diagonal")
-    absent = flags == 0
-    check(not adj[absent].any() and not adj.transpose(0, 2, 1)[absent].any(),
-          "edges on absent nodes")
-    check(not x[absent].any(), "features on absent nodes")
+    check_graphs(res, config, graphs, path)
     check(launches == expect, f"{path}: launches {launches}, expected exactly {expect}")
+    adj, flags = res["adj"], res["flags"]
+    B = adj.shape[0]
     edges = adj.sum((1, 2)) / 2
     say(phase, path=repr(path), graphs=B, steps=steps, predictor=config.sampler.predictor,
         corrector=config.sampler.corrector,
@@ -1632,8 +1699,7 @@ def phase_train(config, train_adjs, dev):
     cfg = train_config(folder, "smoke", TRAIN_EPOCHS)
     cfg.ckpt, cfg.sample.use_ema, cfg.sample.fused = f"{name}_final", True, False
     _, models, source = Sampler(cfg, train_adjs).load_models()
-    x, adj = (torch.from_numpy(a).to(trainer.device)
-              for a in next(iter(trainer.test_loader)))
+    x, adj = next(iter(trainer.test_loader))  # gathered on the card
     flags = (adj.abs().sum(-1) > 1e-5).float()
     with torch.no_grad():
         for n in NAMES:
@@ -1900,7 +1966,7 @@ def phase_grid_train(dev):
 # -------------------------------------------------------------------- CC --
 
 def cc_inputs(config, B, seed):
-    """(x, adj, rank2, flags) of B community_small_CC-sized samples: the
+    """(x, adj, rank2, flags) of B samples of the config's CC dataset: the
     lift of B of its graphs (incidence 0/1) plus Gaussian noise, as a
     diffusion state at a middle t, all masked by the graphs' flags."""
     import numpy as np
@@ -1911,7 +1977,7 @@ def cc_inputs(config, B, seed):
 
     d = config.data
     N = int(d.max_node_num)
-    adjs = generated_adjs(CC_CONFIG, seed, N)[:B]
+    adjs = generated_adjs(str(d.data), seed, N)[:B]
     spec = get_spec(N, int(d.d_min), int(d.d_max))
     rng = np.random.default_rng(seed)
     flags = torch.from_numpy((adjs.sum(-1) > 0).astype(np.float32))
@@ -1929,24 +1995,34 @@ def phase_cc_models(dev):
     """community_small_CC's networks (seeded weights) on the card against a
     float64 CPU copy, with exact launch counts per call; returns each
     network's launches."""
+    from ccsd_tpu_torch.utils.config import get_config
+
+    return check_cc_networks(get_config(CC_CONFIG, seed=0, folder=HERE), CC_CONFIG, CC_NET_B,
+                             "cc_models", dev)
+
+
+def check_cc_networks(c, config_name, B, phase, dev):
+    """The three networks of the CC config ``c`` (seeded weights; the
+    adjacency and F networks unfused and fused) at batch B on the card
+    against a float64 CPU copy, with exact launch counts per call; returns
+    each network's launches."""
     import copy
 
     import torch
     from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
     from ccsd_tpu_torch.models.registry import load_model, load_model_params, with_fused
-    from ccsd_tpu_torch.utils.config import get_config
 
-    c = get_config(CC_CONFIG, seed=0, folder=HERE)
     defs = dict(zip(("x", "adj", "rank2"), load_model_params(c)))
     g = torch.Generator().manual_seed(4)
     base = {n: load_model(d, generator=g) for n, d in defs.items()}
-    x, adj, rank2, flags = cc_inputs(c, CC_NET_B, 6)
+    x, adj, rank2, flags = cc_inputs(c, B, 6)
     depth, L = int(c.model.depth), int(c.model.num_layers)
+    adj_net = str(c.model.adj)
     out = {}
     for name, net, d, expect in (
             ("ScoreNetworkX", "x", defs["x"], {"gcn_aggregate": depth}),
-            ("ScoreNetworkA_CC unfused", "adj", defs["adj"], {"gmh_attention": L}),
-            ("ScoreNetworkA_CC fused", "adj", with_fused(defs)["adj"],
+            (f"{adj_net} unfused", "adj", defs["adj"], {"gmh_attention": L}),
+            (f"{adj_net} fused", "adj", with_fused(defs)["adj"],
              {"channel_agg": L, "gmh_scores": L}),
             ("ScoreNetworkF unfused", "rank2", defs["rank2"], {}),
             ("ScoreNetworkF fused", "rank2", with_fused(defs)["rank2"], {})):
@@ -1961,27 +2037,37 @@ def phase_cc_models(dev):
             cpu32 = model(x, adj, rank2=rank2, flags=flags).double()
             ref = model.double()(x.double(), adj.double(), rank2=rank2.double(),
                                  flags=flags.double())
-        check(launched == expect, f"{CC_CONFIG} {name}: launches {launched}, expected {expect}")
+        check(launched == expect, f"{config_name} {name}: launches {launched}, expected "
+                                  f"{expect}")
         cpu_err = (cpu32 - ref).abs().max().item()
         tol = dict(MODEL_TOL, atol=max(MODEL_TOL["atol"], CC_F32_FACTOR * cpu_err))
         abs_err, rel_err, ok = compare(got.cpu().double(), ref, tol)
-        say("cc_models", model=f"{CC_CONFIG} {name}", shape="x".join(map(str, got.shape)),
+        say(phase, model=f"{config_name} {name}", shape="x".join(map(str, got.shape)),
             launches=json.dumps(launched), max_abs_err=f"{abs_err:.3e}",
             max_rel_err=f"{rel_err:.3e}", max_abs_ref=f"{ref.abs().max().item():.3e}",
             cpu_f32_max_abs_err=f"{cpu_err:.3e}", tol=json.dumps(tol), ok=ok)
-        check(ok, f"{CC_CONFIG} {name} on the card disagrees with the CPU copy")
-        out[f"{CC_CONFIG} {name}"] = launched
+        check(ok, f"{config_name} {name} on the card disagrees with the CPU copy")
+        out[f"{config_name} {name}"] = launched
     return out
 
 
-def cc_train_config(folder, name, epochs):
-    return train_config(folder, name, epochs, data=CC_CONFIG)
+def cc_train_config(folder, name, epochs, config_name=CC_CONFIG):
+    return train_config(folder, name, epochs, data=config_name)
 
 
 def phase_cc_train():
     """community_small_CC through ``Trainer`` for CC_TRAIN_EPOCHS epochs, in
     two calls, and a run resumed at the half; returns (launches, checkpoint
     name)."""
+    return train_cc(CC_CONFIG, CC_TRAIN_EPOCHS, "smoke_cc", "cc_train")
+
+
+def train_cc(config_name, epochs, subdir, phase):
+    """The CC config ``config_name`` (one train and one test batch an
+    epoch) through ``Trainer`` for ``epochs`` epochs, in two calls, under
+    build/``subdir``: finite, falling losses, exact launches an epoch, train
+    steps/s, peak memory, and a run resumed at the half equal to the
+    uninterrupted one; returns (launches, checkpoint name)."""
     import shutil
 
     import numpy as np
@@ -1990,50 +2076,50 @@ def phase_cc_train():
     from ccsd_tpu_torch.training.trainer import Trainer
     from ccsd_tpu_torch.utils.config import get_config
 
-    folder = os.path.join(HERE, "build", "smoke_cc")
+    folder = os.path.join(HERE, "build", subdir)
     shutil.rmtree(folder, ignore_errors=True)
-    config = cc_train_config(folder, "smoke", CC_TRAIN_EPOCHS)
-    published = int(get_config(CC_CONFIG, seed=0, folder=HERE).train.num_epochs)
+    config = cc_train_config(folder, "smoke", epochs, config_name)
+    published = int(get_config(config_name, seed=0, folder=HERE).train.num_epochs)
     trainer = Trainer(config)
     check(trainer.device.type == "cuda" and trainer.names == ("x", "adj", "rank2"),
           f"the CC trainer runs {trainer.names} on {trainer.device}")
     check([len(trainer.train_loader), len(trainer.test_loader)] == [1, 1],
-          f"an epoch of {CC_CONFIG} is not one train and one test batch")
+          f"an epoch of {config_name} is not one train and one test batch")
     depth, L = int(config.model.depth), int(config.model.num_layers)
     per_epoch = {"gcn_aggregate": 2 * depth, "gmh_attention": 2 * L,
                  "gcn_aggregate_bwd": depth, "gmh_attention_bwd": L}
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    trainer.config.train.num_epochs = CC_TRAIN_EPOCHS // 2
+    trainer.config.train.num_epochs = epochs // 2
     name = trainer.train()
     mid = trainer.checkpoint_path(f"{name}_mid")
     shutil.copyfile(trainer.checkpoint_path(f"{name}_final"), mid)
-    trainer.config.train.num_epochs = CC_TRAIN_EPOCHS
+    trainer.config.train.num_epochs = epochs
     trainer.train()
     seconds = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    expect = {k: CC_TRAIN_EPOCHS * per_epoch.get(k, 0) for k in LAUNCHES}
-    check(launches == expect, f"{CC_CONFIG} train: launches {launches}, expected exactly "
+    expect = {k: epochs * per_epoch.get(k, 0) for k in LAUNCHES}
+    check(launches == expect, f"{config_name} train: launches {launches}, expected exactly "
                               f"{expect}")
     hist, test = np.asarray(trainer.history["train"]), np.asarray(trainer.history["test"])
     first, end = hist[0], hist[-10:].mean(axis=0)
-    say("cc_train", epochs=trainer.epoch, cut=f"{CC_TRAIN_EPOCHS} of {published}",
+    say(phase, epochs=trainer.epoch, cut=f"{epochs} of {published}",
         steps=trainer.step, seconds=f"{seconds:.3f}",
         **{f"loss_{n}": f"{first[i]:.4f}->{hist[-1][i]:.4f}"
            for i, n in enumerate(trainer.names)},
         **{f"test_loss_{n}": f"{test[0][i]:.4f}->{test[-1][i]:.4f}"
            for i, n in enumerate(trainer.names)},
-        launches_per_epoch=json.dumps({k: v // CC_TRAIN_EPOCHS for k, v in launches.items()
+        launches_per_epoch=json.dumps({k: v // epochs for k, v in launches.items()
                                        if v}),
         peak_memory_gib=f"{peak / 2**30:.3f}")
-    say("train_steps_per_s", config=CC_CONFIG, steps_per_s=f"{trainer.step / seconds:.2f}",
+    say("train_steps_per_s", config=config_name, steps_per_s=f"{trainer.step / seconds:.2f}",
         card=repr(smi_name_power()))
     check(np.isfinite(hist).all() and np.isfinite(test).all(), "non-finite CC training losses")
     check(bool((end < first).all()), f"CC losses did not fall: epoch 1 {first}, last ten {end}")
 
-    resumed = Trainer(cc_train_config(folder, "smoke_resumed", CC_TRAIN_EPOCHS))
+    resumed = Trainer(cc_train_config(folder, "smoke_resumed", epochs, config_name))
     resumed.load_checkpoint(f"{name}_mid")
     resumed.train()
     for n in trainer.names:
@@ -2044,7 +2130,7 @@ def phase_cc_train():
             check(torch.equal(a, b), f"resumed EMA of {n} differs from the uninterrupted run")
     check(resumed.history == trainer.history, "resumed CC losses differ from the uninterrupted "
                                               "run")
-    say("cc_train_resume", resumed_from_epoch=CC_TRAIN_EPOCHS // 2, to=resumed.epoch,
+    say(f"{phase}_resume", resumed_from_epoch=epochs // 2, to=resumed.epoch,
         equals_uninterrupted=True)
     return launches, f"{name}_final"
 
@@ -2053,16 +2139,24 @@ def phase_cc_sample(ckpt):
     """The cc_train checkpoint by the JAX protocol on both paths at
     ``sample.score_dtype: f32``, with its gates; the default (bf16) must
     raise; returns {path: launches}."""
-    import numpy as np
+    return sample_cc(CC_CONFIG, CC_TRAIN_EPOCHS, "smoke_cc", ckpt, "cc_sample")
+
+
+def sample_cc(config_name, epochs, subdir, ckpt, phase):
+    """The checkpoint ``ckpt`` of ``train_cc`` (under build/``subdir``) by
+    the JAX protocol on both paths at ``sample.score_dtype: f32``: exact
+    launches, the CC checks of ``check_cc_sample``, finite graph and CC
+    MMDs, cells per CC, steps/s, peak memory; the config's default (bf16)
+    must raise; returns {path: launches}."""
     import torch
     from ccsd_tpu_torch.data.loader import generated_adjs, split
     from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
-    from ccsd_tpu_torch.ops.cells import get_spec
-    from ccsd_tpu_torch.sampling.sampler import Sampler
+    from ccsd_tpu_torch.sampling.sampler import Sampler, sampling_rounds
 
-    folder = os.path.join(HERE, "build", "smoke_cc")
-    cfg = cc_train_config(folder, "smoke", CC_TRAIN_EPOCHS)
-    adjs = generated_adjs(CC_CONFIG, int(cfg.get("seed", 42)), int(cfg.data.max_node_num))
+    folder = os.path.join(HERE, "build", subdir)
+    cfg = cc_train_config(folder, "smoke", epochs, config_name)
+    adjs = generated_adjs(str(cfg.data.data), int(cfg.get("seed", 42)),
+                          int(cfg.data.max_node_num))
     tr, te = split(len(adjs), float(cfg.data.test_split))
     cfg.ckpt = ckpt
     try:
@@ -2070,12 +2164,13 @@ def phase_cc_sample(ckpt):
         raised = False
     except NotImplementedError as e:
         raised = "sample.score_dtype" in str(e)
-    check(raised, f"{CC_CONFIG} at its default score dtype (bf16) did not raise")
-    spec = get_spec(int(cfg.data.max_node_num), int(cfg.data.d_min), int(cfg.data.d_max))
+    check(raised, f"{config_name} at its default score dtype (bf16) did not raise")
+    batch, rounds = sampling_rounds(int(cfg.data.batch_size), len(adjs[te]),
+                                    cfg.sample.get("divide_batch"))
     out = {}
     for fused in (True, False):
         path = "default (sample.fused on)" if fused else "sample.fused: false"
-        cfg = cc_train_config(folder, "smoke", CC_TRAIN_EPOCHS)
+        cfg = cc_train_config(folder, "smoke", epochs, config_name)
         cfg.ckpt, cfg.sample.fused, cfg.sample.score_dtype = ckpt, fused, "f32"
         sampler = Sampler(cfg, adjs[tr], adjs[te])
         torch.cuda.reset_peak_memory_stats()
@@ -2083,37 +2178,217 @@ def phase_cc_sample(ckpt):
         res = sampler.sample()
         launches = dict(LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        expect = sample_launches(cfg, fused)
-        check(launches == expect, f"{CC_CONFIG} {path}: launches {launches}, expected exactly "
+        expect = sample_launches(cfg, fused, rounds)
+        check(launches == expect, f"{config_name} {path}: launches {launches}, expected exactly "
                                   f"{expect}")
-        adj, rank2, flags = res["adj"], res["rank2"], res["flags"]
-        N = int(cfg.data.max_node_num)
-        check(res["device"].startswith("cuda") and res["finite"],
-              f"{CC_CONFIG} {path}: device {res['device']}, finite {res['finite']}")
-        check(adj.shape == (len(adjs[te]), N, N)
-              and rank2.shape == (len(adjs[te]), spec.num_edges, spec.num_cells),
-              f"{CC_CONFIG} {path}: adj {adj.shape}, rank2 {rank2.shape}")
-        check(set(np.unique(adj)) <= {0.0, 1.0} and np.array_equal(adj, adj.transpose(0, 2, 1))
-              and not adj[:, np.arange(N), np.arange(N)].any(),
-              f"{CC_CONFIG} {path}: adjacency not 0/1, symmetric, zero-diagonal")
-        live_e = flags[:, spec.edge_u] * flags[:, spec.edge_v]
-        live_c = (1 - flags) @ spec.cell_mask.T < 0.5
-        check(set(np.unique(rank2)) <= {0, 1} and not rank2[live_e == 0].any()
-              and not rank2.transpose(0, 2, 1)[~live_c].any(),
-              f"{CC_CONFIG} {path}: rank-2 entries on absent edges or cells")
+        check_cc_sample(res, cfg, len(adjs[te]), f"{config_name} {path}")
         mmds = {**res["mmd"], **res["cc_mmd"]}
         check(len(mmds) == 8 and all(math.isfinite(v) for v in mmds.values()),
-              f"{CC_CONFIG} {path}: MMDs {mmds}")
-        say("cc_sample", path=repr(path), weights=repr(res["weights"]), graphs=len(adjs[te]),
-            batch=int(cfg.data.batch_size), steps=int(cfg.sde.adj.num_scales),
+              f"{config_name} {path}: MMDs {mmds}")
+        say(phase, path=repr(path), weights=repr(res["weights"]), graphs=len(adjs[te]),
+            batch=batch, rounds=rounds, steps=int(cfg.sde.adj.num_scales),
             steps_per_s=f"{res['steps_per_s']:.2f}",
             sampling_seconds=f"{res['sampling_time']:.3f}",
-            mean_edges=f"{adj.sum((1, 2)).mean() / 2:.3f}",
+            mean_edges=f"{res['adj'].sum((1, 2)).mean() / 2:.3f}",
             cells_per_cc=f"{res['cells_per_cc']:.3f}", mmd=json.dumps(res["mmd"]),
             cc_mmd=json.dumps(res["cc_mmd"]), eval_seconds=f"{res['eval_seconds']:.3f}",
             peak_memory_gib=f"{peak / 2**30:.3f}", card=repr(smi_name_power()),
             launches=json.dumps(launches))
-        out[f"{CC_CONFIG} sample {'default' if fused else 'unfused'}"] = launches
+        out[f"{config_name} sample {'default' if fused else 'unfused'}"] = launches
+    return out
+
+
+def check_cc_sample(res, cfg, graphs, path):
+    """A CC sampler's result on the card: ``graphs`` finite samples of the
+    config's shapes, the adjacency 0/1, symmetric, zero-diagonal, the
+    rank-2 entries 0/1 and only on present edges and cells."""
+    import numpy as np
+    from ccsd_tpu_torch.ops.cells import get_spec
+
+    d = cfg.data
+    spec = get_spec(int(d.max_node_num), int(d.d_min), int(d.d_max))
+    adj, rank2, flags = res["adj"], res["rank2"], res["flags"]
+    N = int(d.max_node_num)
+    check(res["device"].startswith("cuda") and res["finite"],
+          f"{path}: device {res['device']}, finite {res['finite']}")
+    check(adj.shape == (graphs, N, N) and rank2.shape == (graphs, spec.num_edges, spec.num_cells),
+          f"{path}: adj {adj.shape}, rank2 {rank2.shape}")
+    check(set(np.unique(adj)) <= {0.0, 1.0} and np.array_equal(adj, adj.transpose(0, 2, 1))
+          and not adj[:, np.arange(N), np.arange(N)].any(),
+          f"{path}: adjacency not 0/1, symmetric, zero-diagonal")
+    live_e = flags[:, spec.edge_u] * flags[:, spec.edge_v]
+    live_c = (1 - flags) @ spec.cell_mask.T < 0.5
+    check(set(np.unique(rank2)) <= {0, 1} and not rank2[live_e == 0].any()
+          and not rank2.transpose(0, 2, 1)[~live_c].any(),
+          f"{path}: rank-2 entries on absent edges or cells")
+
+
+# ---------------------------------------- Base_CC, dense grid_small CC, S4 --
+
+def base_cc_config(config_name, **fields):
+    """The CC config ``config_name`` (``get_config``, or ``train_config``
+    given ``fields``), grid_small_Base_CC's F head set to
+    GRID_BASE_CC_NUM_LAYERS_MLP layers."""
+    from ccsd_tpu_torch.utils.config import get_config
+
+    c = train_config(data=config_name, **fields) if fields else get_config(
+        config_name, seed=0, folder=HERE)
+    if config_name == GRID_BASE_CC_CONFIG:
+        c.model.num_layers_mlp = GRID_BASE_CC_NUM_LAYERS_MLP
+    return c
+
+
+def phase_base_cc_models(dev):
+    """community_small_Base_CC's networks at CC_NET_B and
+    grid_small_Base_CC's at GRID_CC_NET_B (seeded weights; the adjacency
+    network ScoreNetworkA_Base_CC and F unfused and fused) on the card
+    against a float64 CPU copy, with exact launches per call; returns each
+    network's launches."""
+    out = check_cc_networks(base_cc_config(BASE_CC_CONFIG), BASE_CC_CONFIG, CC_NET_B,
+                            "base_cc_models", dev)
+    out.update(check_cc_networks(base_cc_config(GRID_BASE_CC_CONFIG), GRID_BASE_CC_CONFIG,
+                                 GRID_CC_NET_B, "base_cc_models", dev))
+    return out
+
+
+def phase_grid_cc():
+    """Dense grid_small_CC and grid_small_Base_CC at full width through
+    ``Trainer`` (B = 8 on the lift of the 100 generated grids, held on the
+    card in uint8) for GRID_CC_EPOCHS epochs, with the sampler's SDEs set
+    to GRID_CC_SAMPLE_STEPS steps (the loss does not read them); then the
+    checkpoint through ``Sampler.sample`` on each path, one round at the
+    protocol's batch (``sample.max_samples``); returns {run: launches}."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from ccsd_tpu_torch.data.loader import generated_adjs, split
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.ops.cells import get_spec
+    from ccsd_tpu_torch.sampling.sampler import Sampler, sampling_rounds
+    from ccsd_tpu_torch.training.trainer import Trainer
+    from ccsd_tpu_torch.utils.config import get_config
+
+    runs = {}
+    for name, epochs in GRID_CC_EPOCHS.items():
+        folder = os.path.join(HERE, "build", f"smoke_{name}")
+        shutil.rmtree(folder, ignore_errors=True)
+
+        def grid_cc_config():
+            c = base_cc_config(name, folder=folder, name="smoke", epochs=epochs)
+            for k in ("x", "adj", "rank2"):
+                c.sde[k].num_scales = GRID_CC_SAMPLE_STEPS
+            return c
+
+        config = grid_cc_config()
+        d = config.data
+        spec = get_spec(int(d.max_node_num), int(d.d_min), int(d.d_max))
+        t0 = time.perf_counter()
+        trainer = Trainer(config)
+        setup = time.perf_counter() - t0
+        n_train, n_test = len(trainer.train_loader), len(trainer.test_loader)
+        check([n_train, n_test] == [10, 3], f"{name}: {n_train} train and {n_test} test "
+                                            "batches an epoch, expected 10 and 3")
+        held = [a for ld in (trainer.train_loader, trainer.test_loader) for a in ld.arrays]
+        check(all(a.device.type == "cuda" for a in held) and held[2].dtype == torch.uint8
+              and tuple(held[2].shape[1:]) == (spec.num_edges, spec.num_cells),
+              f"{name}: the dataset is not held on the card with uint8 incidences")
+        depth, L = int(config.model.depth), int(config.model.num_layers)
+        per_epoch = {"gcn_aggregate": (n_train + n_test) * depth,
+                     "gmh_attention": (n_train + n_test) * L,
+                     "gcn_aggregate_bwd": n_train * depth, "gmh_attention_bwd": n_train * L}
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        ckpt = f"{trainer.train()}_final"
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        expect = {k: epochs * per_epoch.get(k, 0) for k in LAUNCHES}
+        check(launches == expect, f"{name} train: launches {launches}, expected exactly "
+                                  f"{expect}")
+        hist, test = np.asarray(trainer.history["train"]), np.asarray(trainer.history["test"])
+        check(np.isfinite(hist).all() and np.isfinite(test).all(),
+              f"{name}: non-finite training losses")
+        published = int(get_config(name, seed=0, folder=HERE).train.num_epochs)
+        say("grid_cc", config=name, run="train", epochs=trainer.epoch,
+            cut=f"{epochs} of {published}", batch=int(d.batch_size), E=spec.num_edges,
+            K=spec.num_cells, steps=trainer.step, seconds=f"{seconds:.3f}",
+            setup_seconds=f"{setup:.3f}",
+            **{f"loss_{n}": f"{hist[0][i]:.4f}->{hist[-1][i]:.4f}"
+               for i, n in enumerate(trainer.names)},
+            launches_per_epoch=json.dumps({k: v // epochs for k, v in launches.items() if v}),
+            peak_memory_gib=f"{peak / 2**30:.3f}")
+        say("train_steps_per_s", config=name, steps_per_s=f"{trainer.step / seconds:.2f}",
+            card=repr(smi_name_power()))
+        runs[f"{name} train"] = launches
+        del trainer, held
+        torch.cuda.empty_cache()
+
+        adjs = generated_adjs(str(d.data), int(config.get("seed", 42)), int(d.max_node_num))
+        tr, te = split(len(adjs), float(d.test_split))
+        batch, _ = sampling_rounds(int(d.batch_size), len(adjs[te]),
+                                   config.sample.get("divide_batch"))
+        for fused in (True, False):
+            path = "default (sample.fused on)" if fused else "sample.fused: false"
+            cfg = grid_cc_config()
+            cfg.ckpt, cfg.sample.fused = ckpt, fused
+            cfg.sample.max_samples, cfg.sample.eval = batch, False
+            sampler = Sampler(cfg, adjs[tr], adjs[te])
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            res = sampler.sample()
+            launches = dict(LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            expect = sample_launches(cfg, fused)
+            say("grid_cc", config=name, run="sample", path=repr(path),
+                weights=repr(res["weights"]), batch=batch,
+                steps=int(cfg.sde.adj.num_scales),
+                note="the protocol's 1000-step sample is the quality run's "
+                     "(scripts/port_quality_run.py)",
+                finite=res["finite"], steps_per_s=f"{res['steps_per_s']:.2f}",
+                sampling_seconds=f"{res['sampling_time']:.3f}",
+                mean_edges=f"{res['adj'].sum((1, 2)).mean() / 2:.3f}",
+                cells_per_cc=f"{res['cells_per_cc']:.3f}",
+                peak_memory_gib=f"{peak / 2**30:.3f}", card=repr(smi_name_power()),
+                launches=json.dumps(launches))
+            check(launches == expect, f"{name} {path}: launches {launches}, expected exactly "
+                                      f"{expect}")
+            check_cc_sample(res, cfg, batch, f"{name} {path}")
+            runs[f"{name} sample {'default' if fused else 'unfused'}"] = launches
+    return runs
+
+
+def phase_s4_sample(ckpt, train_adjs):
+    """The train phase's checkpoint ``ckpt`` (community_small) through
+    ``Sampler`` with ``sampler.predictor: S4``: 128 graphs, 1000 steps, on
+    both paths (the sample phase ran both at these shapes before): exact
+    launches (one evaluation of each network a step), valid graphs,
+    steps/s; returns {path: launches}."""
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.sampling.sampler import Sampler
+
+    folder = os.path.join(HERE, "build", "smoke_train")
+    out = {}
+    for fused in (True, False):
+        path = "default (sample.fused, sample.fast on)" if fused else "sample.fused: false"
+        cfg = train_config(folder, "smoke", TRAIN_EPOCHS)
+        cfg.ckpt, cfg.sample.fused, cfg.sampler.predictor = ckpt, fused, "S4"
+        sampler = Sampler(cfg, train_adjs)
+        reset_launches()
+        res = sampler.sample(128)
+        launches = dict(LAUNCHES)
+        expect = sample_launches(cfg, fused)
+        check_graphs(res, cfg, 128, f"S4 {path}")
+        check(launches == expect, f"S4 {path}: launches {launches}, expected exactly {expect}")
+        say("s4_sample", path=repr(path), weights=repr(res["weights"]), graphs=128,
+            steps=int(cfg.sde.adj.num_scales), predictor="S4", snr=cfg.sampler.snr,
+            scale_eps=cfg.sampler.scale_eps, seconds=f"{res['sampling_time']:.3f}",
+            steps_per_s=f"{res['steps_per_s']:.2f}",
+            mean_edges=f"{res['adj'].sum((1, 2)).mean() / 2:.3f}",
+            mean_nodes=f"{res['flags'].sum(-1).mean():.3f}", card=repr(smi_name_power()),
+            launches=json.dumps(launches), expected=json.dumps(expect))
+        out[f"community_small S4 {'default' if fused else 'unfused'}"] = launches
     return out
 
 
@@ -2642,7 +2917,7 @@ def phase_profile(train_adjs, out_dir):
                           data=GRID_CONFIG)
     trainer = Trainer(config, adjs=generated_adjs(GRID_CONFIG, int(config.get("seed", 42)),
                                                   361), log=False)
-    x, adj = trainer._batch(next(iter(trainer.train_loader)))
+    x, adj = next(iter(trainer.train_loader))
     for _ in range(2):  # warm-up
         trainer.train_step(x, adj)
 
@@ -2755,6 +3030,14 @@ def main(argv) -> int:
         timed("ts_models", phase_ts_models, dev)
         runs[f"{TS_CONFIG} train"], ts_ckpt = timed("ts_train", phase_ts_train)
         runs.update(timed("ts_sample", phase_ts_sample, ts_ckpt))
+        runs.update(timed("base_cc_models", phase_base_cc_models, dev))
+        runs[f"{BASE_CC_CONFIG} train"], base_ckpt = timed(
+            "base_cc_train", train_cc, BASE_CC_CONFIG, BASE_CC_TRAIN_EPOCHS, "smoke_base_cc",
+            "base_cc_train")
+        runs.update(timed("base_cc_sample", sample_cc, BASE_CC_CONFIG, BASE_CC_TRAIN_EPOCHS,
+                          "smoke_base_cc", base_ckpt, "base_cc_sample"))
+        runs.update(timed("grid_cc", phase_grid_cc))
+        runs.update(timed("s4_sample", phase_s4_sample, ckpt, train_adjs))
         from ccsd_tpu_torch.kernels import LAUNCHES
 
         launches = {k: {p: run.get(k, 0) for p, run in runs.items()} for k in LAUNCHES}

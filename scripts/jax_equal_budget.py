@@ -94,7 +94,14 @@ def main(argv=None) -> int:
         scfg.ckpt, scfg.sample.seed = f"{name}_final", s
         scfg.sample.score_dtype = "f32"  # its f32 rows are the bar (bf16: CC default)
         t0 = time.perf_counter()
-        res = get_sampler_from_config(scfg).sample()
+        try:
+            res = get_sampler_from_config(scfg).sample()
+        except (KeyError, ValueError) as e:
+            # the JAX sampler quantizes NaN to 1, and its CC scoring then
+            # fails on the cells it decodes: the seed is reported, not scored
+            print(json.dumps({"run": "sample", "sample_seed": s, "error": repr(e),
+                              "seconds": time.perf_counter() - t0}), flush=True)
+            continue
         rows.append(res["mmd"])
         print(json.dumps({
             "run": "sample", "sample_seed": s, "graphs": len(res["graphs"]),
@@ -108,10 +115,10 @@ def main(argv=None) -> int:
         from ccsd_tpu.data.cc_codec import convert_CC_to_graphs
 
         test = convert_CC_to_graphs(test)
-    keys = list(rows[0])
+    keys = list(rows[0]) if rows else []
     print(json.dumps({
         "run": "summary", "config": args.config, "epochs": None if args.ckpt else args.epochs,
-        "sample_seeds": args.sample_seeds,
+        "sample_seeds": args.sample_seeds, "scored_seeds": len(rows),
         "mean": {k: float(np.mean([r[k] for r in rows])) for k in keys},
         "min": {k: float(min(r[k] for r in rows)) for k in keys},
         "max": {k: float(max(r[k] for r in rows)) for k in keys},

@@ -857,6 +857,6 @@ def test_fused_training_raises_on_card_naming_the_missing_backward(cuda, tmp_pat
     cfg = get_config("community_small", 0, ROOT)
     cfg.model.fused, cfg.folder = True, str(tmp_path)
     trainer = Trainer(cfg, log=False)
-    x, adj = trainer._batch(next(iter(trainer.train_loader)))
+    x, adj = next(iter(trainer.train_loader))
     with pytest.raises(NotImplementedError, match="channel_agg, gmh_scores"):
         trainer.train_step(x, adj)

@@ -101,14 +101,14 @@ def test_one_cc_epoch_matches_the_jax_trainer():
         key = feed(*batch)
         params, opts, emas, jl = step(params, opts, emas, tuple(map(jnp.asarray, batch)), key)
         jlosses.append(jl)
-        got = trainer.train_step(*trainer._batch(batch))
+        got = trainer.train_step(*batch)
         np.testing.assert_allclose(got.numpy(), np.asarray(jl), rtol=1e-4)
     for n in NAMES:
         trainer.emas[n].copy_to(trainer.eval_models[n])
     (batch,) = list(trainer.test_loader)
     key = feed(*batch)
     want = eval_step(emas, tuple(map(jnp.asarray, batch)), key)
-    got = trainer.eval_step(*trainer._batch(batch))
+    got = trainer.eval_step(*batch)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4)
     trainer.loss_fn.draw = train_draw
 

@@ -186,8 +186,10 @@ def test_with_fused_defs_match_jax(enable, fast):
     named = {"adj": {**pdefs["adj"], "scores_impl": "mulreduce"}}
     assert with_fused(named, enable, fast) == jwith_fused(named, enable, fast)
     # ScoreNetworkA_CC joined with CC mode, ScoreNetworkF's slab-unrolled
-    # form with the two-stage model
-    assert FUSED_CAPABLE == {"ScoreNetworkA", "ScoreNetworkA_CC", "ScoreNetworkF"}
+    # form with the two-stage model, ScoreNetworkA_Base_CC with the ablation
+    # network: the JAX set less the unported ScoreNetworkX_GMH
+    assert FUSED_CAPABLE == {"ScoreNetworkA", "ScoreNetworkA_CC", "ScoreNetworkA_Base_CC",
+                             "ScoreNetworkF"}
 
 
 def test_model_fused_in_a_training_config_matches_jax():

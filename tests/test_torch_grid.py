@@ -472,7 +472,7 @@ def test_trainer_on_grid_takes_a_step_on_card(cuda, tmp_path):
     cfg = get_config("grid", 0, ROOT)
     cfg.folder = str(tmp_path)
     trainer = Trainer(cfg, device=cuda, log=False)
-    x, adj = trainer._batch(next(iter(trainer.train_loader)))
+    x, adj = next(iter(trainer.train_loader))
     assert adj.shape == (8, 361, 361)
     before = dict(LAUNCHES)
     losses = trainer.train_step(x, adj)

@@ -30,7 +30,8 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "ccsd_tpu", "networkx", "toponetx
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "port_quality_run.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(ROOT, "scripts", f) for f in ("port_quality_run.py", "cc_finite_sweep.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
