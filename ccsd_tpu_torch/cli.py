@@ -7,7 +7,7 @@ Usage:
     python -m ccsd_tpu_torch.cli --type sample --config community_small \
         [--seed 42] [--folder ./] [--device cuda|cpu] [--num-samples 128] \
         [--train-adjs adjs.npy] [--out samples.npz] [--ckpt NAME] \
-        [--score-dtype f32]
+        [--score-dtype bf16|f32] [--dtype bf16|f32]
 
 The dataset is ``--train-adjs`` (a (M, N, N) numpy array of padded
 adjacencies); without it, community_small, grid_small and grid generate
@@ -27,12 +27,14 @@ graphs unless ``--num-samples`` says otherwise, drawn from the seed
 line with both (``mmd``, ``cc_mmd``).  The config's ``sample.fused`` and
 ``sample.fast`` (both on when absent) pick the network path, as in
 ``Sampler``, and ``ckpt`` the weights (a ``_final`` checkpoint of a port
-run, for one; ``--ckpt NAME`` sets it, and ``--score-dtype`` sets
-``sample.score_dtype``).  A CC config (``--config community_small_CC``) trains the
+run, for one; ``--ckpt NAME`` sets it).  ``--score-dtype`` sets
+``sample.score_dtype`` (the score networks in bf16, f32 scores) and
+``--dtype`` ``sample.dtype`` (the bf16 reverse diffusion carry); the JSON
+line names both as resolved.  A CC config (``--config community_small_CC``) trains the
 three networks on the graphs and their lift, and samples CCs: its JSON
 line adds ``cells_per_cc`` (its ``cc_mmd`` holds the CC MMDs), and
 ``--out`` the rank-2 incidences.  Its default ``sample.score_dtype`` is
-bf16, which is not ported: pass ``--score-dtype f32``.  A two-stage
+bf16, as in the JAX package (``--score-dtype f32`` for f32).  A two-stage
 config (``--config community_small_CC_two_stage``: ``train.two_stage`` and
 ``sample.two_stage``) trains with ``TwoStageTrainer`` (one full-batch step
 an epoch, no test loss) and samples with ``TwoStageSampler`` (graphs, the
@@ -66,7 +68,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=None, help="write adj/x/flags[/rank2] to this .npz")
     p.add_argument("--resume", default=None, help="checkpoint name to resume training from")
     p.add_argument("--ckpt", default=None, help="checkpoint name to sample from")
-    p.add_argument("--score-dtype", default=None, help="sample.score_dtype (f32)")
+    p.add_argument("--score-dtype", default=None,
+                   help="sample.score_dtype: bf16 or f32 (default: bf16 for "
+                        "community_small_CC and ego_small_CC, else f32)")
+    p.add_argument("--dtype", default=None,
+                   help="sample.dtype: bf16 for the bf16 reverse diffusion carry (default f32)")
     return p
 
 
@@ -82,6 +88,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         config.ckpt = args.ckpt
     if args.score_dtype:
         config.sample.score_dtype = args.score_dtype
+    if args.dtype:
+        config.sample.dtype = args.dtype
     try:
         adjs = dataset_adjs(config, np.load(args.train_adjs) if args.train_adjs else None)
     except ValueError:
@@ -125,6 +133,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "eval_seconds": res.get("eval_seconds"),
         "weights": res["weights"],
         "device": res["device"],
+        **{k: res[k] for k in ("score_dtype", "dtype", "note") if k in res},
     }))
     return 0
 

@@ -62,12 +62,14 @@ __host__ __device__ constexpr int smem_floats(int N, int F) {
   return N * ld4(N) + N * round4(F) + round4(N);
 }
 
-// One (graph, channel) a block, all N rows.
-template <bool kBf16>
+// One (graph, channel) a block, all N rows.  T, the type of adj, x and out:
+// float, or bf16 (staged as f32, each output rounded once as it is
+// stored); kBf16: norm and x rounded to bf16 before the product.
+template <typename T, bool kBf16>
 __global__ void __launch_bounds__(gcn::kMaxThreads)
-channel_agg_kernel(const float* __restrict__ adj, const float* __restrict__ x,
-                   float* __restrict__ out, int C, int N, int F, long long sb, long long sc,
-                   long long sn, long long sm) {
+channel_agg_kernel(const T* __restrict__ adj, const T* __restrict__ x, T* __restrict__ out,
+                   int C, int N, int F, long long sb, long long sc, long long sn,
+                   long long sm) {
   extern __shared__ __align__(16) float smem[];
   const int lda = ld4(N), ldx = round4(F);
   float* sA = smem;
@@ -286,19 +288,19 @@ int launch_tiles(const float* adj, const float* x, const float* deg, float* out,
   return launch(adj, x, deg, out, B, C, N, F, G, sb, sc, sn, sm, stream);
 }
 
-template <bool kBf16>
-int launch_graphs(const float* adj, const float* x, float* out, int B, int C, int N, int F,
-                  long long sb, long long sc, long long sn, long long sm, cudaStream_t stream) {
+template <typename T, bool kBf16>
+int launch_graphs(const T* adj, const T* x, T* out, int B, int C, int N, int F, long long sb,
+                  long long sc, long long sn, long long sm, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(channel_agg_kernel<kBf16>,
+    cudaError_t e = cudaFuncSetAttribute(channel_agg_kernel<T, kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          gmh::kMaxSmem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const size_t smem = sizeof(float) * smem_floats(N, F);
-  channel_agg_kernel<kBf16><<<B * C, gcn::block_threads(N, cdiv(F, 4)), smem, stream>>>(
+  channel_agg_kernel<T, kBf16><<<B * C, gcn::block_threads(N, cdiv(F, 4)), smem, stream>>>(
       adj, x, out, C, N, F, sb, sc, sn, sm);
   return (int)cudaGetLastError();
 }
@@ -349,6 +351,18 @@ extern "C" int channel_agg_run(const float* adj, const float* x, const float* de
         adj, x, out, C, N, F, sb, sn, sm);
     return (int)cudaGetLastError();
   }
-  return bf16 ? launch_graphs<true>(adj, x, out, B, C, N, F, sb, sc, sn, sm, s)
-              : launch_graphs<false>(adj, x, out, B, C, N, F, sb, sc, sn, sm, s);
+  return bf16 ? launch_graphs<float, true>(adj, x, out, B, C, N, F, sb, sc, sn, sm, s)
+              : launch_graphs<float, false>(adj, x, out, B, C, N, F, sb, sc, sn, sm, s);
+}
+
+// The whole-graph launch (N <= 64) over bf16 adj (any strides), x and out;
+// bf16 != 0 rounds norm to bf16 before the product, as above.  Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int channel_agg_bf16_run(const gmh::bf16* adj, const gmh::bf16* x, gmh::bf16* out,
+                                    int B, int C, int N, int F, long long sb, long long sc,
+                                    long long sn, long long sm, int bf16, void* stream) {
+  if (N > 64) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? launch_graphs<gmh::bf16, true>(adj, x, out, B, C, N, F, sb, sc, sn, sm, s)
+              : launch_graphs<gmh::bf16, false>(adj, x, out, B, C, N, F, sb, sc, sn, sm, s);
 }

@@ -78,7 +78,8 @@ __host__ __device__ constexpr int smem_floats(int N, int Fi, int Fo) {
 }
 
 // out[c0 .. c0 + 3] = dn * v + bias[c0 ..]
-__device__ __forceinline__ void store_out(float* row, int c0, int Fo, float dn, float4 v,
+template <typename T>
+__device__ __forceinline__ void store_out(T* row, int c0, int Fo, float dn, float4 v,
                                           const float* sBias) {
   const float4 bv = *reinterpret_cast<const float4*>(sBias + c0);
   gcn::store4(row, c0, Fo,
@@ -88,9 +89,9 @@ __device__ __forceinline__ void store_out(float* row, int c0, int Fo, float dn, 
 
 // Stage W and the bias (zeros without one), and zero the padding of W's
 // rows; not committed.
-__device__ __forceinline__ void stage_weights(float* sW, float* sBias, int ldw,
-                                              const float* w, const float* bias, int Fi,
-                                              int Fo) {
+template <typename T>
+__device__ __forceinline__ void stage_weights(float* sW, float* sBias, int ldw, const T* w,
+                                              const T* bias, int Fi, int Fo) {
   gcn::stage(sW, ldw, w, Fo, 1, Fi, Fo);
   if (bias != nullptr) gcn::stage(sBias, ldw, bias, Fo, 1, 1, Fo);
   if (bias == nullptr) gmh::zero_fill(sBias, ldw);
@@ -98,10 +99,13 @@ __device__ __forceinline__ void stage_weights(float* sW, float* sBias, int ldw,
   gcn::zero_pad(sBias, ldw, 1, Fo);
 }
 
+// T, the type of every input and the output: float, or bf16 (staged as
+// f32, each output rounded once as it is stored)
+template <typename T>
 __global__ void __launch_bounds__(gcn::kMaxThreads)
-gcn_aggregate_kernel(const float* __restrict__ x, const float* __restrict__ adj,
-                     const float* __restrict__ w, const float* __restrict__ bias,
-                     float* __restrict__ out, int N, int Fi, int Fo, int add_loop, float loop) {
+gcn_aggregate_kernel(const T* __restrict__ x, const T* __restrict__ adj,
+                     const T* __restrict__ w, const T* __restrict__ bias,
+                     T* __restrict__ out, int N, int Fi, int Fo, int add_loop, float loop) {
   extern __shared__ __align__(16) float smem[];
   const int lda = ld4(N), ldx = round4(Fi), ldw = round4(Fo);
   float* sA = smem;
@@ -350,20 +354,37 @@ extern "C" int gcn_aggregate_run(const float* x, const float* adj, const float* 
                                  const float* w, const float* bias, float* out, int B, int N,
                                  int Fi, int Fo, int rows, int add_loop, float loop,
                                  void* stream) {
-  static cudaError_t whole_ok = allow(gcn_aggregate_kernel);
+  static cudaError_t whole_ok = allow(gcn_aggregate_kernel<float>);
   static cudaError_t rows_ok = allow(gcn_aggregate_rows_kernel);
   const int smem = smem_bytes(N, Fi, Fo, rows);
   if (smem > gmh::kMaxSmem || B > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (rows >= N) {
     if (whole_ok != cudaSuccess) return (int)whole_ok;
-    gcn_aggregate_kernel<<<B, gcn::block_threads(N, cdiv(Fi > Fo ? Fi : Fo, 4)), smem, s>>>(
-        x, adj, w, bias, out, N, Fi, Fo, add_loop, loop);
+    gcn_aggregate_kernel<float>
+        <<<B, gcn::block_threads(N, cdiv(Fi > Fo ? Fi : Fo, 4)), smem, s>>>(
+            x, adj, w, bias, out, N, Fi, Fo, add_loop, loop);
     return (int)cudaGetLastError();
   }
   if (rows > kMaxTileRows) return (int)cudaErrorInvalidValue;
   if (rows_ok != cudaSuccess) return (int)rows_ok;
   gcn_aggregate_rows_kernel<<<dim3(cdiv(N, rows), B), gcn::kMaxThreads, smem, s>>>(
       x, adj, deg, w, bias, out, N, Fi, Fo, rows, add_loop, loop);
+  return (int)cudaGetLastError();
+}
+
+// The whole-graph launch (N <= 64) over bf16 x, adj, w, bias (or null) and
+// out.  Returns the cudaError_t of the launch (0 on success).
+extern "C" int gcn_aggregate_bf16_run(const gmh::bf16* x, const gmh::bf16* adj,
+                                      const gmh::bf16* w, const gmh::bf16* bias,
+                                      gmh::bf16* out, int B, int N, int Fi, int Fo,
+                                      int add_loop, float loop, void* stream) {
+  static cudaError_t ok = allow(gcn_aggregate_kernel<gmh::bf16>);
+  const int smem = smem_bytes(N, Fi, Fo, N);
+  if (smem > gmh::kMaxSmem || B > 65535 || N > 64) return (int)cudaErrorInvalidValue;
+  if (ok != cudaSuccess) return (int)ok;
+  gcn_aggregate_kernel<gmh::bf16>
+      <<<B, gcn::block_threads(N, cdiv(Fi > Fo ? Fi : Fo, 4)), smem, (cudaStream_t)stream>>>(
+          x, adj, w, bias, out, N, Fi, Fo, add_loop, loop);
   return (int)cudaGetLastError();
 }

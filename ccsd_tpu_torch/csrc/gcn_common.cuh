@@ -49,14 +49,16 @@ constexpr int block_threads(int rows, int per_row) {
 }
 
 // Copy rows x cols of src (row stride srow, column stride scol) into dst
-// (row stride ldd) with cp.async, or zero-fill dst where the loads are
-// ablated.  Not committed.
-__device__ __forceinline__ void stage(float* dst, int ldd, const float* src, long long srow,
+// (row stride ldd) with cp.async (T = float; bf16 widened by plain loads,
+// gmh::copy_tile), or zero-fill dst where the loads are ablated.  Not
+// committed.
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, int ldd, const T* src, long long srow,
                                       long long scol, int rows, int cols) {
   if (ablated(kLoads)) {
     gmh::zero_fill(dst, rows * ldd);
   } else {
-    gmh::copy_tile_async(dst, ldd, src, srow, scol, rows, cols);
+    gmh::copy_tile(dst, ldd, src, srow, scol, rows, cols);
   }
 }
 
@@ -175,15 +177,17 @@ __device__ __forceinline__ float4 row_times4(const float* __restrict__ a,
   return acc;
 }
 
-// Write four outputs c0 .. c0 + 3 of a row of `cols` floats: one 16-byte
-// store where the row allows it, else the columns below `cols` one by one.
-__device__ __forceinline__ void store4(float* row, int c0, int cols, float4 v) {
+// Write four outputs c0 .. c0 + 3 of a row of `cols` outputs of type T
+// (float, or bf16: rounded once): one store where the row allows it (16
+// bytes of f32, 8 of bf16), else the columns below `cols` one by one.
+template <typename T>
+__device__ __forceinline__ void store4(T* row, int c0, int cols, float4 v) {
   if (ablated(kStore)) return;
+  const float o[4] = {v.x, v.y, v.z, v.w};
   if ((cols & 3) == 0) {
-    *reinterpret_cast<float4*>(row + c0) = v;
+    gmh::store_run4(row + c0, o);
   } else {
-    const float o[4] = {v.x, v.y, v.z, v.w};
-    for (int j = 0; j < 4 && c0 + j < cols; ++j) row[c0 + j] = o[j];
+    for (int j = 0; j < 4 && c0 + j < cols; ++j) row[c0 + j] = gmh::from_f32<T>(o[j]);
   }
 }
 

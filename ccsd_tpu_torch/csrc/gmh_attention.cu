@@ -97,13 +97,16 @@ struct AttnLayout {
   }
 };
 
-// at most 64 registers a thread, so that four blocks fit an SM's registers
+// at most 64 registers a thread, so that four blocks fit an SM's registers;
+// T, the type of every input and output: float, or bf16 (staged as f32,
+// V and the maps rounded once as they are stored)
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 4)
-gmh_attention_kernel(const float* __restrict__ x, const float* __restrict__ adj,
-                     const float* __restrict__ wq, const float* __restrict__ bq,
-                     const float* __restrict__ wk, const float* __restrict__ bk,
-                     const float* __restrict__ wv, const float* __restrict__ bv,
-                     float* __restrict__ v_out, float* __restrict__ a_out,
+gmh_attention_kernel(const T* __restrict__ x, const T* __restrict__ adj,
+                     const T* __restrict__ wq, const T* __restrict__ bq,
+                     const T* __restrict__ wk, const T* __restrict__ bk,
+                     const T* __restrict__ wv, const T* __restrict__ bv,
+                     T* __restrict__ v_out, T* __restrict__ a_out,
                      int C, int N, int Fi, int A, int O, int H, int ds,
                      long long as_b, long long as_c, long long as_n, long long as_m,
                      float score_div, int add_loop, float loop) {
@@ -125,21 +128,20 @@ gmh_attention_kernel(const float* __restrict__ x, const float* __restrict__ adj,
 
   // [Wq | Wk | Wv] of channel c and its bias, the adjacency of (b, c), and X
   // of the graph (one dense run of N F_in floats)
-  const float* w[3] = {wq + static_cast<size_t>(c) * Fi * A,
-                       wk + static_cast<size_t>(c) * Fi * A,
-                       wv + static_cast<size_t>(c) * Fi * O};
-  const float* bias[3] = {bq ? bq + c * A : nullptr, bk ? bk + c * A : nullptr,
-                          bv ? bv + c * O : nullptr};
+  const T* w[3] = {wq + static_cast<size_t>(c) * Fi * A, wk + static_cast<size_t>(c) * Fi * A,
+                   wv + static_cast<size_t>(c) * Fi * O};
+  const T* bias[3] = {bq ? bq + c * A : nullptr, bk ? bk + c * A : nullptr,
+                      bv ? bv + c * O : nullptr};
   for (int m = 0; m < 3; ++m) {
     const int off = m * A, width = m < 2 ? A : O;
-    copy_tile_async(smem + off, P, w[m], width, 1, Fi, width);
+    copy_tile(smem + off, P, w[m], width, 1, Fi, width);
     if (bias[m])
-      copy_tile_async(smem + L.bias + off, width, bias[m], width, 1, 1, width);
+      copy_tile(smem + L.bias + off, width, bias[m], width, 1, 1, width);
     else
       zero_fill(smem + L.bias + off, width);
   }
-  copy_tile_async(smem + L.adj, L.lda, adj + b * as_b + c * as_c, as_n, as_m, N, N);
-  copy_tile_async(sX, N * Fi, x + static_cast<size_t>(b) * N * Fi, N * Fi, 1, 1, N * Fi);
+  copy_tile(smem + L.adj, L.lda, adj + b * as_b + c * as_c, as_n, as_m, N, N);
+  copy_tile(sX, N * Fi, x + static_cast<size_t>(b) * N * Fi, N * Fi, 1, 1, N * Fi);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -184,7 +186,7 @@ gmh_attention_kernel(const float* __restrict__ x, const float* __restrict__ adj,
 
   // Q, K = (norm X) W + bias into shared memory; V straight to its slot of
   // the channel concat
-  float* vo = v_out + static_cast<size_t>(b) * N * C * O + static_cast<size_t>(c) * O;
+  T* vo = v_out + static_cast<size_t>(b) * N * C * O + static_cast<size_t>(c) * O;
   auto qkv = [&](int r, int p, float v) {
     v += sBias[p];
     if (p < A) {
@@ -192,7 +194,7 @@ gmh_attention_kernel(const float* __restrict__ x, const float* __restrict__ adj,
     } else if (p < 2 * A) {
       sK[r * L.ldq + (p - A)] = v;
     } else {
-      vo[static_cast<size_t>(r) * C * O + (p - 2 * A)] = v;
+      vo[static_cast<size_t>(r) * C * O + (p - 2 * A)] = from_f32<T>(v);
     }
   };
   if (ablated(kProjection))
@@ -410,16 +412,35 @@ extern "C" int gmh_attention_f32(const float* x, const float* adj,
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        gmh_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        gmh_attention_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const int smem = gmh_attention_smem(N, Fi, A, O, H);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   dim3 grid(B, C);
-  gmh_attention_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  gmh_attention_kernel<float><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       x, adj, wq, bq, wk, bk, wv, bv, v_out, a_out, C, N, Fi, A, O, H, ds,
       as_b, as_c, as_n, as_m, score_div, add_loop, loop);
+  return (int)cudaGetLastError();
+}
+
+// The same launch over bf16 tensors (N <= 64), V and the maps in bf16.
+extern "C" int gmh_attention_bf16(const bf16* x, const bf16* adj, const bf16* wq,
+                                  const bf16* bq, const bf16* wk, const bf16* bk,
+                                  const bf16* wv, const bf16* bv, bf16* v_out, bf16* a_out,
+                                  int B, int C, int N, int Fi, int A, int O, int H, int ds,
+                                  long long as_b, long long as_c, long long as_n,
+                                  long long as_m, float score_div, int add_loop, float loop,
+                                  void* stream) {
+  static cudaError_t attr = cudaFuncSetAttribute(
+      gmh_attention_kernel<bf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int smem = gmh_attention_smem(N, Fi, A, O, H);
+  if (smem > kMaxSmem || N > 64) return (int)cudaErrorInvalidValue;
+  gmh_attention_kernel<bf16><<<dim3(B, C), kThreads, smem, (cudaStream_t)stream>>>(
+      x, adj, wq, bq, wk, bk, wv, bv, v_out, a_out, C, N, Fi, A, O, H, ds, as_b, as_c, as_n,
+      as_m, score_div, add_loop, loop);
   return (int)cudaGetLastError();
 }
 

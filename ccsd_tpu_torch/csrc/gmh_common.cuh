@@ -28,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace gmh {
 
 constexpr int kThreads = 256;
@@ -116,6 +118,56 @@ __device__ __forceinline__ void copy_tile_async(float* dst, int ldd, const float
       cp_async4(dst + r * ldd + c, src + r * srow + c * scol);
     }
   }
+}
+
+// ------------------------------------------------------- element types
+//
+// The one-block forward kernels (N <= 64) take their tensors in f32 or, all
+// of one call, in bf16 (the JAX package's bf16 score networks).  A bf16
+// value is widened to f32 as it is staged, exactly, so the shared layouts,
+// every sum and every rounding point are those of the f32 kernel; each
+// output is rounded to bf16 (nearest, ties to even) once, as it is stored.
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16_rn(v); }
+
+// copy_tile_async for T = float (not committed); for bf16, plain 2-byte
+// loads by all threads of the block (consecutive threads on consecutive
+// columns), widened into dst: visible to the block after its next barrier.
+template <typename T>
+__device__ __forceinline__ void copy_tile(float* dst, int ldd, const T* src, long long srow,
+                                          long long scol, int rows, int cols) {
+  if constexpr (std::is_same<T, float>::value) {
+    copy_tile_async(dst, ldd, src, srow, scol, rows, cols);
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+      const int r = i / cols, c = i - r * cols;
+      dst[r * ldd + c] = to_f32(src[r * srow + c * scol]);
+    }
+  }
+}
+
+// Four consecutive outputs p[0..3] in one store (16 bytes of f32, 8 of
+// bf16); p aligned to it.
+__device__ __forceinline__ void store_run4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_run4(bf16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 w;
+  w.x = *reinterpret_cast<const unsigned*>(&lo);
+  w.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = w;
 }
 
 // ------------------------------------------------------------ f32 products
@@ -397,20 +449,22 @@ __device__ __forceinline__ bool pair_of(int i, int N, int& n, int& m) {
 //   out[(n N + m) C + g] = out[(m N + n) C + g] = (S_g[n, m] + S_g[m, n]) / 2
 // with out pointing at (graph, 0, 0, first channel).  One pair n <= m a
 // thread: the tanh of both entries is taken once, and both outputs are
-// written for the group's channels as runs of 16-byte stores where they
-// allow (with G = C, C consecutive floats).
-__device__ __forceinline__ void store_pairs(float* __restrict__ out,
+// written for the group's channels as runs of four-channel stores where
+// they allow (with G = C, C consecutive outputs); T is the output's type
+// (bf16: each output rounded once, both directions the same bits).
+template <typename T>
+__device__ __forceinline__ void store_pairs(T* __restrict__ out,
                                             const float* __restrict__ R, int rstride,
                                             int N, int C, int G, int H, float score_div) {
   const int ldr = map_ld(N), rp = raw_plane(N);
   const float inv = 1.0f / score_div, fh = static_cast<float>(H);
   const bool vec = (G & 3) == 0 && (C & 3) == 0 &&
-                   (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+                   (reinterpret_cast<uintptr_t>(out) & (4 * sizeof(T) - 1)) == 0;
   for (int i = threadIdx.x; i < pair_items(N); i += blockDim.x) {
     int n, m;
     if (!pair_of(i, N, n, m)) continue;
-    float* o1 = out + static_cast<long long>(n * N + m) * C;
-    float* o2 = out + static_cast<long long>(m * N + n) * C;
+    T* o1 = out + static_cast<long long>(n * N + m) * C;
+    T* o2 = out + static_cast<long long>(m * N + n) * C;
     for (int g0 = 0; g0 < G; g0 += 4) {
       float v[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -425,11 +479,10 @@ __device__ __forceinline__ void store_pairs(float* __restrict__ out,
         v[u] = (a / fh + b / fh) * 0.5f;
       }
       if (vec) {
-        const float4 w = make_float4(v[0], v[1], v[2], v[3]);
-        *reinterpret_cast<float4*>(o1 + g0) = w;
-        *reinterpret_cast<float4*>(o2 + g0) = w;
+        store_run4(o1 + g0, v);
+        store_run4(o2 + g0, v);
       } else {
-        for (int u = 0; u < 4 && g0 + u < G; ++u) o1[g0 + u] = o2[g0 + u] = v[u];
+        for (int u = 0; u < 4 && g0 + u < G; ++u) o1[g0 + u] = o2[g0 + u] = from_f32<T>(v[u]);
       }
     }
   }

@@ -78,10 +78,12 @@ struct ScoresLayout {
   }
 };
 
-template <bool kBf16>
+// T: the type of q, k and out (float, or bf16: staged as f32, each map
+// entry rounded once as it is stored); kBf16: the product type above
+template <typename T, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
-gmh_scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  float* __restrict__ out, int C, int N, int A, int H, int ds, int G,
+gmh_scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  T* __restrict__ out, int C, int N, int A, int H, int ds, int G,
                   long long qsb, long long qsc, long long qsn,
                   long long ksb, long long ksc, long long ksn, float score_div) {
   extern __shared__ __align__(16) float smem[];
@@ -95,8 +97,8 @@ gmh_scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int g = 0; g < nch; ++g) {
     const int c = c0 + g;
-    copy_tile_async(sQ + g * L.plane, L.ld, q + b * qsb + c * qsc, qsn, 1, N, A);
-    copy_tile_async(sK + g * L.plane, L.ld, k + b * ksb + c * ksc, ksn, 1, N, A);
+    copy_tile(sQ + g * L.plane, L.ld, q + b * qsb + c * qsc, qsn, 1, N, A);
+    copy_tile(sK + g * L.plane, L.ld, k + b * ksb + c * ksc, ksn, 1, N, A);
   }
   cp_async_commit();
 
@@ -127,22 +129,22 @@ gmh_scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 score_div);
 }
 
-template <bool kBf16>
-int launch(const float* q, const float* k, float* out, int B, int C, int N, int A,
+template <typename T, bool kBf16>
+int launch(const T* q, const T* k, T* out, int B, int C, int N, int A,
            int H, int ds, int G, long long qsb, long long qsc, long long qsn,
            long long ksb, long long ksc, long long ksn, float score_div,
            cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        gmh_scores_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        gmh_scores_kernel<T, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const int smem = static_cast<int>(sizeof(float)) * ScoresLayout(N, A, H, G, kBf16).total;
   if (G < 1 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   dim3 grid(B, cdiv(C, G));
-  gmh_scores_kernel<kBf16><<<grid, kThreads, smem, stream>>>(
+  gmh_scores_kernel<T, kBf16><<<grid, kThreads, smem, stream>>>(
       q, k, out, C, N, A, H, ds, G, qsb, qsc, qsn, ksb, ksc, ksn, score_div);
   return (int)cudaGetLastError();
 }
@@ -163,10 +165,26 @@ extern "C" int gmh_scores_run(const float* q, const float* k, float* out,
                               long long ksb, long long ksc, long long ksn,
                               float score_div, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? launch<true>(q, k, out, B, C, N, A, H, ds, G, qsb, qsc, qsn,
-                             ksb, ksc, ksn, score_div, s)
-              : launch<false>(q, k, out, B, C, N, A, H, ds, G, qsb, qsc, qsn,
-                              ksb, ksc, ksn, score_div, s);
+  return bf16 ? launch<float, true>(q, k, out, B, C, N, A, H, ds, G, qsb, qsc, qsn,
+                                    ksb, ksc, ksn, score_div, s)
+              : launch<float, false>(q, k, out, B, C, N, A, H, ds, G, qsb, qsc, qsn,
+                                     ksb, ksc, ksn, score_div, s);
+}
+
+// The same launch over bf16 q, k and map (N <= 64); bf16 != 0 selects the
+// bf16 product type, whose packing of the (already bf16) operands leaves
+// their bits as they are.
+extern "C" int gmh_scores_bf16_run(const gmh::bf16* q, const gmh::bf16* k, gmh::bf16* out,
+                                   int B, int C, int N, int A, int H, int ds, int G,
+                                   long long qsb, long long qsc, long long qsn,
+                                   long long ksb, long long ksc, long long ksn,
+                                   float score_div, int bf16, void* stream) {
+  if (N > 64) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? launch<gmh::bf16, true>(q, k, out, B, C, N, A, H, ds, G, qsb, qsc, qsn, ksb,
+                                        ksc, ksn, score_div, s)
+              : launch<gmh::bf16, false>(q, k, out, B, C, N, A, H, ds, G, qsb, qsc, qsn, ksb,
+                                         ksc, ksn, score_div, s);
 }
 
 // ------------------------------------------------------ tiled (N > 64)

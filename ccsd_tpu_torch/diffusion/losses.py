@@ -16,6 +16,19 @@ model's stage 2 has its score function over a per-sample candidate-cell
 universe (``get_score_fn_rank2_dynamic``, :242-268) and its DSM loss of F
 alone (``Rank2DynamicLoss``, :271-310), which draws t, then the masked
 noise, from its own generator.
+
+``compute_dtype`` (``sample.score_dtype: bf16``, the JAX package's
+selective precision, losses.py:29-46) runs the network on a copy of its
+parameters in that dtype, made once (``models/nn.py cast_copy``; the
+caller's module is unchanged), with every input and the flags cast to it,
+and returns f32 scores; the -1/std scale follows the output's dtype, as
+the JAX code divides (f32 after that cast; the network's own dtype under
+the bf16 carry, where no cast is asked).  ``carry_dtype`` (``sample.dtype:
+bf16``, the bf16 carry) gives ``get_score_fn_cc`` the JAX CC networks'
+following of the rank-2 tensor's dtype: a network that follows it
+(``follows_rank2_dtype``: both CC adjacency networks and ScoreNetworkF's
+slab form) runs on a copy of its parameters in the carry's dtype, made
+once; the others promote the carry to their f32 parameters, as in JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +38,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ccsd_tpu_torch.diffusion.sde import SDE, VESDE, _bcast, is_vp_like
+from ccsd_tpu_torch.models.nn import cast_copy, param_dtype
 from ccsd_tpu_torch.ops.cells import ComplexSpec
 from ccsd_tpu_torch.ops.masks import (
     gen_noise,
@@ -38,36 +52,53 @@ from ccsd_tpu_torch.ops.masks import (
 )
 
 
-def get_score_fn(sde: SDE, model) -> Callable:
+def _compute_cast(model, compute_dtype: Optional[torch.dtype]):
+    """(the module to call, the cast of its inputs, the cast of its output)
+    for ``compute_dtype`` (None: the module as it is)."""
+    if compute_dtype is None:
+        return model, (lambda v: v), (lambda v: v)
+    if param_dtype(model) != compute_dtype:
+        model = cast_copy(model, compute_dtype)
+    return (model,
+            lambda v: None if v is None else v.to(compute_dtype),
+            lambda v: v.to(torch.float32))
+
+
+def get_score_fn(sde: SDE, model, compute_dtype: Optional[torch.dtype] = None) -> Callable:
     """Graph score function (x, adj, flags, t) -> score."""
+    model, cin, cout = _compute_cast(model, compute_dtype)
     if is_vp_like(sde):
 
         def score_fn(x, adj, flags, t):
-            out = model(x, adj, flags)
-            return -out / _bcast(sde.marginal_std(t), out)
+            out = cout(model(cin(x), cin(adj), cin(flags)))
+            return -out / _bcast(sde.marginal_std(t), out).to(out.dtype)
 
     elif isinstance(sde, VESDE):
 
         def score_fn(x, adj, flags, t):
-            return model(x, adj, flags)
+            return cout(model(cin(x), cin(adj), cin(flags)))
 
     else:
         raise NotImplementedError(f"SDE class {type(sde).__name__} not supported.")
     return score_fn
 
 
-def get_score_fn_cc(sde: SDE, model) -> Callable:
+def get_score_fn_cc(sde: SDE, model, compute_dtype: Optional[torch.dtype] = None,
+                    carry_dtype: Optional[torch.dtype] = None) -> Callable:
     """CC score function (x, adj, rank2, flags, t) -> score."""
+    if carry_dtype is not None and getattr(model, "follows_rank2_dtype", False):
+        model = cast_copy(model, carry_dtype)
+    model, cin, cout = _compute_cast(model, compute_dtype)
     if is_vp_like(sde):
 
         def score_fn(x, adj, rank2, flags, t):
-            out = model(x, adj, rank2=rank2, flags=flags)
-            return -out / _bcast(sde.marginal_std(t), out)
+            out = cout(model(cin(x), cin(adj), rank2=cin(rank2), flags=cin(flags)))
+            return -out / _bcast(sde.marginal_std(t), out).to(out.dtype)
 
     elif isinstance(sde, VESDE):
 
         def score_fn(x, adj, rank2, flags, t):
-            return model(x, adj, rank2=rank2, flags=flags)
+            return cout(model(cin(x), cin(adj), rank2=cin(rank2), flags=cin(flags)))
 
     else:
         raise NotImplementedError(f"SDE class {type(sde).__name__} not supported.")

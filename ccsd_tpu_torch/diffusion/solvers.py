@@ -22,6 +22,14 @@ predictor draws twice, once for each half-step transition), so a test that
 feeds both packages one noise sequence compares like with like.
 The rank-2 noise and prior are masked by ``mask_rank2`` and not
 symmetrised.
+
+``carry_dtype=torch.bfloat16`` (``sample.dtype: bf16``; solvers.py:
+220-306) runs the reverse diffusion in bf16: the prior draw and every
+score are cast to it, the noise is drawn in it, each step's tensors are
+cast back to it (a predictor's update is f32 where an f32 SDE coefficient
+meets it, as in JAX), the Langevin norms stay f32, and the outputs are
+cast to f32.  JAX's ``lean`` scan only keeps its f32 means out of the
+carry; this loop keeps the last step's means alone anyway.
 """
 
 from __future__ import annotations
@@ -122,6 +130,19 @@ def _make_predictor(predictor: str, obj: str, sde: SDE, probability_flow: bool,
     )
 
 
+def _carry(carry_dtype: Optional[torch.dtype]):
+    """(the cast of a carried tensor, the wrap of a score function, the cast
+    of an output) for ``carry_dtype`` (None: f32, nothing cast)."""
+    if carry_dtype is None:
+        ident = lambda v: v  # noqa: E731
+        return ident, ident, ident
+
+    def wrap(fn):
+        return lambda *a: fn(*a).to(carry_dtype)
+
+    return (lambda v: v.to(carry_dtype)), wrap, (lambda v: v.to(torch.float32))
+
+
 def get_pc_sampler(
     sde_x: SDE,
     sde_adj: SDE,
@@ -139,16 +160,18 @@ def get_pc_sampler(
     sde_rank2: Optional[SDE] = None,
     shape_rank2: Optional[Sequence[int]] = None,
     spec: Optional[ComplexSpec] = None,
+    carry_dtype: Optional[torch.dtype] = None,
 ) -> Callable:
     """Build ``sampler(score_fn_x, score_fn_adj, init_flags, generator)``,
     or with ``is_cc`` (and ``sde_rank2``, ``shape_rank2``, ``spec``)
     ``sampler(score_fn_x, score_fn_adj, score_fn_rank2, init_flags,
-    generator)``.
+    generator)``; ``carry_dtype`` as above.
 
     Everything runs on the device of ``init_flags`` and of the generator.
     """
     shape_x, shape_adj = tuple(shape_x), tuple(shape_adj)
     diff_steps = sde_adj.N
+    cast, wrap, out32 = _carry(carry_dtype)
     corr_x = _make_corrector(corrector, "x", sde_x, snr, scale_eps, n_steps)
     corr_adj = _make_corrector(corrector, "adj", sde_adj, snr, scale_eps, n_steps)
     pred_x = _make_predictor(predictor, "x", sde_x, probability_flow)
@@ -159,8 +182,9 @@ def get_pc_sampler(
                 generator: Optional[torch.Generator] = None) -> SamplerOutput:
         flags = init_flags
         dev = flags.device
-        x = mask_x(sde_x.prior_sampling(shape_x, generator, dev), flags)
-        adj = mask_adjs(sde_adj.prior_sampling_sym(shape_adj, generator, dev), flags)
+        score_fn_x, score_fn_adj = wrap(score_fn_x), wrap(score_fn_adj)
+        x = cast(mask_x(sde_x.prior_sampling(shape_x, generator, dev), flags))
+        adj = cast(mask_adjs(sde_adj.prior_sampling_sym(shape_adj, generator, dev), flags))
         timesteps = torch.linspace(sde_adj.T, eps, diff_steps, device=dev)
         x_mean, adj_mean = x, adj
         for i in range(diff_steps):
@@ -178,9 +202,10 @@ def get_pc_sampler(
             adj, adj_mean = pred_adj(
                 generator, lambda v: score_fn_adj(_x, v, flags, vec_t),
                 adj, flags, vec_t)
+            x, adj = cast(x), cast(adj)
         return SamplerOutput(
-            x=x_mean if denoise else x,
-            adj=adj_mean if denoise else adj,
+            x=out32(x_mean if denoise else x),
+            adj=out32(adj_mean if denoise else adj),
             n_model_evals=diff_steps * (n_steps + 1),
         )
 
@@ -197,9 +222,12 @@ def get_pc_sampler(
                    generator: Optional[torch.Generator] = None) -> SamplerOutput:
         flags = init_flags
         dev = flags.device
-        x = mask_x(sde_x.prior_sampling(shape_x, generator, dev), flags)
-        adj = mask_adjs(sde_adj.prior_sampling_sym(shape_adj, generator, dev), flags)
-        rank2 = mask_rank2(sde_rank2.prior_sampling(shape_rank2, generator, dev), spec, flags)
+        score_fn_x, score_fn_adj, score_fn_rank2 = map(wrap, (score_fn_x, score_fn_adj,
+                                                              score_fn_rank2))
+        x = cast(mask_x(sde_x.prior_sampling(shape_x, generator, dev), flags))
+        adj = cast(mask_adjs(sde_adj.prior_sampling_sym(shape_adj, generator, dev), flags))
+        rank2 = cast(mask_rank2(sde_rank2.prior_sampling(shape_rank2, generator, dev), spec,
+                                flags))
         timesteps = torch.linspace(sde_adj.T, eps, diff_steps, device=dev)
         x_mean, adj_mean, rank2_mean = x, adj, rank2
         for i in range(diff_steps):
@@ -223,11 +251,12 @@ def get_pc_sampler(
             rank2, rank2_mean = pred_r2(
                 generator, lambda v: score_fn_rank2(_x, _adj, v, flags, vec_t),
                 rank2, flags, vec_t)
+            x, adj, rank2 = cast(x), cast(adj), cast(rank2)
         return SamplerOutput(
-            x=x_mean if denoise else x,
-            adj=adj_mean if denoise else adj,
+            x=out32(x_mean if denoise else x),
+            adj=out32(adj_mean if denoise else adj),
             n_model_evals=diff_steps * (n_steps + 1),
-            rank2=rank2_mean if denoise else rank2,
+            rank2=out32(rank2_mean if denoise else rank2),
         )
 
     return sampler_cc
@@ -246,6 +275,7 @@ def get_s4_solver(
     sde_rank2: Optional[SDE] = None,
     shape_rank2: Optional[Sequence[int]] = None,
     spec: Optional[ComplexSpec] = None,
+    carry_dtype: Optional[torch.dtype] = None,
 ) -> Callable:
     """The S4 splitting solver (ccsd_tpu/diffusion/solvers.py:366-500): each
     step evaluates every network once on the step's state, corrects each
@@ -255,7 +285,10 @@ def get_s4_solver(
     score_fn_adj, init_flags, generator)``, or with ``is_cc``
     ``solver(score_fn_x, score_fn_adj, score_fn_rank2, init_flags,
     generator)``; with ``denoise`` the last step's transition means.  The
-    SDEs must have a transition kernel (VP, VE)."""
+    SDEs must have a transition kernel (VP, VE).  ``carry_dtype`` is taken
+    and ignored, as the JAX solver takes ``sample.dtype`` and ignores it
+    (``**_unused``, :378): S4 runs in f32."""
+    del carry_dtype
     shape_x, shape_adj = tuple(shape_x), tuple(shape_adj)
     diff_steps = sde_adj.N
     dt = -1.0 / diff_steps

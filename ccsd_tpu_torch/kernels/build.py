@@ -36,6 +36,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # x, adj, degrees, w, b, out, B, N, F_in, F_out, rows per block,
         # add_loop, loop, stream
         "gcn_aggregate_run": [_P] * 6 + [_I] * 6 + [_F, _P],
+        # bf16, a whole graph (N <= 64): x, adj, w, b, out, B, N, F_in,
+        # F_out, add_loop, loop, stream
+        "gcn_aggregate_bf16_run": [_P] * 5 + [_I] * 5 + [_F, _P],
         # N, F_in, F_out, rows per block -> shared bytes of a block
         "gcn_aggregate_smem": [_I] * 4,
     },
@@ -48,6 +51,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # B, C, N, F_in, attn_dim, F_out, heads, head_dim,
         # adj strides (b, c, n, m), score_div, add_loop, loop, stream
         "gmh_attention_f32": [_P] * 10 + [_I] * 8 + [_L] * 4 + [_F, _I, _F, _P],
+        # the same over bf16 tensors (N <= 64)
+        "gmh_attention_bf16": [_P] * 10 + [_I] * 8 + [_L] * 4 + [_F, _I, _F, _P],
         # N, F_in, attn_dim, F_out, heads -> shared bytes of a block
         "gmh_attention_smem": [_I] * 5,
         # above N = 64: x, adj, degrees, wq, bq, wk, bk, wv, bv, qk scratch,
@@ -67,6 +72,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # adj, x, degrees, out, B, C, N, F, adj strides (b, c, n, m),
         # rows per block, channels per block (rows < N), bf16, stream
         "channel_agg_run": [_P] * 4 + [_I] * 4 + [_L] * 4 + [_I, _I, _I, _P],
+        # bf16, a whole graph (N <= 64): adj, x, out, B, C, N, F, adj
+        # strides, bf16 rounding, stream
+        "channel_agg_bf16_run": [_P] * 3 + [_I] * 4 + [_L] * 4 + [_I, _P],
         # N, F, rows per block, channels per block -> shared bytes of a block
         "channel_agg_smem": [_I] * 4,
     },
@@ -74,6 +82,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # q, k, out, B, C, N, attn_dim, heads, head_dim, channels per block,
         # q strides (b, c, n), k strides (b, c, n), score_div, bf16, stream
         "gmh_scores_run": [_P, _P, _P] + [_I] * 7 + [_L] * 6 + [_F, _I, _P],
+        # the same over bf16 q, k and map (N <= 64)
+        "gmh_scores_bf16_run": [_P, _P, _P] + [_I] * 7 + [_L] * 6 + [_F, _I, _P],
         # N, attn_dim, heads, channels per block, bf16 -> shared bytes of a block
         "gmh_scores_smem": [_I] * 5,
         # above N = 64: q, k, tile pairs, out, B, C, N, attn_dim, heads,

@@ -12,7 +12,9 @@ layer applies before it (:244):
 adj (B, C, N, N) in any strides (the channels-last view a previous layer
 leaves needs no copy) and x (B, N, F) give (B, C, N, F), all f32.  The
 probes' folded form, adj (B, C*N, N) -> (B, C*N, F), is the same call: the
-degree of column m of channel c is the sum of row c*N + m.  The probes keep
+degree of column m of channel c is the sum of row c*N + m.  bf16 adj and x
+(N <= 64) give a bf16 output, the f32 plain version's rounded once.  The
+probes keep
 the batch last (in lanes); the port keeps it first.  ``bf16=True`` is
 ``agg_impl="dot_bf16"``: norm and x rounded to bf16, products summed in f32
 (the layer rounds the output).  The kernel is ``csrc/channel_agg.cu``; for
@@ -32,11 +34,14 @@ from ccsd_tpu_torch.kernels import LAUNCHES
 from ccsd_tpu_torch.kernels.build import check_status, kernel_fn
 from ccsd_tpu_torch.kernels.gcn import (
     agg_group,
-    check_cuda_f32,
+    check_bf16_size,
+    check_cuda,
     check_smem,
-    check_strided_f32,
+    check_strided,
     gcn_degrees,
     gcn_norm,
+    kernel_dtype,
+    plain_in_f32,
     rows_per_block,
 )
 from ccsd_tpu_torch.kernels.gmh_scores import round_bf16
@@ -68,11 +73,13 @@ def agg_smem(N: int, C: int, F: int) -> int:
 
 def channel_agg(adj: torch.Tensor, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """Normalised channel-folded aggregation: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors (bf16 tensors, N <= 64: its bf16 variant, one graph-channel a
+    block, the output in bf16), the plain version for CPU tensors."""
+    dt = kernel_dtype("channel_agg", adj=adj, x=x)
     if x.device.type == "cpu":
-        return channel_agg_plain(adj, x, bf16)
-    check_cuda_f32("channel_agg", x=x)
-    check_strided_f32("channel_agg", "adj", adj, x.device)
+        return plain_in_f32(channel_agg_plain, dt, adj, x, bf16)
+    check_cuda("channel_agg", dt, x=x)
+    check_strided("channel_agg", "adj", adj, x.device, dt)
     B, N, F = x.shape
     fits = adj.shape[0] == B and adj.shape[-1] == N and (
         (adj.dim() == 4 and adj.shape[2] == N) or (adj.dim() == 3 and adj.shape[1] % N == 0))
@@ -81,11 +88,20 @@ def channel_agg(adj: torch.Tensor, x: torch.Tensor, bf16: bool = False) -> torch
                          f"x {tuple(x.shape)}")
     a4 = _channels(adj, N)
     C = a4.shape[1]
+    if dt == torch.bfloat16:
+        check_bf16_size("channel_agg", N)
     agg_smem(N, C, F)
+    out = torch.empty((*adj.shape[:-1], F), dtype=dt, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if dt == torch.bfloat16:
+        status = kernel_fn("channel_agg", "channel_agg_bf16_run")(
+            a4.data_ptr(), x.data_ptr(), out.data_ptr(), B, C, N, F, *a4.stride(), int(bf16),
+            stream)
+        check_status("channel_agg", status)
+        LAUNCHES["channel_agg"] += 1
+        return out
     rows = rows_per_block(N)
     deg = gcn_degrees(a4) if rows < N else None
-    out = torch.empty((*adj.shape[:-1], F), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     status = kernel_fn("channel_agg")(
         a4.data_ptr(), x.data_ptr(), 0 if deg is None else deg.data_ptr(), out.data_ptr(),
         B, C, N, F, *a4.stride(), rows, agg_group(C), int(bf16), stream)

@@ -34,6 +34,15 @@ gradients of x, adj, the weight and the bias written out by hand
 the gradient passes, as ``jax.grad`` of the reference gives, in the
 kernel, in the plain backward and in autograd of the plain forward
 (``torch.maximum`` splits a tie the same way).
+
+The forward kernels of this module and of ``channel_agg``, ``gmh_attention``
+and ``gmh_scores`` also take bf16 tensors (all of a call; ``kernel_dtype``
+raises on a mix) up to N = 64, for the bf16 score networks: the same
+templated kernels through their ``*_bf16*`` C entry points, the inputs
+widened to f32 as they are staged and each output rounded to bf16 once.
+``plain_in_f32`` is their plain version and ``bf16_kernel_tol`` the gate
+the tests and the smoke hold them to; a bf16 call above N = 64 raises
+(``check_bf16_size``).
 """
 
 from __future__ import annotations
@@ -130,13 +139,66 @@ NO_BACKWARD = ("the kernel has no backward yet (gcn_aggregate and gmh_attention 
                "model.fused cannot train)")
 
 
-def check_cuda_f32(name: str, dense_rows: bool = False,
-                   **tensors: Optional[torch.Tensor]) -> None:
-    """The checks every kernel wrapper makes before a launch.  With
-    ``dense_rows`` a tensor need only have a unit stride in its last
-    dimension (the kernel takes the other strides).  A tensor that needs a
-    gradient raises: the wrappers with a backward kernel launch their
-    forward where autograd does not record."""
+# the element types of the forward kernels' bf16 variants: every tensor of a
+# call is float32, or every one bfloat16 (a whole graph a block only)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_dtype(name: str, **tensors: Optional[torch.Tensor]) -> torch.dtype:
+    """The one dtype of a kernel call's tensors; raises a ``TypeError``
+    naming the arguments where they mix.  (The kernels take float32 or
+    bfloat16, ``check_cuda``; the plain versions any float dtype.)"""
+    got = {arg: t.dtype for arg, t in tensors.items() if t is not None}
+    if len(set(got.values())) > 1:
+        mix = ", ".join(f"{arg} {dt}" for arg, dt in got.items())
+        raise TypeError(f"{name}: mixed dtypes ({mix}): every tensor of a call must be "
+                        "float32, or every one bfloat16")
+    return next(iter(got.values()))
+
+
+def check_bf16_size(name: str, N: int) -> None:
+    """Raise where a bf16 call needs a tiled design, which takes float32
+    only."""
+    if is_tiled(N):
+        raise NotImplementedError(f"{name}: bf16 above N = {WHOLE_GRAPH_N} is not ported "
+                                  f"(N={N}): the tiled designs take float32")
+
+
+def plain_in_f32(fn, dtype: torch.dtype, *args, **kwargs):
+    """The plain version of a kernel for tensors of ``dtype``: for bf16,
+    ``fn`` (a float32 function) on the tensors of ``args`` upcast to
+    float32, each output rounded to bf16, as the bf16 kernels round theirs
+    once; for another dtype, ``fn`` as it is."""
+    if dtype != torch.bfloat16:
+        return fn(*args, **kwargs)
+    out = fn(*(a.float() if isinstance(a, torch.Tensor) else a for a in args), **kwargs)
+    return tuple(o.to(dtype) for o in out) if isinstance(out, tuple) else out.to(dtype)
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 at each |t| (8 significant bits), as f32."""
+    a = t.float().abs().clamp_min(1e-30)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def bf16_kernel_tol(ref: torch.Tensor) -> dict:
+    """The gate of a bf16 kernel against its plain version
+    (``plain_in_f32``), element by element: one bf16 ulp of the plain
+    entry plus 1e-5 of the output's scale (its largest |entry|).  Both
+    round an f32 value to bf16 once, and those f32 values differ only in
+    the order of their f32 sums, so the two may round to neighbouring
+    bf16 values."""
+    return dict(rtol=0.0, atol=bf16_ulp(ref) + 1e-5 * ref.float().abs().max())
+
+
+def check_cuda(name: str, dtype: torch.dtype, dense_rows: bool = False,
+               **tensors: Optional[torch.Tensor]) -> None:
+    """The checks every kernel wrapper makes before a launch: CUDA tensors
+    on one device, all of ``dtype``.  With ``dense_rows`` a tensor need
+    only have a unit stride in its last dimension (the kernel takes the
+    other strides).  A tensor that needs a gradient raises: the wrappers
+    with a backward kernel launch their forward where autograd does not
+    record."""
     dev = None
     for arg, t in tensors.items():
         if t is None:
@@ -146,8 +208,9 @@ def check_cuda_f32(name: str, dense_rows: bool = False,
         if dev is not None and t.device != dev:
             raise ValueError(f"{name}: {arg} is on {t.device}, others on {dev}")
         dev = t.device
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected float32")
+        if t.dtype != dtype or dtype not in KERNEL_DTYPES:
+            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected {dtype} "
+                            "(float32 or bfloat16)")
         if not (t.stride(-1) == 1 if dense_rows else t.is_contiguous()):
             raise ValueError(f"{name}: {arg} is not "
                              + ("dense in its last dimension" if dense_rows else "contiguous"))
@@ -155,11 +218,18 @@ def check_cuda_f32(name: str, dense_rows: bool = False,
             raise NotImplementedError(f"{name}: {arg} needs a gradient: {NO_BACKWARD}")
 
 
-def check_strided_f32(name: str, arg: str, t: torch.Tensor, device: torch.device) -> None:
+def check_cuda_f32(name: str, dense_rows: bool = False,
+                   **tensors: Optional[torch.Tensor]) -> None:
+    """``check_cuda`` of float32 tensors (every backward kernel's)."""
+    check_cuda(name, torch.float32, dense_rows, **tensors)
+
+
+def check_strided(name: str, arg: str, t: torch.Tensor, device: torch.device,
+                  dtype: torch.dtype = torch.float32) -> None:
     """The checks of a tensor the kernel reads through its strides."""
-    if t.device != device or t.device.type != "cuda" or t.dtype != torch.float32:
+    if t.device != device or t.device.type != "cuda" or t.dtype != dtype:
         raise ValueError(f"{name}: {arg} is {t.dtype} on {t.device}, "
-                         f"expected float32 on {device}")
+                         f"expected {dtype} on {device}")
     if torch.is_grad_enabled() and t.requires_grad:
         raise NotImplementedError(f"{name}: {arg} needs a gradient: {NO_BACKWARD}")
 
@@ -178,7 +248,7 @@ def gcn_degrees(adj: torch.Tensor, add_loop: bool = True,
     CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
     if adj.device.type == "cpu":
         return gcn_degrees_plain(adj, add_loop, loop)
-    check_strided_f32("gcn_degrees", "adj", adj, adj.device)
+    check_strided("gcn_degrees", "adj", adj, adj.device)
     B, C, N, _ = adj.shape
     deg = torch.empty((B, C, N), dtype=torch.float32, device=adj.device)
     stream = torch.cuda.current_stream(adj.device).cuda_stream
@@ -212,8 +282,10 @@ def gcn_aggregate_smem(N: int, Fi: int, Fo: int) -> int:
 
 
 def _launch_gcn_aggregate(x, adj, weight, bias, loop, add_loop):
-    """-> (out, the degrees (B, N) where the row tiles read them, else None)."""
-    check_cuda_f32("gcn_aggregate", x=x, adj=adj, weight=weight, bias=bias)
+    """-> (out, the degrees (B, N) where the row tiles read them, else None);
+    bf16 tensors take the whole-graph kernel's bf16 variant."""
+    dt = x.dtype
+    check_cuda("gcn_aggregate", dt, x=x, adj=adj, weight=weight, bias=bias)
     B, N, Fi = x.shape
     Fo = weight.shape[1]
     if adj.shape != (B, N, N) or weight.shape != (Fi, Fo) or (
@@ -223,10 +295,21 @@ def _launch_gcn_aggregate(x, adj, weight, bias, loop, add_loop):
             f"gcn_aggregate: shapes x {tuple(x.shape)}, adj {tuple(adj.shape)}, "
             f"weight {tuple(weight.shape)} do not agree"
         )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if dt == torch.bfloat16:
+        check_bf16_size("gcn_aggregate", N)
+        gcn_aggregate_plan(N, Fi, Fo)
+        out = torch.empty((B, N, Fo), dtype=dt, device=x.device)
+        status = kernel_fn("gcn_aggregate", "gcn_aggregate_bf16_run")(
+            x.data_ptr(), adj.data_ptr(), weight.data_ptr(),
+            0 if bias is None else bias.data_ptr(), out.data_ptr(), B, N, Fi, Fo,
+            int(add_loop), float(loop), stream)
+        check_status("gcn_aggregate", status)
+        LAUNCHES["gcn_aggregate"] += 1
+        return out, None
     rows = gcn_aggregate_plan(N, Fi, Fo)[0]
     deg = gcn_degrees(adj[:, None], add_loop, loop) if rows < N else None
     out = torch.empty((B, N, Fo), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     status = kernel_fn("gcn_aggregate")(
         x.data_ptr(), adj.data_ptr(), 0 if deg is None else deg.data_ptr(),
         weight.data_ptr(), 0 if bias is None else bias.data_ptr(), out.data_ptr(),
@@ -262,9 +345,13 @@ def gcn_aggregate(x: torch.Tensor, adj: torch.Tensor, weight: torch.Tensor,
                   bias: Optional[torch.Tensor] = None, loop: float = 1.0,
                   add_loop: bool = True) -> torch.Tensor:
     """GCN aggregation: the CUDA kernel for CUDA tensors (its backward a
-    kernel too), the plain version for CPU tensors."""
+    kernel too; bf16 tensors, N <= 64, the forward's bf16 variant), the
+    plain version for CPU tensors."""
+    dt = kernel_dtype("gcn_aggregate", x=x, adj=adj, weight=weight, bias=bias)
     if x.device.type == "cpu":
-        return gcn_aggregate_plain(x, adj, weight, bias, loop, add_loop)
+        return plain_in_f32(gcn_aggregate_plain, dt, x, adj, weight, bias, loop, add_loop)
+    if dt == torch.bfloat16:
+        return _launch_gcn_aggregate(x, adj, weight, bias, loop, add_loop)[0]
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, adj, weight, bias)):
         return _GCNAggregate.apply(x, adj, weight, bias, loop, add_loop)

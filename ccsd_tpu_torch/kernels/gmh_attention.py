@@ -50,6 +50,11 @@ channels-last adjacency, the adjacency, both copied channel-major),
 ``gmh_score_grad`` (gQ and gK, a cluster of row-tile blocks a graph and
 channel) and ``gmh_attention_bwd_tiled`` (the row-tile kernel that gives
 every gradient).  Nothing of the forward is saved.
+
+bf16 tensors (N <= 64) take the one-block kernel's bf16 variant
+(``gmh_attention_bf16``): V and the map in bf16, the map exactly
+symmetric; its plain version is ``kernels.gcn.plain_in_f32`` of
+``gmh_attention_plain``.
 """
 
 from __future__ import annotations
@@ -66,13 +71,17 @@ from ccsd_tpu_torch.kernels.build import SMEM_LIMIT, check_status, kernel_fn
 from ccsd_tpu_torch.kernels.gcn import (
     adj_grad_plain,
     agg_group,
+    check_bf16_size,
+    check_cuda,
     check_cuda_f32,
     check_smem,
-    check_strided_f32,
+    check_strided,
     MAX_CLUSTER,
     _with_loop,
     gcn_degrees,
     gcn_norm,
+    kernel_dtype,
+    plain_in_f32,
     row_tiles,
     ticket_buffer,
 )
@@ -242,7 +251,7 @@ def gmh_projection(x, adj, deg, wq, bq, wk, bk, wv, bv, loop: float = 1.0,
     if x.device.type == "cpu":
         return gmh_projection_plain(x, adj, deg, wq, bq, wk, bk, wv, bv, loop, add_loop)
     check_cuda_f32("gmh_projection", x=x, deg=deg, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv)
-    check_strided_f32("gmh_projection", "adj", adj, x.device)
+    check_strided("gmh_projection", "adj", adj, x.device)
     B, C, N, Fi, A, O, _, _ = _check_shapes("gmh_projection", x, adj, wq, bq, wk, bk, wv, bv,
                                             1)
     if deg.shape != (B, C, N):
@@ -284,17 +293,21 @@ def _ptr(t):
 
 def _launch_gmh_attention(x, adj, wq, bq, wk, bk, wv, bv, num_heads, out_dim, loop,
                           add_loop):
-    check_cuda_f32("gmh_attention", x=x, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv)
-    check_strided_f32("gmh_attention", "adj", adj, x.device)
+    dt = x.dtype
+    check_cuda("gmh_attention", dt, x=x, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv)
+    check_strided("gmh_attention", "adj", adj, x.device, dt)
     B, C, N, Fi, A, O, H, ds = _check_shapes("gmh_attention", x, adj, wq, bq, wk, bk, wv,
                                              bv, num_heads)
+    if dt == torch.bfloat16:
+        check_bf16_size("gmh_attention", N)
     if N > MAX_N:
         return _launch_tiled(x, adj, wq, bq, wk, bk, wv, bv, H, ds, out_dim, loop, add_loop)
     attention_smem(N, Fi, A, O, H)
-    v_out = torch.empty((B, N, C * O), dtype=torch.float32, device=x.device)
-    a_out = torch.empty((B, N, N, C), dtype=torch.float32, device=x.device)
+    v_out = torch.empty((B, N, C * O), dtype=dt, device=x.device)
+    a_out = torch.empty((B, N, N, C), dtype=dt, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = kernel_fn("gmh_attention")(
+    status = kernel_fn("gmh_attention",
+                       "gmh_attention_bf16" if dt == torch.bfloat16 else None)(
         x.data_ptr(), adj.data_ptr(), wq.data_ptr(), _ptr(bq), wk.data_ptr(),
         _ptr(bk), wv.data_ptr(), _ptr(bv), v_out.data_ptr(), a_out.data_ptr(),
         B, C, N, Fi, A, O, H, ds, *adj.stride(), math.sqrt(out_dim),
@@ -349,11 +362,14 @@ def gmh_attention(x: torch.Tensor, adj: torch.Tensor, wq, bq, wk, bk, wv, bv,
                   num_heads: int, out_dim: int, loop: float = 1.0,
                   add_loop: bool = True):
     """GMH attention of all channels: the CUDA kernel for CUDA tensors (its
-    backward a kernel too), the plain version for CPU tensors."""
+    backward a kernel too; bf16 tensors, N <= 64, the forward's bf16
+    variant), the plain version for CPU tensors."""
+    dt = kernel_dtype("gmh_attention", x=x, adj=adj, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv,
+                      bv=bv)
     if x.device.type == "cpu":
-        return gmh_attention_plain(x, adj, wq, bq, wk, bk, wv, bv, num_heads,
-                                   out_dim, loop, add_loop)
-    if torch.is_grad_enabled() and any(
+        return plain_in_f32(gmh_attention_plain, dt, x, adj, wq, bq, wk, bk, wv, bv,
+                            num_heads, out_dim, loop, add_loop)
+    if dt != torch.bfloat16 and torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, adj, wq, bq, wk, bk, wv, bv)):
         return _GMHAttention.apply(x, adj, wq, bq, wk, bk, wv, bv, num_heads, out_dim,
                                    loop, add_loop)
@@ -465,7 +481,7 @@ def gmh_bwd_layout(adj, ga):
     if adj.device.type == "cpu":
         return gmh_bwd_layout_plain(adj, ga)
     for arg, t in (("adj", adj), ("ga", ga)):
-        check_strided_f32("gmh_bwd_layout", arg, t, adj.device)
+        check_strided("gmh_bwd_layout", arg, t, adj.device)
     B, C, N, _ = adj.shape
     if ga.shape != (B, N, N, C):
         raise ValueError(f"gmh_bwd_layout: ga {tuple(ga.shape)}, expected {(B, N, N, C)}")
@@ -617,7 +633,7 @@ def gmh_attention_bwd_tiled(x, adj, wq, bq, wk, bk, wv, bv, gqk, gv, deg=None, a
     gv = gv.contiguous()
     check_cuda_f32("gmh_attention_bwd_tiled", x=x, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv,
                    gqk=gqk, gv=gv, deg=deg, ac=ac)
-    check_strided_f32("gmh_attention_bwd_tiled", "adj", adj, x.device)
+    check_strided("gmh_attention_bwd_tiled", "adj", adj, x.device)
     B, C, N, Fi, A, O, _, _ = _check_shapes("gmh_attention_bwd_tiled", x, adj, wq, bq, wk, bk,
                                             wv, bv, 1)
     a = adj if ac is None else ac
@@ -691,7 +707,7 @@ def gmh_attention_bwd(x, adj, wq, bq, wk, bk, wv, bv, gv, ga, num_heads: int,
     check_cuda_f32("gmh_attention_bwd", x=x, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv,
                    gv=gv)
     for arg, t in (("adj", adj), ("ga", ga)):
-        check_strided_f32("gmh_attention_bwd", arg, t, x.device)
+        check_strided("gmh_attention_bwd", arg, t, x.device)
     B, C, N, Fi, A, O, H, ds = _check_shapes("gmh_attention_bwd", x, adj, wq, bq, wk, bk,
                                              wv, bv, num_heads)
     if gv.shape != (B, N, C * O) or ga.shape != (B, N, N, C):

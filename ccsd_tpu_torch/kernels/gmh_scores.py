@@ -29,6 +29,10 @@ takes over: a block per pair of ``TILE``-row tiles of the plan
 with the same rounding points (bf16: the head products on the tensor
 cores, Q and K rounded as the operands are packed, the tanh from the
 approximate exp2 and reciprocal, within 6e-7 of tanh).
+
+bf16 Q and K (the bf16 networks', N <= 64) take the kernel's bf16 variant:
+staged as f32, so ``bf16=True`` packs the same bits it would pack from
+their f32 values, and the map is written in bf16, each entry rounded once.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import torch
 
 from ccsd_tpu_torch.kernels import LAUNCHES
 from ccsd_tpu_torch.kernels.build import SMEM_LIMIT, check_status, kernel_fn
-from ccsd_tpu_torch.kernels.gcn import check_cuda_f32
+from ccsd_tpu_torch.kernels.gcn import check_bf16_size, check_cuda, kernel_dtype, plain_in_f32
 from ccsd_tpu_torch.kernels.gmh_attention import (
     H100_SMS,
     MAX_N,
@@ -93,18 +97,22 @@ def scores_group(B: int, C: int, N: int, A: int, H: int, bf16: bool,
 
 def gmh_scores(q: torch.Tensor, k: torch.Tensor, num_heads: int, out_dim: int,
                bf16: bool = False) -> torch.Tensor:
-    """Head scores: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors.  On the card q and k may be strided views whose last
+    """Head scores: the CUDA kernel for CUDA tensors (bf16 q and k, N <=
+    64: its bf16 variant, the map in bf16), the plain version for CPU
+    tensors.  On the card q and k may be strided views whose last
     dimension is dense."""
+    dt = kernel_dtype("gmh_scores", q=q, k=k)
     if q.device.type == "cpu":
-        return gmh_scores_plain(q, k, num_heads, out_dim, bf16)
-    check_cuda_f32("gmh_scores", dense_rows=True, q=q, k=k)
+        return plain_in_f32(gmh_scores_plain, dt, q, k, num_heads, out_dim, bf16)
+    check_cuda("gmh_scores", dt, dense_rows=True, q=q, k=k)
     if q.dim() != 4 or k.shape != q.shape:
         raise ValueError(f"gmh_scores: q {tuple(q.shape)} and k {tuple(k.shape)} "
                          "must both be (B, C, N, A)")
     B, C, N, A = q.shape
     H, ds = head_split(A, num_heads)
-    out = torch.empty((B, N, N, C), dtype=torch.float32, device=q.device)
+    if dt == torch.bfloat16:
+        check_bf16_size("gmh_scores", N)
+    out = torch.empty((B, N, N, C), dtype=dt, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if N > MAX_N:
         G = tiled_scores_group("gmh_scores", B, C, N, A, device_sms(q.device))
@@ -116,7 +124,8 @@ def gmh_scores(q: torch.Tensor, k: torch.Tensor, num_heads: int, out_dim: int,
         )
     else:
         G = scores_group(B, C, N, A, H, bool(bf16), device_sms(q.device))
-        status = kernel_fn("gmh_scores")(
+        status = kernel_fn("gmh_scores",
+                           "gmh_scores_bf16_run" if dt == torch.bfloat16 else None)(
             q.data_ptr(), k.data_ptr(), out.data_ptr(), B, C, N, A, H, ds, G,
             *q.stride()[:3], *k.stride()[:3], math.sqrt(out_dim), int(bf16), stream,
         )

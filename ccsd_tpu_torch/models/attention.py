@@ -9,6 +9,12 @@ stays plain PyTorch.  Fused (``fused=True``, the port of
 contractions: the aggregation is one ``kernels.channel_agg`` call and the
 head scores one ``kernels.gmh_scores`` call per layer, with the per-channel
 weight products left to cuBLAS, as the JAX package leaves them to XLA.
+
+In bf16 (the bf16 sampling modes) the kernels take bf16 tensors and the
+layer follows the JAX layer's dtypes: mixed operands are promoted to f32,
+and the fused path's head scores leave an f32 map except under
+``scores_impl="mulreduce"`` (ccsd_tpu/models/attention.py:306-326: the
+other lowerings take tanh in f32).
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from ccsd_tpu_torch.kernels.channel_agg import channel_agg
 from ccsd_tpu_torch.kernels.gmh_attention import gmh_attention, head_split
 from ccsd_tpu_torch.kernels.gmh_scores import gmh_scores, round_bf16
 from ccsd_tpu_torch.models.gcn import DenseGCNConv
-from ccsd_tpu_torch.models.nn import MLP, check_no_bn
+from ccsd_tpu_torch.models.nn import MLP, check_no_bn, promoted
 from ccsd_tpu_torch.ops.masks import mask_adjs, mask_x
 
 # fused-path lowering names of the JAX package (attention.py:113-119) and
@@ -61,11 +67,10 @@ class Attention(nn.Module):
         """x: (B, N, F_in), adj: (B, N, N) -> (V (B, N, F_out), A (B, N, N))."""
         if self.conv == "GCN":
             q, k, v = self.gnn_q, self.gnn_k, self.gnn_v
-            V, A = gmh_attention(
-                x, adj[:, None].contiguous(), q.weight[None], q.bias[None],
-                k.weight[None], k.bias[None], v.weight[None], v.bias[None],
-                self.num_heads, self.out_dim,
-            )
+            x, adj, *w = promoted(x, adj, q.weight, q.bias, k.weight, k.bias, v.weight,
+                                  v.bias)
+            V, A = gmh_attention(x, adj[:, None].contiguous(), *(t[None] for t in w),
+                                 self.num_heads, self.out_dim)
             return V, A[..., 0]
         Q, K = self.gnn_q(x), self.gnn_k(x)
         V = self.gnn_v(x, adj)
@@ -155,26 +160,30 @@ class AttentionLayer(nn.Module):
         C, A, O = self.input_dim, self.attn[0].attn_dim, self.conv_output_dim
         # the kernel normalises adj itself and reads it through its strides:
         # the channels-last view the previous layer's MLP leaves needs no copy
-        x = x.contiguous()
-        if self.agg_impl == "dot_bf16":
-            nx = round_bf16(channel_agg(adj, x, bf16=True))
-        else:
-            nx = channel_agg(adj, x)  # (B, C, N, F_i)
+        x_in = x  # the MLP convs read the layer's x as it came
+        adj, x = promoted(adj, x.contiguous())
+        nx = channel_agg(adj, x, bf16=self.agg_impl == "dot_bf16")  # (B, C, N, F_i)
+        if self.agg_impl == "dot_bf16" and nx.dtype == torch.float32:
+            nx = round_bf16(nx)
         if self.conv == "GCN":
             w, b = self._stacked()
             # per-channel (norm @ x) @ [Wq | Wk | Wv] + bias, one batched
             # product over C: (C, B*N, F_i) @ (C, F_i, 2A + O)
+            b, nx, w = promoted(b, nx, w)
             qkv = torch.baddbmm(b, nx.transpose(0, 1).reshape(C, B * N, -1), w)
             qkv = qkv.view(C, B, N, -1).transpose(0, 1)  # (B, C, N, 2A + O) view
             q, k, v = qkv[..., :A], qkv[..., A:2 * A], qkv[..., 2 * A:]
         else:  # Q, K: 2-layer tanh MLPs of x; V stays a GCN conv
             w1, b1, wq, bq, wk, bk, wv, bv = self._stacked()
             hid = wq.shape[1]
-            h1 = torch.tanh(torch.einsum("bnf,cfh->bcnh", x, w1) + b1)
-            q = torch.einsum("bcnh,chp->bcnp", h1[..., :hid], wq) + bq
-            k = torch.einsum("bcnh,chp->bcnp", h1[..., hid:], wk) + bk
-            v = torch.einsum("bcnf,cfo->bcno", nx, wv) + bv
+            h1 = torch.tanh(torch.einsum("bnf,cfh->bcnh", *promoted(x_in, w1)) + b1)
+            q = torch.einsum("bcnh,chp->bcnp", *promoted(h1[..., :hid], wq)) + bq
+            k = torch.einsum("bcnh,chp->bcnp", *promoted(h1[..., hid:], wk)) + bk
+            v = torch.einsum("bcnf,cfo->bcno", *promoted(nx, wv)) + bv
+            q, k = promoted(q, k)
         att = gmh_scores(q, k, self.num_heads, O, bf16=SCORES_BF16[self.scores_impl])
+        if self.scores_impl != "mulreduce":
+            att = att.float()
         return v.transpose(1, 2).reshape(B, N, C * O), att
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor,
@@ -186,9 +195,8 @@ class AttentionLayer(nn.Module):
         elif self.conv == "GCN":
             # the kernel reads adj through its strides: the channels-last
             # view the previous layer's MLP leaves needs no copy
-            v, att = gmh_attention(x.contiguous(), adj,
-                                   *self._stacked(), self.num_heads,
-                                   self.conv_output_dim)
+            x_, adj_, *w = promoted(x.contiguous(), adj, *self._stacked())
+            v, att = gmh_attention(x_, adj_, *w, self.num_heads, self.conv_output_dim)
         else:
             outs = [a(x, adj[:, k]) for k, a in enumerate(self.attn)]
             v = torch.cat([o[0] for o in outs], dim=-1)

@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ccsd_tpu_torch.kernels.gcn import gcn_aggregate, gcn_norm  # noqa: F401
-from ccsd_tpu_torch.models.nn import glorot_
+from ccsd_tpu_torch.models.nn import glorot_, promoted
 
 
 class DenseGCNConv(nn.Module):
@@ -35,11 +35,13 @@ class DenseGCNConv(nn.Module):
     def forward(self, x: torch.Tensor, adj: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
                 add_loop: bool = True) -> torch.Tensor:
-        """x: (B, N, F_in), adj: (B, N, N) -> (B, N, F_out).  The kernel takes
-        contiguous tensors: a channel of a layer's (B, C, N, N) adjacency (the
-        MLP-conv attention's value conv) is copied, a contiguous one is not."""
-        out = gcn_aggregate(x.contiguous(), adj.contiguous(), self.weight, self.bias,
-                            self.loop, add_loop)
+        """x: (B, N, F_in), adj: (B, N, N) -> (B, N, F_out), in the promoted
+        dtype of the inputs and parameters.  The kernel takes contiguous
+        tensors: a channel of a layer's (B, C, N, N) adjacency (the
+        MLP-conv attention's value conv) is copied, a contiguous one is
+        not."""
+        x, adj, w, b = promoted(x, adj, self.weight, self.bias)
+        out = gcn_aggregate(x.contiguous(), adj.contiguous(), w, b, self.loop, add_loop)
         if mask is not None:
             out = out * mask[..., :, None].to(x.dtype)
         return out

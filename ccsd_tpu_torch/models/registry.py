@@ -1,9 +1,10 @@
 """Model registry and config -> hyperparameter marshalling, graph and CC
 mode.
 
-Port of ccsd_tpu/models/registry.py:28-66 and :95-200 (the CC branch for
-ScoreNetworkA_CC, ScoreNetworkA_Base_CC and ScoreNetworkF; ScoreNetworkX_GMH
-is the one JAX model the port lacks).  A CC config whose adjacency model is
+Port of ccsd_tpu/models/registry.py:28-66 and :95-200 (the GMH branch of
+ScoreNetworkX_GMH, and the CC branch for ScoreNetworkA_CC,
+ScoreNetworkA_Base_CC and ScoreNetworkF; the GDSS BaselineNetwork, which
+no config names, is not ported).  A CC config whose adjacency model is
 the graph ScoreNetworkA (the two-stage model's) gets the graph X and A
 definitions, marked ``is_cc``, beside its ScoreNetworkF.  A model definition
 may carry ``fused`` (``model.fused`` in a training config, or ``with_fused``
@@ -21,16 +22,16 @@ import torch
 from ccsd_tpu_torch.models.score_a import ScoreNetworkA
 from ccsd_tpu_torch.models.score_a_cc import ScoreNetworkA_Base_CC, ScoreNetworkA_CC
 from ccsd_tpu_torch.models.score_f import ScoreNetworkF
-from ccsd_tpu_torch.models.score_x import ScoreNetworkX
+from ccsd_tpu_torch.models.score_x import ScoreNetworkX, ScoreNetworkX_GMH
 
-MODELS = {"ScoreNetworkX": ScoreNetworkX, "ScoreNetworkA": ScoreNetworkA,
-          "ScoreNetworkA_CC": ScoreNetworkA_CC,
+MODELS = {"ScoreNetworkX": ScoreNetworkX, "ScoreNetworkX_GMH": ScoreNetworkX_GMH,
+          "ScoreNetworkA": ScoreNetworkA, "ScoreNetworkA_CC": ScoreNetworkA_CC,
           "ScoreNetworkA_Base_CC": ScoreNetworkA_Base_CC, "ScoreNetworkF": ScoreNetworkF}
 
 # the models whose definitions accept the channel-folded ``fused`` path
-# (the JAX set, ccsd_tpu/models/registry.py:31-37, less ScoreNetworkX_GMH)
-FUSED_CAPABLE = {"ScoreNetworkA", "ScoreNetworkA_CC", "ScoreNetworkA_Base_CC",
-                 "ScoreNetworkF"}
+# (the JAX set, ccsd_tpu/models/registry.py:31-37)
+FUSED_CAPABLE = {"ScoreNetworkX_GMH", "ScoreNetworkA", "ScoreNetworkA_CC",
+                 "ScoreNetworkA_Base_CC", "ScoreNetworkF"}
 
 
 def with_fused(defs: Dict[str, Dict[str, Any]], enable: bool = True,
@@ -39,8 +40,9 @@ def with_fused(defs: Dict[str, Dict[str, Any]], enable: bool = True,
     samplers use them (ccsd_tpu/models/registry.py:40-66).
 
     ``fast`` adds the JAX package's default sampling lowerings unless a
-    definition names its own: bf16 head scores (``mulreduce_h_bf16``) and
-    the concat-free ``blocksum`` final layer of ScoreNetworkA.
+    definition names its own: bf16 head scores (``mulreduce_h_bf16``) of
+    ScoreNetworkA and ScoreNetworkX_GMH, and the concat-free ``blocksum``
+    final layer of ScoreNetworkA.
     """
     out = {}
     for name, d in defs.items():
@@ -48,8 +50,9 @@ def with_fused(defs: Dict[str, Dict[str, Any]], enable: bool = True,
         mt = d.get("model_type")
         if mt in FUSED_CAPABLE:
             d["fused"] = enable
-        if enable and fast and mt == "ScoreNetworkA":
+        if enable and fast and mt in ("ScoreNetworkA", "ScoreNetworkX_GMH"):
             d.setdefault("scores_impl", "mulreduce_h_bf16")
+        if enable and fast and mt == "ScoreNetworkA":
             d.setdefault("final_impl", "blocksum")
         out[name] = d
     return out
@@ -82,6 +85,10 @@ def load_model_params(config, is_cc: bool = False) -> Tuple[Dict[str, Any], ...]
         "nhid": cm.nhid,
         "use_bn": cm.use_bn,
     }
+    if "GMH" in cm.x:  # JAX registry.py:117-132
+        params_x.update(num_linears=cm.num_linears, c_init=cm.c_init, c_hid=cm.c_hid,
+                        c_final=cm.c_final, adim=cm.adim, num_heads=cm.num_heads,
+                        conv=cm.conv)
     params_adj = {
         "is_cc": is_cc,
         "model_type": cm.adj,

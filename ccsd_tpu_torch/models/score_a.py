@@ -8,7 +8,9 @@ layer's adjacency channels, ``"blocksum"`` applies the matching weight slice
 to each block and sums (score_a.py:194-212; the same function, without the
 concat).  The parameters are the same under every setting.  ``is_cc``
 (the two-stage model's graph ScoreNetworkA) changes nothing: the score
-depends on x and the adjacency only.
+depends on x and the adjacency only.  The network runs in its parameters'
+dtype (``ScoreNetworkX``'s rule, models/score_x.py); its score leaves in
+f32 wherever the f32 ``default_mask`` meets it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from torch import nn
 
 from ccsd_tpu_torch.models.attention import AttentionLayer
-from ccsd_tpu_torch.models.nn import MLP, check_no_bn
+from ccsd_tpu_torch.models.nn import MLP, apply_linear, check_no_bn, param_dtype, promoted
 from ccsd_tpu_torch.ops.masks import default_mask, mask_adjs, pow_tensor
 
 
@@ -55,9 +57,10 @@ class ScoreNetworkA(nn.Module):
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor,
                 flags: Optional[torch.Tensor] = None) -> torch.Tensor:
-        adjc = pow_tensor(adj, self.c_init)
+        dt = param_dtype(self)
+        adjc = pow_tensor(adj.to(dt), self.c_init)
         adj_list = [adjc]
-        h = x
+        h = x.to(dt)
         for layer in self.layers:
             h, adjc = layer(h, adjc, flags)
             adj_list.append(adjc)
@@ -66,10 +69,11 @@ class ScoreNetworkA(nn.Module):
             h, off = first.bias, 0
             for blk in adj_list:
                 c = blk.shape[1]
-                h = h + torch.einsum("bcnm,hc->bnmh", blk, first.weight[:, off:off + c])
+                h = h + torch.einsum("bcnm,hc->bnmh",
+                                     *promoted(blk, first.weight[:, off:off + c]))
                 off += c
             for lin in rest:
-                h = lin(self.final.act(h))
+                h = apply_linear(lin, self.final.act(h))
             score = h[..., 0]
         else:
             adjs = torch.cat(adj_list, dim=1).permute(0, 2, 3, 1)

@@ -11,7 +11,12 @@ ScoreNetworkA_CC, ``HodgeBaselineLayer``s in ScoreNetworkA_Base_CC.  The
 final ELU MLP reads both, the Hodge channels scattered back onto the
 adjacency.  As in the JAX package the fused path takes only ``fused``: f32
 head scores and the concat final layer (``with_fused`` sets the fast
-lowerings for ScoreNetworkA alone).
+lowerings for ScoreNetworkA alone).  Both run in their parameters' dtype,
+x, the adjacency and the rank-2 tensor cast to it, and mask the score in
+its own dtype.  The JAX networks follow the rank-2 tensor's dtype instead
+(score_a_cc.py:131-138, :247-251); ``follows_rank2_dtype`` says so, and
+under the bf16 carry the score function runs a bf16 copy of the network
+(``diffusion/losses.py get_score_fn_cc``), which computes the same.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from torch import nn
 
 from ccsd_tpu_torch.models.attention import AttentionLayer
 from ccsd_tpu_torch.models.hodge_nn import HodgeAdjAttentionLayer, HodgeBaselineLayer
-from ccsd_tpu_torch.models.nn import MLP, check_no_bn
+from ccsd_tpu_torch.models.nn import MLP, check_no_bn, param_dtype
 from ccsd_tpu_torch.ops.cells import get_spec
 from ccsd_tpu_torch.ops.hodge import adj_to_hodgedual, hodgedual_to_adj
 from ccsd_tpu_torch.ops.masks import default_mask, mask_adjs, pow_tensor
@@ -70,6 +75,8 @@ class _ScoreNetworkACC(nn.Module):
     final MLP and the forward.  A subclass builds ``layers_hodge`` between
     ``__init__`` and ``_final`` (the seeded init draws in that order)."""
 
+    follows_rank2_dtype = True
+
     def __init__(self, max_feat_num: int, max_node_num: int, d_min: int, d_max: int,
                  nhid: int, num_layers: int, num_linears: int, c_init: int, c_hid: int,
                  c_final: int, adim: int, num_heads: int, conv: str, use_bn: bool,
@@ -94,22 +101,23 @@ class _ScoreNetworkACC(nn.Module):
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor, rank2: torch.Tensor,
                 flags: Optional[torch.Tensor] = None) -> torch.Tensor:
-        adjc = pow_tensor(adj, self.c_init)
+        dt = param_dtype(self)
+        adjc = pow_tensor(adj.to(dt), self.c_init)
         hodge_adjc = adj_to_hodgedual(adjc)
         adj_list = [adjc]
-        h = x
+        h = x.to(dt)
         for layer in self.layers:
             h, adjc = layer(h, adjc, flags)
             adj_list.append(adjc)
         hodge_list = [hodge_adjc]
-        r = rank2
+        r = rank2.to(dt)
         for layer in self.layers_hodge:
             hodge_adjc, r = layer(hodge_adjc, r, flags)
             hodge_list.append(hodge_adjc)
         adj_hodge = hodgedual_to_adj(torch.cat(hodge_list, dim=1))
         feats = torch.cat(adj_list + [adj_hodge], dim=1).permute(0, 2, 3, 1)
         score = self.final(feats)[..., 0]
-        return mask_adjs(score * self.mask[None], flags)
+        return mask_adjs(score * self.mask[None].to(score.dtype), flags)
 
 
 class ScoreNetworkA_CC(_ScoreNetworkACC):

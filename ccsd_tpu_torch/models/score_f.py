@@ -11,7 +11,12 @@ slabs and each channel Linear a sum of scalar-weight multiply-adds, so no
 candidate-cell universe (``dyn=(member, valid)``, the two-stage model's
 stage 2) goes through the slab form only, as in the JAX package
 (:109-112), masked by ``mask_rank2_dynamic``.  The score depends on the
-rank-2 tensor only.
+rank-2 tensor only.  The slab form runs in its parameters' dtype, the
+rank-2 tensor and the Hodge mask cast to it; the JAX one follows the
+rank-2 tensor's dtype instead (:149-155), so ``follows_rank2_dtype`` is
+set for it and the score function runs a bf16 copy under the bf16 carry
+(``diffusion/losses.py get_score_fn_cc``).  The channel-stack form keeps
+its parameters and promotes a bf16 rank-2 tensor, as JAX's does.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import torch
 from torch import nn
 
 from ccsd_tpu_torch.models.hodge_nn import HodgeNetworkLayer
-from ccsd_tpu_torch.models.nn import MLP, check_no_bn
+from ccsd_tpu_torch.models.nn import MLP, check_no_bn, param_dtype
 from ccsd_tpu_torch.ops.cells import get_spec
 from ccsd_tpu_torch.ops.hodge import hodge_laplacian, hodgedual_mask_from_spec, pow_tensor_cc
 from ccsd_tpu_torch.ops.masks import mask_rank2, mask_rank2_dynamic
@@ -79,11 +84,16 @@ class ScoreNetworkF(nn.Module):
         else:
             self.hodge_mask = None
 
+    @property
+    def follows_rank2_dtype(self) -> bool:
+        """The slab form follows the rank-2 tensor's dtype in the JAX package."""
+        return self.fused
+
     def forward(self, x: Optional[torch.Tensor], adj: Optional[torch.Tensor],
                 rank2: torch.Tensor, flags: Optional[torch.Tensor] = None,
                 dyn: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         if dyn is not None or self.fused:
-            return self._apply_fused(rank2, flags, dyn)
+            return self._apply_fused(rank2.to(param_dtype(self)), flags, dyn)
         h = pow_tensor_cc(rank2, self.cnum, self.hodge_mask)
         feats = [h]
         for layer in self.layers:
@@ -109,7 +119,7 @@ class ScoreNetworkF(nn.Module):
 
         H = hodge_laplacian(rank2)
         if self.hodge_mask is not None:
-            H = H * self.hodge_mask[None]
+            H = H * self.hodge_mask[None].to(H.dtype)
         slabs = [rank2]
         for _ in range(self.cnum - 1):
             slabs.append(torch.bmm(H, slabs[-1]))

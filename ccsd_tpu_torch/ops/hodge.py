@@ -25,7 +25,8 @@ def hodge_laplacian(rank2: torch.Tensor) -> torch.Tensor:
 
 def pow_tensor_cc(x: torch.Tensor, cnum: int,
                   hodge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, E, K) -> (B, cnum, E, K): [F, HF, H²F, ...] with H = (F Fᵀ) * mask."""
+    """(B, E, K) -> (B, cnum, E, K): [F, HF, H²F, ...] with H = (F Fᵀ) * mask,
+    in the promoted dtype of F and the mask (as JAX's)."""
     if x.dim() == 2:
         x = x[None]
     H = hodge_laplacian(x)
@@ -34,6 +35,8 @@ def pow_tensor_cc(x: torch.Tensor, cnum: int,
     xc = [x]
     x_ = x
     for _ in range(cnum - 1):
+        if H.dtype != x_.dtype:  # an f32 mask on a bf16 F: JAX promotes the product
+            x_ = x_.to(H.dtype)
         x_ = torch.bmm(H, x_)
         xc.append(x_)
     return torch.stack(xc, dim=1)

@@ -33,11 +33,16 @@ adjacency, rank-2) becomes a CC (``cc_from_incidence``), its
 1-skeleton graph (``convert_CC_to_graphs``) is scored by the graph MMDs
 against the test split's, and the CCs by ``eval_CC_list`` against the test
 graphs lifted by the config's ``data.lifting_procedure`` (``cc_mmd``);
-``samples.npz`` adds the rank-2 incidences (uint8).  ``sample.score_dtype``
-resolves as in the JAX package (:103-113, :300-302): bf16 by default for
-the CC datasets it cleared (community_small_CC, ego_small_CC), else f32.
-The bf16 score networks are not ported, so a resolved bf16 raises
-``NotImplementedError`` rather than running f32 silently.
+``samples.npz`` adds the rank-2 incidences (uint8).
+
+Two bf16 modes, as in the JAX package.  ``sample.score_dtype`` (selective
+precision: the score networks on bf16 copies of their parameters and
+inputs, f32 scores, carry and noise; ``diffusion/losses.py``) resolves as
+the JAX sampler resolves it (:103-113, :300-312): bf16 by default for the
+CC datasets it cleared (community_small_CC, ego_small_CC), else f32; an
+explicit value wins.  ``sample.dtype: bf16`` (:65-77) is the bf16 reverse
+diffusion carry of ``get_pc_sampler`` (the S4 solver takes it and ignores
+it).  Both resolved names go into the results and the log.
 """
 
 from __future__ import annotations
@@ -82,19 +87,42 @@ NAMES = ("x", "adj")
 NAMES_CC = ("x", "adj", "rank2")
 CC_EVAL_MAX_CELLS = 200_000  # sample.cc_eval_max_cells when absent, as in JAX
 # the CC datasets whose bf16 score networks the JAX package cleared, and so
-# samples in bf16 by default (ccsd_tpu/sampling/sampler.py:96-100)
+# samples in bf16 by default (ccsd_tpu/sampling/sampler.py:96-108)
 BF16_SCORE_CLEARED = {"community_small_CC", "ego_small_CC"}
+BF16_NAMES = ("bf16", "bfloat16")
 
 
-def check_score_dtype(cfg, configt, is_cc: bool) -> None:
-    """Resolve ``sample.score_dtype`` as the JAX sampler does (f32 or bf16)
-    and raise on bf16: the port has no bf16 score networks."""
-    default = "bf16" if is_cc and str(configt.data.data) in BF16_SCORE_CLEARED else "f32"
-    name = str(cfg.sample.get("score_dtype", default)).lower()
-    if name in ("bf16", "bfloat16"):
-        raise NotImplementedError(
-            f"sample.score_dtype resolves to bf16 for {configt.data.data}; the bf16 score "
-            "networks are not ported: set sample.score_dtype: f32")
+def score_dtype_default(is_cc: bool, dataset) -> str:
+    """The default of ``sample.score_dtype`` (JAX sampler.py:111-113)."""
+    return "bf16" if is_cc and str(dataset) in BF16_SCORE_CLEARED else "f32"
+
+
+def resolve_dtype(name) -> Optional[torch.dtype]:
+    """bf16 for the names of bf16, else None (f32), as the JAX sampler reads
+    ``sample.dtype`` and ``sample.score_dtype``."""
+    return torch.bfloat16 if str(name).lower() in BF16_NAMES else None
+
+
+def sample_dtypes(cfg, configt, is_cc: bool) -> Dict[str, Optional[torch.dtype]]:
+    """{"score_dtype": ..., "dtype": ...} of a sampling config, resolved:
+    bf16 or None (f32)."""
+    default = score_dtype_default(is_cc, configt.data.data)
+    return {"score_dtype": resolve_dtype(cfg.sample.get("score_dtype", default)),
+            "dtype": resolve_dtype(cfg.sample.get("dtype", "f32"))}
+
+
+def dtype_name(dtype: Optional[torch.dtype]) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
+def left_f32_note(dtypes: Dict[str, Optional[torch.dtype]]) -> str:
+    """What a run whose reverse diffusion left f32 says of it, naming the
+    bf16 modes it ran with."""
+    bf16 = [f"sample.{k}: bf16" for k, v in dtypes.items() if v is not None]
+    return ("the reverse diffusion left f32 (non-finite values, quantized to 1), so these "
+            "samples and their scores are not valid; "
+            + (f"it ran with {' and '.join(bf16)}: --score-dtype f32 --dtype f32 samples in f32"
+               if bf16 else "it ran in f32"))
 
 
 def worker_kwargs_from_config(data_cfg) -> Dict[str, Any]:
@@ -128,12 +156,13 @@ def load_sampling_fn(config_train, config_sampler, config_sample, batch_size: in
     ccsd_tpu/sampling/sampler.py:49-93): ``get_s4_solver`` for
     ``sampler.predictor: S4`` (which takes no corrector, step count or
     probability flow), else ``get_pc_sampler``; in CC mode over the
-    config's full cell universe."""
+    config's full cell universe; ``sample.dtype`` gives the carry's dtype."""
     d = config_train.data
     N = int(d.max_node_num)
     sdes = [load_sde(config_train.sde[k]) for k in ("x", "adj")]
     kw = dict(snr=config_sampler.snr, scale_eps=config_sampler.scale_eps,
-              denoise=config_sample.noise_removal, eps=config_sample.eps)
+              denoise=config_sample.noise_removal, eps=config_sample.eps,
+              carry_dtype=resolve_dtype(config_sample.get("dtype", "f32")))
     if is_cc:
         spec = get_spec(N, int(d.d_min), int(d.d_max))
         kw.update(is_cc=True, sde_rank2=load_sde(config_train.sde.rank2), spec=spec,
@@ -234,12 +263,17 @@ class Sampler:
         if num_samples is not None:
             n = int(num_samples)
             n_rounds = max(1, math.ceil(n / batch_size))
-        check_score_dtype(cfg, configt, self.is_cc)
+        dtypes = sample_dtypes(cfg, configt, self.is_cc)
+        self.logger.log(", ".join(f"sample.{k}: {dtype_name(v)}" for k, v in dtypes.items()))
         sdes = {k: load_sde(configt.sde[k]) for k in self.names}
         sampling_fn = load_sampling_fn(configt, cfg.sampler, cfg.sample, batch_size,
                                        self.is_cc)
-        score = get_score_fn_cc if self.is_cc else get_score_fn
-        score_fns = [score(sdes[k], models[k]) for k in self.names]
+        if self.is_cc:
+            score_fns = [get_score_fn_cc(sdes[k], models[k], dtypes["score_dtype"],
+                                         dtypes["dtype"]) for k in self.names]
+        else:
+            score_fns = [get_score_fn(sdes[k], models[k], dtypes["score_dtype"])
+                         for k in self.names]
 
         seed = int(cfg.sample.get("seed", 42))
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -268,7 +302,11 @@ class Sampler:
             "steps_per_s": n_rounds * sdes["adj"].N / seconds,
             "weights": source,
             "device": str(self.device),
+            **{k: dtype_name(v) for k, v in dtypes.items()},
         }
+        if not finite:
+            results["note"] = left_f32_note(dtypes)
+            self.logger.log(results["note"])
         ccs = None
         if self.is_cc:
             d = configt.data

@@ -1,7 +1,7 @@
 """Load a JAX parameter tree into the port's modules.
 
 The tree is the nested dict/list of numpy arrays that the ``init`` of
-ccsd_tpu's ScoreNetworkX, ScoreNetworkA, ScoreNetworkA_CC,
+ccsd_tpu's ScoreNetworkX, ScoreNetworkX_GMH, ScoreNetworkA, ScoreNetworkA_CC,
 ScoreNetworkA_Base_CC or ScoreNetworkF returns (or that a ``.ckpt.pkl``
 holds).  This is the exact inverse of ccsd_tpu/utils/torch_convert.py:59-85,
 :116-149 and :152-220:
@@ -37,7 +37,7 @@ from ccsd_tpu_torch.models.nn import MLP
 from ccsd_tpu_torch.models.score_a import ScoreNetworkA
 from ccsd_tpu_torch.models.score_a_cc import ScoreNetworkA_Base_CC, ScoreNetworkA_CC
 from ccsd_tpu_torch.models.score_f import ScoreNetworkF
-from ccsd_tpu_torch.models.score_x import ScoreNetworkX
+from ccsd_tpu_torch.models.score_x import ScoreNetworkX, ScoreNetworkX_GMH
 
 SD = Dict[str, np.ndarray]
 
@@ -86,8 +86,8 @@ def _walk(m: nn.Module, tree: Any, p: str, sd: SD) -> None:
         _walk(m.mlp_hodge, tree["mlp_hodge"], f"{p}mlp_hodge.", sd)
     elif isinstance(m, HodgeNetworkLayer):
         _walk(m.layer, tree["layer"], f"{p}layer.", sd)
-    elif isinstance(m, (ScoreNetworkX, ScoreNetworkA, ScoreNetworkA_CC, ScoreNetworkA_Base_CC,
-                        ScoreNetworkF)):
+    elif isinstance(m, (ScoreNetworkX, ScoreNetworkX_GMH, ScoreNetworkA, ScoreNetworkA_CC,
+                        ScoreNetworkA_Base_CC, ScoreNetworkF)):
         for k, layer in enumerate(m.layers):
             _walk(layer, tree["layers"][k], f"{p}layers.{k}.", sd)
         for k, layer in enumerate(getattr(m, "layers_hodge", ())):

@@ -16,7 +16,7 @@ Phases, each printing one line of its own results:
 1. device  -- require CUDA; print the card's name and power limit; switch
               TF32 off for matmuls and cuDNN so f32 means f32.
 2. build   -- nvcc the seven kernel sources (ccsd_tpu_torch/csrc), in
-              parallel.
+              parallel (the f32 kernels and their bf16 variants).
 3. kernels -- each forward kernel against its plain PyTorch version on the
               card, at every shape the community_small paths give it
               (``gmh_scores`` in f32 and in bf16, with a tolerance derived
@@ -34,7 +34,13 @@ Phases, each printing one line of its own results:
               shapes (C = 2 on F_in 5, C = 8 on F_in 32, both adjacency
               layouts) and at N = 100 (a ragged last tile); above N = 64
               every kernel also called twice on the same inputs, bit for
-              bit the same, and the attention maps exactly symmetric.
+              bit the same, and the attention maps exactly symmetric.  The
+              bf16 variants of ``gcn_aggregate``, ``gmh_attention``,
+              ``channel_agg`` (also with its bf16 norm) and ``gmh_scores``
+              (bf16 and f32 products) at community_small_CC's layer shapes
+              and grid_small's, each output bf16, within one bf16 ulp of
+              the plain version's entry plus 1e-5 of its scale (see
+              ``bf16_tol_of``).
 4. models  -- ScoreNetworkX and ScoreNetworkA (unfused; fused f32; fused
               fast, the sampler's default) at B = 128 on the card (kernel
               path) against a float64 CPU copy of the same weights (plain
@@ -46,14 +52,16 @@ Phases, each printing one line of its own results:
               ``gcn_degrees`` and ``gmh_projection`` + ``gmh_attention``,
               or ``channel_agg`` + ``gmh_scores``).
 5. sample  -- the full community_small graph sampler: B = 128, N = 20,
-              1000 Euler + Langevin steps through ``Sampler``, first with
+              SAMPLE_STEPS Euler + Langevin steps (the eval phase runs
+              1000) through ``Sampler``, first with
               its defaults (``sample.fused`` and ``sample.fast`` on: the
               fused fast path), then with ``sample.fused: false`` (the
               unfused path); the launch counters of each run must equal the
               expected counts exactly, the graphs must be valid, and each
               run prints its steps/s.
-   grid_sample -- after grid_small_eval: grid's sampler (B = 8, N = 361, 1000
-              Reverse + Langevin steps) on both paths the same way, from
+   grid_sample -- after grid_small_eval: grid's sampler (B = 8, N = 361,
+              GRID_SAMPLE_STEPS Reverse + Langevin steps) on both paths the
+              same way, from
               the EMA weights of grid_small's run (the two configs' networks
               have the same widths; seeded weights overflow before step
               400 at every adjacency-head scale from 1 to 0.01, and a few
@@ -97,9 +105,11 @@ Phases, each printing one line of its own results:
               forward's; gmh_projection, gmh_bwd_layout, gmh_score_grad and
               gmh_attention_bwd_tiled), train steps/s and peak memory.
    grid_small_eval -- its EMA checkpoint (``sample.use_ema: true``) through
-              ``Sampler`` by the JAX protocol (20 test graphs, three rounds
-              of 8, 1000 Reverse + Langevin steps) on both paths: exact
-              launch counts and the eight MMDs, finite.
+              ``Sampler`` by the JAX protocol cut to its first round of 8
+              graphs (GRID_SMALL_EVAL_GRAPHS),
+              1000 Reverse + Langevin steps, scored against the 20 test
+              graphs, on both paths: exact launch counts and the eight
+              MMDs, finite.
    eval    -- the sampler's evaluation protocol on the 200-epoch checkpoint
               of the train phase, on the default path and with
               ``sample.fused: false``: 20 test graphs, one round of B = 128,
@@ -122,13 +132,25 @@ Phases, each printing one line of its own results:
               half kept aside): losses of the three networks finite and
               falling, exact launches an epoch, train steps/s, peak device
               memory; a run resumed at the half equals the uninterrupted one.
+   bf16_models -- community_small_CC's networks as ``sample.score_dtype:
+              bf16`` runs them (bf16 copies through the score functions;
+              ScoreNetworkX, ScoreNetworkA unfused and fused fast,
+              ScoreNetworkA_CC and ScoreNetworkA_Base_CC unfused and fused,
+              ScoreNetworkF both forms) at B = CC_NET_B on the card against
+              float64, within BF16_NET_FACTOR times the CPU bf16 copy's
+              distance; exact launches of the bf16 kernels.
    cc_sample -- that checkpoint through ``Sampler`` by the JAX protocol (20
-              test graphs, one round of 128, 1000 Euler + Langevin steps,
-              ``sample.score_dtype: f32``) on both paths: exact launches,
+              test graphs, one round of 128, 1000 Euler + Langevin steps)
+              on both paths at ``sample.score_dtype: f32`` and at the
+              config's default (bf16, the bf16 kernels): exact launches,
               0/1 symmetric adjacency, rank-2 entries only on present edges
               and cells, finite graph and CC MMDs, cells per CC, steps/s
-              and peak memory; the config at its default score dtype
-              (bf16, not ported) must raise.
+              and peak memory.
+   carry_bf16 -- ``sample.dtype: bf16`` (the bf16 carry), default path,
+              1000 steps: community_small on the train phase's checkpoint
+              (128 graphs) and community_small_CC on cc_train's (the
+              protocol): every network sees bf16 carries, valid finite
+              outputs, exact launches, steps/s.
    ts_models -- the two-stage model's ScoreNetworkF (community_small_CC_
               two_stage) in its slab form over per-sample universes
               bridged from TS_NET_B community_small_CC graphs, on the card
@@ -157,8 +179,8 @@ Phases, each printing one line of its own results:
    base_cc_train -- community_small_Base_CC through ``Trainer`` as cc_train
               (BASE_CC_TRAIN_EPOCHS epochs, a resume at the half).
    base_cc_sample -- its checkpoint through ``Sampler`` by the JAX protocol
-              (one round of 32: ``divide_batch`` 4) on both paths, with
-              cc_sample's gates.
+              (one round of 32: ``divide_batch`` 4) on both paths, f32 and
+              bf16 scores, with cc_sample's gates.
    grid_cc -- dense grid_small_CC and grid_small_Base_CC at full width
               (B = 8; the lift of the 100 generated grids held on the card,
               its incidences in uint8): GRID_CC_EPOCHS epochs each through
@@ -172,6 +194,13 @@ Phases, each printing one line of its own results:
               ``sampler.predictor: S4`` (B = 128, 1000 steps, one
               evaluation of each network a step) on both paths: exact
               launches, valid graphs, steps/s.
+   gmh_x   -- ScoreNetworkX_GMH (community_small with ``model.x``
+              set): the network unfused, fused and fused fast at B = 128
+              against float64; GMH_X_EPOCHS epochs through ``Trainer``
+              (finite losses, exact launches an epoch); ``Sampler``, 128
+              graphs, 1000 steps, on both paths (seeded weights, the
+              adjacency head scaled as phase 5's): exact launches, valid
+              graphs, steps/s.
 7. timing  -- CUDA-event times of each kernel and its plain version at the
               path's shapes and layouts (device time from a CUDA-graph
               replay, and the time of an eager host loop), beside the
@@ -197,7 +226,10 @@ Phases, each printing one line of its own results:
               weights formed before), ``torch.bmm(norm^T, dL/dout)`` (the
               dY product, norm formed before) for ``gcn_aggregate_bwd``,
               with the library's whole route beside it (that bmm, the dX
-              matmul where dx is asked for, the dW einsum, dbias's sum).
+              matmul where dx is asked for, the dW einsum, dbias's sum);
+              the bf16 variants at community_small_CC's shapes (the means)
+              and grid_small's, their bounds at 2 bytes an element, beside
+              the same PyTorch calls in bf16.
 
 Each phase prints its seconds.
 
@@ -244,10 +276,12 @@ MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 # fused network on the CPU and fails unless it exceeds the tolerance
 # (first card run: card vs CPU 8.2e-3; fast vs f32 on the CPU 4.1e-2)
 BF16_MODEL_TOL = dict(rtol=1e-4, atol=2e-2)
-# H100 SXM data-sheet peaks (at the 700 W limit): HBM3 and non-tensor f32
+# H100 SXM data-sheet peaks (at the 700 W limit): HBM3, non-tensor f32, and
+# the dense bf16 tensor cores (bf16 products with f32 accumulation)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-TIMING_ITERS = 200
+BF16_FLOP_PER_S = 989e12
+TIMING_ITERS = 100  # CUDA-graph replays of a timed call (few, for the smoke's time limit)
 SEEDED_ADJ_HEAD_SCALE = 0.01  # see smoke_sampler
 # backward kernels against their plain backwards on the card: f32 on both
 # sides, only the summation order differs; a gradient's entries cancel in
@@ -277,6 +311,16 @@ GRID_NET_B = 2
 # grid_small's training run, cut from the config's 5000 epochs to fit the
 # smoke's time limit (ten train and three test batches an epoch)
 GRID_SMALL_EPOCHS = 100
+# grid_small's evaluation: the protocol's first round of 8 graphs (its three
+# rounds took ~165 s, which the smoke's time limit no longer holds)
+GRID_SMALL_EVAL_GRAPHS = 8
+# phase 5's seeded community_small sampler and grid's sampler run this many
+# steps (not 1000) in the smoke: the launch counts and the graphs' checks
+# hold at any count (the eval phase runs community_small's 1000 by the
+# protocol), and the time limit does not hold their 1000-step runs beside
+# the bf16 and GMH phases (a sampler that loads a checkpoint takes the
+# checkpoint's steps, so the S4 phase stays at 1000)
+SAMPLE_STEPS = GRID_SAMPLE_STEPS = 250
 # community_small_CC: its networks on the card against float64 at this
 # batch (the CPU's float64 forward of the K = 1140 Hodge ops stays short);
 # the bound scales with the CPU f32 copy's own distance, as grid's does
@@ -318,12 +362,31 @@ BASE_CC_TRAIN_EPOCHS = 200
 # the reverse diffusion out of f32 (grid_small_CC's HF channel is cubic in
 # F): scripts/cc_finite_sweep.py on the H100 found grid_small_CC's
 # checkpoints finite on both paths at 5 and 10 epochs and not at 20, 30 or
-# 50, grid_small_Base_CC's finite at all five, so both train 10
+# 50, grid_small_Base_CC's finite at all five, so both train 5 (10 until the
+# smoke's time limit needed the seconds)
 GRID_CC_CONFIG = "grid_small_CC"
 GRID_BASE_CC_CONFIG = "grid_small_Base_CC"
 GRID_CC_NET_B = 2
-GRID_CC_EPOCHS = {GRID_CC_CONFIG: 10, GRID_BASE_CC_CONFIG: 10}
+GRID_CC_EPOCHS = {GRID_CC_CONFIG: 5, GRID_BASE_CC_CONFIG: 5}
 GRID_CC_SAMPLE_STEPS = 50
+# the bf16 runs of the CC sample phases whose validity is not gated: (config,
+# fused).  On the smoke's 200-epoch weights community_small_Base_CC's unfused
+# bf16 run leaves f32 (scripts/cc_finite_sweep.py on the H100; its fused run
+# and community_small_CC's stay finite).  It does on the CPU too, and there
+# the JAX package's bf16 ScoreNetworkF gives the port's bf16 score at every
+# state of the run's last 30 steps (scripts/bf16_score_check.py --unfused
+# --last 60), so the JAX semantics take it out of f32.  Its launches and
+# resolved dtypes are checked and its finiteness printed, its CCs and MMDs
+# gated only where it stays finite (PERF.md §6, ROADMAP Queue C)
+BF16_NOT_GATED = {(BASE_CC_CONFIG, False)}
+# bf16_models: the bf16 score networks on the card may lie this many times as
+# far from float64 as the CPU's bf16 copy (the plain versions) of the same
+# score function (the CC_F32_FACTOR pattern: each bf16 rounding that the two
+# sides take from f32 values a rounding apart may land one bf16 ulp apart)
+BF16_NET_FACTOR = 4.0
+# ScoreNetworkX_GMH's training run (community_small with model.x set),
+# cut from the config's 5000 epochs
+GMH_X_EPOCHS = 20
 # config/grid_small_Base_CC.yaml sets model.num_layers_mlp: null, with which
 # neither package builds ScoreNetworkF (an MLP of None layers raises); the
 # smoke runs it with grid_small_CC's value
@@ -365,44 +428,55 @@ def import_port():
 
 # ----------------------------------------------------------------- costs --
 
-def gcn_cost(B, N, Fi, Fo):
-    """(bytes, flops) of one gcn_aggregate: inputs read once, output
-    written once; FMA = 2 operations; norm (X W) in the cheaper of its two
-    orders, d applied to the narrower side (the kernel takes (norm X) W)."""
+def products(esize, flops):
+    """The flops of a cost that products of its inputs do, where they may
+    run on the bf16 tensor cores: all of ``flops`` for bf16 inputs
+    (``esize`` 2), none for f32 ones (bound_ms)."""
+    return flops if esize == 2 else 0
+
+
+def gcn_cost(B, N, Fi, Fo, esize=4):
+    """(bytes, flops, product flops) of one gcn_aggregate: inputs read
+    once, output written once (``esize`` bytes an element: 2 for the bf16
+    variant, whose products bound_ms times at the bf16 tensor cores' peak);
+    FMA = 2 operations; norm (X W) in the cheaper of its two orders, d
+    applied to the narrower side (the kernel takes (norm X) W)."""
     K = min(Fi, Fo)
-    nbytes = 4 * (B * N * Fi + B * N * N + Fi * Fo + Fo + B * N * Fo)
-    flops = B * (N * N + 2 * N            # degree sums, clamp, rsqrt
-                 + 2 * N * K              # d_m and d_n applied
-                 + 2 * N * N * K          # aggregation
-                 + 2 * N * Fi * Fo        # projection
-                 + N * Fo)                # bias
-    return nbytes, flops
+    nbytes = esize * (B * N * Fi + B * N * N + Fi * Fo + Fo + B * N * Fo)
+    mma = B * (2 * N * N * K              # aggregation
+               + 2 * N * Fi * Fo)         # projection
+    flops = mma + B * (N * N + 2 * N      # degree sums, clamp, rsqrt
+                       + 2 * N * K        # d_m and d_n applied
+                       + N * Fo)          # bias
+    return nbytes, flops, products(esize, mma)
 
 
-def gmh_cost(B, C, N, Fi, A, O, H):
-    """(bytes, flops) of one gmh_attention launch over C channels, taking
-    norm (X W) in the cheaper of its two orders, as the kernel does."""
+def gmh_cost(B, C, N, Fi, A, O, H, esize=4):
+    """(bytes, flops, product flops) of one gmh_attention launch over C
+    channels, taking norm (X W) in the cheaper of its two orders, as the
+    kernel does; ``esize`` as gcn_cost's."""
     P = 2 * A + O
-    nbytes = 4 * (B * N * Fi + B * C * N * N + C * Fi * P + C * P
+    nbytes = esize * (B * N * Fi + B * C * N * N + C * Fi * P + C * P
                   + B * N * C * O + B * N * N * C)
-    flops = B * C * (3 * N * N + N       # degree, rsqrt, d A' d^T
-                     + 2 * N * Fi * P    # (norm X) [Wq | Wk | Wv] or X [Wq | Wk | Wv]
-                     + 2 * N * N * min(Fi, P)  # norm X or norm (X W)
-                     + N * P             # bias
-                     + 2 * N * N * A     # Q_h K_h^T over all heads
-                     + 3 * H * N * N     # scale, tanh, head sum
-                     + 3 * N * N)        # mean, symmetrise
-    return nbytes, flops
+    mma = B * C * (2 * N * Fi * P        # (norm X) [Wq | Wk | Wv] or X [Wq | Wk | Wv]
+                   + 2 * N * N * min(Fi, P)  # norm X or norm (X W)
+                   + 2 * N * N * A)      # Q_h K_h^T over all heads
+    flops = mma + B * C * (3 * N * N + N   # degree, rsqrt, d A' d^T
+                           + N * P         # bias
+                           + 3 * H * N * N  # scale, tanh, head sum
+                           + 3 * N * N)    # mean, symmetrise
+    return nbytes, flops, products(esize, mma)
 
 
-def agg_cost(B, C, N, F):
-    """(bytes, flops) of one channel_agg call: the adjacency and x read
-    once, the output written once; the normalisation's operations (degree
-    sums, clamp and rsqrt, d_m on x and d_n on the sums) beside the
-    product's FMAs."""
-    nbytes = 4 * (B * C * N * N + B * N * F + B * C * N * F)
-    flops = B * C * (N * N + 2 * N + 2 * N * F + 2 * N * N * F)
-    return nbytes, flops
+def agg_cost(B, C, N, F, esize=4):
+    """(bytes, flops, product flops) of one channel_agg call: the
+    adjacency and x read once, the output written once; the
+    normalisation's operations (degree sums, clamp and rsqrt, d_m on x and
+    d_n on the sums) beside the product's FMAs; ``esize`` as gcn_cost's."""
+    nbytes = esize * (B * C * N * N + B * N * F + B * C * N * F)
+    mma = B * C * 2 * N * N * F
+    flops = mma + B * C * (N * N + 2 * N + 2 * N * F)
+    return nbytes, flops, products(esize, mma)
 
 
 def degrees_cost(B, C, N):
@@ -411,14 +485,15 @@ def degrees_cost(B, C, N):
     return 4 * (B * C * N * N + B * C * N), B * C * (N * N + 2 * N)
 
 
-def scores_cost(B, C, N, A, H, O):
-    """(bytes, flops) of one gmh_scores launch: Q and K read once, the
-    channels-last map written once."""
-    nbytes = 4 * (2 * B * C * N * A + B * N * N * C)
-    flops = B * C * (2 * N * N * A         # Q_h K_h^T over all heads
-                     + 3 * H * N * N       # scale, tanh, head sum
-                     + 3 * N * N)          # mean, symmetrise
-    return nbytes, flops
+def scores_cost(B, C, N, A, H, O, esize=4):
+    """(bytes, flops, product flops) of one gmh_scores launch: Q and K
+    read once, the channels-last map written once; ``esize`` as
+    gcn_cost's."""
+    nbytes = esize * (2 * B * C * N * A + B * N * N * C)
+    mma = B * C * 2 * N * N * A            # Q_h K_h^T over all heads
+    flops = mma + B * C * (3 * H * N * N   # scale, tanh, head sum
+                           + 3 * N * N)    # mean, symmetrise
+    return nbytes, flops, products(esize, mma)
 
 
 def gcn_bwd_cost(B, N, Fi, Fo, need_x, need_adj):
@@ -524,8 +599,12 @@ def tanh_count(B, C, N, H):
     return B * C * N * N * H
 
 
-def bound_ms(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound_ms(nbytes, flops, mma=0):
+    """The least time of a cost, in ms, and what bounds it: its bytes over
+    HBM's rate or its operations, the ``mma`` flops of bf16 products at the
+    bf16 tensor cores' peak and the rest at the f32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = mma / BF16_FLOP_PER_S + (flops - mma) / F32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -607,7 +686,7 @@ def path_shapes(models):
         agg.append((name, B, C, N, a.in_dim))
         scores.append((name, B, C, N, a.attn_dim, H, a.out_dim))
     return {"gcn": gcn, "gmh": gmh, "agg": agg, "scores": scores, **more_shapes(),
-            **grid_shapes()}
+            **grid_shapes(), **bf16_shapes()}
 
 
 def attention_layer_cases(name, c):
@@ -859,6 +938,101 @@ def tol_text(tol):
                        f"elementwise, max {v.max().item():.3e}" for k, v in tol.items()})
 
 
+# ------------------------------------------------------ the bf16 variants --
+#
+# The four forward kernels take bf16 tensors (a whole graph a block, N <=
+# 64) for the bf16 score networks (``sample.score_dtype: bf16``, the
+# default of community_small_CC).  Phase 3 holds each to its plain version
+# (``plain_in_f32``: the f32 plain function of the same bf16 inputs upcast,
+# rounded to bf16 once) within ``bf16_kernel_tol`` (one bf16 ulp of the
+# plain entry plus 1e-5 of the output's scale: both round an f32 value
+# once, from sums in another order), plus, for ``gmh_scores`` with bf16
+# products, ``bf16_scores_tol`` (the head sums' own rounding), and for
+# ``channel_agg`` with its bf16 norm, ``bf16_agg_tol``; at community_small_CC's
+# layer shapes (its widths are community_small's; N = 20, B = 128) and
+# grid_small's (N = 49, B = 8, kept out of the timing means: no config
+# samples grid_small in bf16).  A bf16 call counts under the kernel's own
+# name; the kernels line lists each variant as its own entry, its launches
+# those of the runs marked BF16_RUN, whose networks run in bf16.
+BF16_KERNELS = ("gcn_aggregate", "gmh_attention", "channel_agg", "gmh_scores")
+BF16_RUN = " [bf16 kernels]"
+
+
+def bf16_shapes():
+    """``<key>_bf16`` cases (community_small_CC's first and later layers)
+    and ``<key>_bf16_more`` cases (grid_small's) of the four kernels."""
+    from ccsd_tpu_torch.utils.config import get_config
+
+    out = {}
+    for name, suffix in ((CC_CONFIG, "_bf16"), (GRID_SMALL, "_bf16_more")):
+        c = get_config(name, seed=0, folder=HERE)
+        m, B, N = c.model, int(c.data.batch_size), int(c.data.max_node_num)
+        F = int(c.data.max_feat_num)
+        gmh, scores = attention_layer_cases(name, c)
+        out[f"gcn{suffix}"] = [(f"{name}.x.layers.{k}", B, N, Fi, m.nhid, 1.0)
+                               for k, Fi in enumerate((F, m.nhid))]
+        out[f"agg{suffix}"] = [(n, B, C, N_, Fi) for n, B, C, N_, Fi, *_ in gmh]
+        out[f"gmh{suffix}"], out[f"scores{suffix}"] = gmh, scores
+    return out
+
+
+def as_bf16(mk):
+    """The maker ``mk`` with its float tensors in bf16 (a channels-last
+    adjacency keeps its strides)."""
+    import torch
+
+    def make(case, gen, dev):
+        return tuple(a.to(torch.bfloat16) if isinstance(a, torch.Tensor) else a
+                     for a in mk(case, gen, dev))
+    return make
+
+
+def scores_inputs_bf16(case, gen, dev):
+    """scores_inputs in bf16: strided column blocks of one bf16 projection."""
+    import torch
+
+    _, B, C, N, A, H, O = case
+    qkv = torch.randn(C, B, N, 2 * A + O, generator=gen, device=dev).to(
+        torch.bfloat16).transpose(0, 1)
+    return (qkv[..., :A], qkv[..., A:2 * A], H, O)
+
+
+def widened(fn):
+    """fn, its outputs checked to be bf16 and widened to f32."""
+    import torch
+
+    def run(*a):
+        out = fn(*a)
+        outs = out if isinstance(out, tuple) else (out,)
+        check(all(o.dtype == torch.bfloat16 for o in outs),
+              f"a bf16 call returned {[o.dtype for o in outs]}")
+        outs = tuple(o.float() for o in outs)
+        return outs if isinstance(out, tuple) else outs[0]
+    return run
+
+
+def bf16_plain(plain):
+    """The plain version of a bf16 kernel (``plain_in_f32``)."""
+    import torch
+    from ccsd_tpu_torch.kernels.gcn import plain_in_f32
+
+    return lambda *a: plain_in_f32(plain, torch.bfloat16, *a)
+
+
+def bf16_tol_of(plain, extra=None):
+    """A tolerance maker of phase 3 for a bf16 kernel: ``bf16_kernel_tol`` of
+    each plain output, plus ``extra(*args)`` (an atol) on the first."""
+    from ccsd_tpu_torch.kernels.gcn import bf16_kernel_tol
+
+    def tol(*a):
+        ref = widened(bf16_plain(plain))(*a)
+        tols = [bf16_kernel_tol(r) for r in (ref if isinstance(ref, tuple) else (ref,))]
+        if extra is not None:
+            tols[0]["atol"] = tols[0]["atol"] + extra(*a)
+        return tols
+    return tol
+
+
 # ---------------------------------------------------------------- phases --
 
 def phase_device():
@@ -914,7 +1088,32 @@ def kernel_specs():
     f32 = lambda *args: KERNEL_TOL  # noqa: E731
     agg_bf16 = functools.partial(channel_agg, bf16=True)
     agg_bf16_plain = functools.partial(channel_agg_plain, bf16=True)
+    scores_bf16 = functools.partial(gmh_scores, bf16=True)
+    scores_bf16_plain = functools.partial(gmh_scores_plain, bf16=True)
+
+    def bf16(kname, variant, key, mk, kern, plain, extra=None):
+        return (f"{kname} (bf16)", variant, f"{key}_bf16", mk, widened(kern),
+                widened(bf16_plain(plain)), bf16_tol_of(plain, extra))
+
+    def norm_ulps(adj, x, *_):
+        return bf16_agg_tol(adj.float(), x.float())["atol"]
+
+    def head_sum_ulps(q, k, H, O):
+        return bf16_scores_tol(q.float(), k.float(), H, O)["atol"]
+
     return [
+        bf16("gcn_aggregate", "bf16", "gcn", as_bf16(gcn_inputs), gcn_aggregate,
+             gcn_aggregate_plain),
+        bf16("gmh_attention", "bf16 path layout", "gmh", as_bf16(gmh_path_inputs),
+             gmh_attention, gmh_attention_plain),
+        bf16("channel_agg", "bf16 path layout", "agg", as_bf16(agg_path_inputs), channel_agg,
+             channel_agg_plain),
+        bf16("channel_agg", "bf16 path layout, bf16 norm", "agg", as_bf16(agg_path_inputs),
+             agg_bf16, agg_bf16_plain, norm_ulps),
+        bf16("gmh_scores", "bf16, bf16 products", "scores", scores_inputs_bf16, scores_bf16,
+             scores_bf16_plain, head_sum_ulps),
+        bf16("gmh_scores", "bf16, f32 products", "scores", scores_inputs_bf16, gmh_scores,
+             gmh_scores_plain),
         ("gcn_aggregate", "f32", "gcn", gcn_inputs, gcn_aggregate, gcn_aggregate_plain, f32),
         ("gcn_degrees", "f32", "degrees", degrees_inputs, gcn_degrees, gcn_degrees_plain, f32),
         ("gmh_attention", "f32", "gmh", gmh_inputs, gmh_attention, gmh_attention_plain, f32),
@@ -956,7 +1155,7 @@ def phase_kernels(shapes, dev):
         for case in shapes[key] + shapes.get(f"{key}_more", []):
             args = mk(case, gen, dev)
             got = kern(*args)
-            tiled = case[2 if key == "gcn" else 3] > 64
+            tiled = case[2 if key.startswith("gcn") else 3] > 64
             again = kern(*args) if tiled else None
             torch.cuda.synchronize()
             ref = plain(*args)
@@ -965,7 +1164,8 @@ def phase_kernels(shapes, dev):
             again = again if again is None or isinstance(again, tuple) else (again,)
             for i, (g, r) in enumerate(zip(got, ref)):
                 check(g.shape == r.shape, f"{kname} {case[0]}: shape {g.shape} vs {r.shape}")
-                abs_err, rel_err, ok = compare(g, r, tol)
+                tol_i = tol[i] if isinstance(tol, list) else tol
+                abs_err, rel_err, ok = compare(g, r, tol_i)
                 more = {}
                 if tiled:
                     more["repeat_bit_identical"] = bool(torch.equal(g, again[i]))
@@ -973,7 +1173,7 @@ def phase_kernels(shapes, dev):
                         more["symmetric"] = bool(torch.equal(g, g.transpose(1, 2)))
                 say("kernels", kernel=kname, variant=variant, case=case[0], output=i,
                     shape="x".join(map(str, g.shape)), max_abs_err=f"{abs_err:.3e}",
-                    max_rel_err=f"{rel_err:.3e}", tol=tol_text(tol), ok=ok, **more)
+                    max_rel_err=f"{rel_err:.3e}", tol=tol_text(tol_i), ok=ok, **more)
                 check(ok, f"{kname} ({variant}) {case[0]} output {i} disagrees "
                           "with its plain version")
                 check(all(more.values()), f"{kname} ({variant}) {case[0]} output {i}: {more}")
@@ -1218,6 +1418,8 @@ def sample_launches(config, fused, rounds=1):
     per_layer = ["channel_agg", "gmh_scores"] if fused else ["gmh_attention"]
     if N > MAX_N and not fused:
         per_layer.append("gmh_projection")
+    if "GMH" in str(config.model.x):  # ScoreNetworkX_GMH: depth AttentionLayers (N <= 64)
+        depth, L = 0, L + depth
     expect = {k: 0 for k in LAUNCHES}
     expect["gcn_aggregate"] = evals * depth
     for k in per_layer:
@@ -1248,17 +1450,17 @@ def check_graphs(res, config, graphs, path):
 
 
 def sample_once(train_adjs, fused, name="community_small", graphs=128, phase="sample",
-                weights=None):
-    """One 1000-step sample of ``graphs`` graphs (one round of the config's
-    batch) after a 10-step warm-up, ``weights`` as ``smoke_sampler`` takes
-    them; checks the graphs and the exact launch counts; returns the
-    counts."""
+                weights=None, steps=None):
+    """One sample of ``graphs`` graphs (one round of the config's batch;
+    the config's 1000 steps unless ``steps`` says) after a 10-step warm-up,
+    ``weights`` as ``smoke_sampler`` takes them; checks the graphs and the
+    exact launch counts; returns the counts."""
     import numpy as np
     from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
 
     smoke_sampler(sample_config(steps=10, fused=fused, name=name),
                   train_adjs, weights).sample(graphs)  # warm-up
-    config = sample_config(fused=fused, name=name)
+    config = sample_config(steps=steps, fused=fused, name=name)
     steps = int(config.sde.adj.num_scales)
     expect = sample_launches(config, fused)
 
@@ -1285,10 +1487,10 @@ def sample_once(train_adjs, fused, name="community_small", graphs=128, phase="sa
 
 
 def phase_sample(train_adjs, name="community_small", graphs=128, phase="sample",
-                 weights=None):
+                 weights=None, steps=None):
     """The default (fused fast) sample, then the unfused one; returns
     {path: launches} of the two runs."""
-    return {f"{name} {p}": sample_once(train_adjs, fused, name, graphs, phase, weights)
+    return {f"{name} {p}": sample_once(train_adjs, fused, name, graphs, phase, weights, steps)
             for p, fused in (("default", True), ("unfused", False))}
 
 
@@ -1849,10 +2051,12 @@ def phase_grid_small_train():
 
 
 def phase_grid_small_eval(ckpt):
-    """grid_small's checkpoint ``ckpt`` by the JAX protocol, its EMA
+    """grid_small's checkpoint ``ckpt`` by the JAX protocol cut to its
+    first round of 8 graphs (``sample.max_samples``, GRID_SMALL_EVAL_GRAPHS;
+    the protocol's three rounds took ~165 s of the smoke's time), its EMA
     weights (the config's ``sample.use_ema: true``), Reverse + Langevin,
-    on both paths: exact launch counts of its three rounds of 8, 20 graphs
-    kept, eight finite MMDs; returns {path: launches}."""
+    on both paths: exact launch counts, the graphs scored against the 20
+    test graphs, eight finite MMDs; returns {path: launches}."""
     from ccsd_tpu_torch.data.loader import generated_adjs, split
     from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
     from ccsd_tpu_torch.sampling.sampler import Sampler, sampling_rounds
@@ -1863,13 +2067,15 @@ def phase_grid_small_eval(ckpt):
         cfg = train_config(os.path.join(HERE, "build", "smoke_grid_small"), "smoke",
                            GRID_SMALL_EPOCHS, data=GRID_SMALL)
         cfg.ckpt, cfg.sample.fused = ckpt, fused
+        cfg.sample.max_samples = GRID_SMALL_EVAL_GRAPHS
         check(cfg.sample.use_ema and cfg.sampler.predictor == "Reverse",
               f"{GRID_SMALL} samples with use_ema {cfg.sample.use_ema}, predictor "
               f"{cfg.sampler.predictor}")
         adjs = generated_adjs(GRID_SMALL, int(cfg.get("seed", 42)), int(cfg.data.max_node_num))
         tr, te = split(len(adjs), float(cfg.data.test_split))
         sampler = Sampler(cfg, adjs[tr], adjs[te])
-        batch, rounds = sampling_rounds(int(cfg.data.batch_size), len(adjs[te]))
+        batch, rounds = sampling_rounds(int(cfg.data.batch_size), len(adjs[te]),
+                                        max_samples=GRID_SMALL_EVAL_GRAPHS)
         reset_launches()
         res = sampler.sample()
         launches = dict(LAUNCHES)
@@ -1877,14 +2083,14 @@ def phase_grid_small_eval(ckpt):
         check(launches == expect, f"{GRID_SMALL} eval {path}: launches {launches}, "
                                   f"expected exactly {expect}")
         N = int(cfg.data.max_node_num)
-        check(res["adj"].shape == (len(adjs[te]), N, N) and res["finite"],
+        check(res["adj"].shape == (GRID_SMALL_EVAL_GRAPHS, N, N) and res["finite"],
               f"{GRID_SMALL} eval {path}: {res['adj'].shape} graphs, finite {res['finite']}")
         check("ema" in res["weights"], f"{GRID_SMALL} sampled from {res['weights']}")
         mmds = {**res["mmd"], **(res["cc_mmd"] or {})}
         check(len(mmds) == 8 and all(math.isfinite(v) for v in mmds.values()),
               f"{GRID_SMALL} eval {path}: MMDs {mmds}")
         say("grid_small_eval", path=repr(path), weights=repr(res["weights"]),
-            graphs=len(adjs[te]), batch=batch, rounds=rounds,
+            graphs=GRID_SMALL_EVAL_GRAPHS, test_graphs=len(adjs[te]), batch=batch, rounds=rounds,
             steps=int(cfg.sde.adj.num_scales), steps_per_s=f"{res['steps_per_s']:.2f}",
             mean_edges=f"{res['adj'].sum((1, 2)).mean() / 2:.3f}",
             mmd=json.dumps(res["mmd"]), cc_mmd=json.dumps(res["cc_mmd"]),
@@ -2137,41 +2343,41 @@ def train_cc(config_name, epochs, subdir, phase):
 
 def phase_cc_sample(ckpt):
     """The cc_train checkpoint by the JAX protocol on both paths at
-    ``sample.score_dtype: f32``, with its gates; the default (bf16) must
-    raise; returns {path: launches}."""
+    ``sample.score_dtype: f32`` and at the config's default (bf16), with
+    its gates; returns {path: launches}."""
     return sample_cc(CC_CONFIG, CC_TRAIN_EPOCHS, "smoke_cc", ckpt, "cc_sample")
 
 
 def sample_cc(config_name, epochs, subdir, ckpt, phase):
     """The checkpoint ``ckpt`` of ``train_cc`` (under build/``subdir``) by
-    the JAX protocol on both paths at ``sample.score_dtype: f32``: exact
-    launches, the CC checks of ``check_cc_sample``, finite graph and CC
-    MMDs, cells per CC, steps/s, peak memory; the config's default (bf16)
-    must raise; returns {path: launches}."""
+    the JAX protocol on both paths, at ``sample.score_dtype: f32`` and at
+    the config's default score dtype (bf16 for community_small_CC's data,
+    as in the JAX package): exact launches, the CC checks of
+    ``check_cc_sample``, finite graph and CC MMDs, cells per CC, steps/s,
+    peak memory; returns {path: launches}, the bf16 runs' names ending
+    BF16_RUN."""
     import torch
     from ccsd_tpu_torch.data.loader import generated_adjs, split
     from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
-    from ccsd_tpu_torch.sampling.sampler import Sampler, sampling_rounds
+    from ccsd_tpu_torch.sampling.sampler import Sampler, sampling_rounds, score_dtype_default
 
     folder = os.path.join(HERE, "build", subdir)
     cfg = cc_train_config(folder, "smoke", epochs, config_name)
     adjs = generated_adjs(str(cfg.data.data), int(cfg.get("seed", 42)),
                           int(cfg.data.max_node_num))
     tr, te = split(len(adjs), float(cfg.data.test_split))
-    cfg.ckpt = ckpt
-    try:
-        Sampler(cfg, adjs[tr], adjs[te]).sample()
-        raised = False
-    except NotImplementedError as e:
-        raised = "sample.score_dtype" in str(e)
-    check(raised, f"{config_name} at its default score dtype (bf16) did not raise")
     batch, rounds = sampling_rounds(int(cfg.data.batch_size), len(adjs[te]),
                                     cfg.sample.get("divide_batch"))
     out = {}
-    for fused in (True, False):
+    for score_dtype, fused in (("f32", True), ("f32", False), (None, True), (None, False)):
         path = "default (sample.fused on)" if fused else "sample.fused: false"
+        path += f", sample.score_dtype: {score_dtype or 'default'}"
         cfg = cc_train_config(folder, "smoke", epochs, config_name)
-        cfg.ckpt, cfg.sample.fused, cfg.sample.score_dtype = ckpt, fused, "f32"
+        cfg.ckpt, cfg.sample.fused = ckpt, fused
+        if score_dtype:
+            cfg.sample.score_dtype = score_dtype
+        ungated = score_dtype is None and (config_name, fused) in BF16_NOT_GATED
+        cfg.sample.eval = not ungated  # an ungated run is scored below only if finite
         sampler = Sampler(cfg, adjs[tr], adjs[te])
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -2181,11 +2387,25 @@ def sample_cc(config_name, epochs, subdir, ckpt, phase):
         expect = sample_launches(cfg, fused, rounds)
         check(launches == expect, f"{config_name} {path}: launches {launches}, expected exactly "
                                   f"{expect}")
+        want = score_dtype or score_dtype_default(True, cfg.data.data)
+        check((res["score_dtype"], res["dtype"]) == (want, "f32"),
+              f"{config_name} {path}: resolved {res['score_dtype']}, {res['dtype']}")
+        run = f"{config_name} sample {'default' if fused else 'unfused'}"
+        out[run if res["score_dtype"] == "f32" else f"{run} bf16{BF16_RUN}"] = launches
+        if ungated and not res["finite"]:
+            say(phase, path=repr(path), score_dtype=res["score_dtype"], finite=False,
+                gated=False, steps_per_s=f"{res['steps_per_s']:.2f}",
+                note="left f32, as BF16_NOT_GATED records", launches=json.dumps(launches))
+            continue
+        if ungated:
+            res.update(sampler.evaluate(adjs[te], res["adj"], res["ccs"]))
+            res["eval_seconds"] = float("nan")
         check_cc_sample(res, cfg, len(adjs[te]), f"{config_name} {path}")
         mmds = {**res["mmd"], **res["cc_mmd"]}
         check(len(mmds) == 8 and all(math.isfinite(v) for v in mmds.values()),
               f"{config_name} {path}: MMDs {mmds}")
-        say(phase, path=repr(path), weights=repr(res["weights"]), graphs=len(adjs[te]),
+        say(phase, path=repr(path), score_dtype=res["score_dtype"], dtype=res["dtype"],
+            weights=repr(res["weights"]), graphs=len(adjs[te]),
             batch=batch, rounds=rounds, steps=int(cfg.sde.adj.num_scales),
             steps_per_s=f"{res['steps_per_s']:.2f}",
             sampling_seconds=f"{res['sampling_time']:.3f}",
@@ -2194,7 +2414,6 @@ def sample_cc(config_name, epochs, subdir, ckpt, phase):
             cc_mmd=json.dumps(res["cc_mmd"]), eval_seconds=f"{res['eval_seconds']:.3f}",
             peak_memory_gib=f"{peak / 2**30:.3f}", card=repr(smi_name_power()),
             launches=json.dumps(launches))
-        out[f"{config_name} sample {'default' if fused else 'unfused'}"] = launches
     return out
 
 
@@ -2389,6 +2608,276 @@ def phase_s4_sample(ckpt, train_adjs):
             mean_nodes=f"{res['flags'].sum(-1).mean():.3f}", card=repr(smi_name_power()),
             launches=json.dumps(launches), expected=json.dumps(expect))
         out[f"community_small S4 {'default' if fused else 'unfused'}"] = launches
+    return out
+
+
+# ------------------------------------ bf16 sampling, ScoreNetworkX_GMH --
+
+def phase_bf16_models(dev):
+    """community_small_CC's networks as ``sample.score_dtype: bf16`` runs
+    them (the score functions' bf16 copies of seeded weights, f32 scores)
+    at CC_NET_B on the card against a float64 CPU copy: ScoreNetworkX,
+    ScoreNetworkA (graph mode, unfused and fused fast), ScoreNetworkA_CC and
+    ScoreNetworkA_Base_CC unfused and fused, ScoreNetworkF unfused and
+    fused.  The card may lie BF16_NET_FACTOR times as far from float64 as
+    the CPU's bf16 copy (the plain versions) of the same score function,
+    and never need be closer than phase 4's tolerance; exact launches per
+    call; returns each network's launches (bf16 kernels)."""
+    import copy
+
+    import torch
+    from ccsd_tpu_torch.diffusion.losses import get_score_fn, get_score_fn_cc
+    from ccsd_tpu_torch.diffusion.sde import VPSDE
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.models.registry import load_model, load_model_params, with_fused
+
+    sde = VPSDE(N=1000, beta_min=0.1, beta_max=1.0)
+    out = {}
+    for config_name in (CC_CONFIG, BASE_CC_CONFIG):
+        c = base_cc_config(config_name)
+        defs = dict(zip(("x", "adj", "rank2"), load_model_params(c)))
+        graph_a = dict(load_model_params(sample_config())[1], max_node_num=defs["adj"][
+            "max_node_num"])
+        g = torch.Generator().manual_seed(5)
+        base = {n: load_model(d, generator=g) for n, d in dict(defs, graph_a=graph_a).items()}
+        x, adj, rank2, flags = cc_inputs(c, CC_NET_B, 7)
+        t = torch.full((CC_NET_B,), 0.5)
+        depth, L = int(c.model.depth), int(c.model.num_layers)
+        adj_net = str(c.model.adj)
+        cases = [(f"{adj_net} unfused", "adj", defs["adj"], {"gmh_attention": L}),
+                 (f"{adj_net} fused", "adj", with_fused(defs)["adj"],
+                  {"channel_agg": L, "gmh_scores": L})]
+        if config_name == CC_CONFIG:
+            cases = [("ScoreNetworkX", "x", defs["x"], {"gcn_aggregate": depth}),
+                     ("ScoreNetworkA unfused", "graph_a", graph_a, {"gmh_attention": L}),
+                     ("ScoreNetworkA fused fast", "graph_a",
+                      with_fused({"a": graph_a})["a"], {"channel_agg": L, "gmh_scores": L}),
+                     *cases, ("ScoreNetworkF unfused", "rank2", defs["rank2"], {}),
+                     ("ScoreNetworkF fused", "rank2", with_fused(defs)["rank2"], {})]
+        for name, net, d, expect in cases:
+            model = load_model(d).eval()
+            model.load_state_dict(base[net].state_dict())
+            ref64 = copy.deepcopy(base[net]).double()
+
+            def score(m, bf16, *a):
+                if net == "graph_a":
+                    return get_score_fn(sde, m, bf16)(a[0], a[1], a[3], a[4])
+                return get_score_fn_cc(sde, m, bf16)(*a)
+
+            card = copy.deepcopy(model).to(dev)
+            args = (x, adj, rank2, flags, t)
+            reset_launches()
+            with torch.no_grad():
+                got = score(card, torch.bfloat16, *(a.to(dev) for a in args))
+                torch.cuda.synchronize()
+                launched = {k: v for k, v in LAUNCHES.items() if v}
+                cpu16 = score(model, torch.bfloat16, *args).double()
+                ref = score(ref64, None, *(a.double() for a in args))
+            check(got.dtype == torch.float32, f"bf16 {name}: scores in {got.dtype}")
+            check(launched == expect, f"bf16 {name}: launches {launched}, expected {expect}")
+            cpu_err = (cpu16 - ref).abs().max().item()
+            tol = dict(MODEL_TOL, atol=max(MODEL_TOL["atol"], BF16_NET_FACTOR * cpu_err))
+            abs_err, rel_err, ok = compare(got.cpu().double(), ref, tol)
+            say("bf16_models", model=f"{config_name} {name}", shape="x".join(map(str, got.shape)),
+                launches=json.dumps(launched), max_abs_err=f"{abs_err:.3e}",
+                max_rel_err=f"{rel_err:.3e}", max_abs_ref=f"{ref.abs().max().item():.3e}",
+                cpu_bf16_max_abs_err=f"{cpu_err:.3e}", tol=json.dumps(tol), ok=ok)
+            check(ok, f"bf16 {config_name} {name} on the card disagrees with the CPU copy")
+            out[f"{config_name} bf16 {name}{BF16_RUN}"] = launched
+    return out
+
+
+def recording_sampler(cfg, *adjs):
+    """A ``Sampler`` whose networks record the dtypes of their tensor
+    inputs (x, the adjacency, the rank-2 tensor): {network: {dtype}}."""
+    from ccsd_tpu_torch.sampling.sampler import Sampler
+
+    seen = {}
+
+    class Recording(Sampler):
+        def load_models(self, read=None):
+            configt, models, source = super().load_models(read)
+            for n, m in models.items():
+                def hook(mod, args, kwargs, n=n):
+                    ts = list(args[:2]) + [kwargs.get("rank2")]
+                    seen.setdefault(n, set()).update(str(t.dtype) for t in ts
+                                                     if t is not None)
+                m.register_forward_pre_hook(hook, with_kwargs=True)
+            return configt, models, source
+
+    return Recording(cfg, *adjs), seen
+
+
+def phase_carry_bf16(ckpt, train_adjs, cc_ckpt):
+    """``sample.dtype: bf16`` (the bf16 reverse diffusion carry) on the
+    default path: community_small's train-phase checkpoint (128 graphs) and
+    community_small_CC's cc_train checkpoint (the JAX protocol, at its
+    default bf16 score networks), 1000 steps each: every network sees bf16
+    carries, the outputs are finite and valid, exact launches (the graph
+    networks cast the carry up to their f32 parameters, so community_small
+    launches its f32 kernels; community_small_CC's networks run in bf16);
+    prints steps/s; returns {run: launches}."""
+    from ccsd_tpu_torch.data.loader import generated_adjs, split
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.sampling.sampler import sampling_rounds
+
+    out = {}
+    cfg = train_config(os.path.join(HERE, "build", "smoke_train"), "smoke", TRAIN_EPOCHS)
+    cfg.ckpt, cfg.sample.dtype = ckpt, "bf16"
+    sampler, seen = recording_sampler(cfg, train_adjs)
+    reset_launches()
+    res = sampler.sample(128)
+    launches = dict(LAUNCHES)
+    path = "community_small default, sample.dtype: bf16"
+    check_graphs(res, cfg, 128, path)
+    expect = sample_launches(cfg, True)
+    check(launches == expect, f"{path}: launches {launches}, expected exactly {expect}")
+    check(res["dtype"] == "bf16" and all(v == {"torch.bfloat16"} for v in seen.values())
+          and len(seen) == 2, f"{path}: dtype {res['dtype']}, network inputs {seen}")
+    say("carry_bf16", path=repr(path), graphs=128, steps=int(cfg.sde.adj.num_scales),
+        score_dtype=res["score_dtype"], dtype=res["dtype"], inputs=json.dumps(
+            {k: sorted(v) for k, v in seen.items()}), steps_per_s=f"{res['steps_per_s']:.2f}",
+        mean_edges=f"{res['adj'].sum((1, 2)).mean() / 2:.3f}", card=repr(smi_name_power()),
+        launches=json.dumps(launches))
+    out["community_small sample.dtype bf16"] = launches
+
+    cfg = cc_train_config(os.path.join(HERE, "build", "smoke_cc"), "smoke", CC_TRAIN_EPOCHS)
+    cfg.ckpt, cfg.sample.dtype = cc_ckpt, "bf16"
+    adjs = generated_adjs(str(cfg.data.data), int(cfg.get("seed", 42)),
+                          int(cfg.data.max_node_num))
+    tr, te = split(len(adjs), float(cfg.data.test_split))
+    sampler, seen = recording_sampler(cfg, adjs[tr], adjs[te])
+    reset_launches()
+    res = sampler.sample()
+    launches = dict(LAUNCHES)
+    path = f"{CC_CONFIG} default, sample.dtype: bf16"
+    _, rounds = sampling_rounds(int(cfg.data.batch_size), len(adjs[te]))
+    expect = sample_launches(cfg, True, rounds)
+    check(launches == expect, f"{path}: launches {launches}, expected exactly {expect}")
+    check_cc_sample(res, cfg, len(adjs[te]), path)
+    check((res["score_dtype"], res["dtype"]) == ("bf16", "bf16") and len(seen) == 3
+          and all(v == {"torch.bfloat16"} for v in seen.values()),
+          f"{path}: dtypes {res['score_dtype']}, {res['dtype']}, network inputs {seen}")
+    mmds = {**res["mmd"], **res["cc_mmd"]}
+    check(all(math.isfinite(v) for v in mmds.values()), f"{path}: MMDs {mmds}")
+    say("carry_bf16", path=repr(path), graphs=len(adjs[te]), score_dtype=res["score_dtype"],
+        dtype=res["dtype"], inputs=json.dumps({k: sorted(v) for k, v in seen.items()}),
+        steps_per_s=f"{res['steps_per_s']:.2f}", cells_per_cc=f"{res['cells_per_cc']:.3f}",
+        mmd=json.dumps(res["mmd"]), cc_mmd=json.dumps(res["cc_mmd"]),
+        card=repr(smi_name_power()), launches=json.dumps(launches))
+    out[f"{CC_CONFIG} sample.dtype bf16{BF16_RUN}"] = launches
+    return out
+
+
+def gmh_x_config(folder=None, name="smoke", epochs=None):
+    """community_small with ``model.x: ScoreNetworkX_GMH`` (its X network
+    of depth AttentionLayers at the config's widths: the JAX package's
+    test of the network, tests/models/test_fused_attention.py:61-64)."""
+    c = train_config(folder or os.path.join(HERE, "build", "smoke_gmh_x"), name,
+                     epochs or GMH_X_EPOCHS)
+    c.model.x = "ScoreNetworkX_GMH"
+    return c
+
+
+def phase_gmh_x(train_adjs, dev):
+    """ScoreNetworkX_GMH (community_small's widths): the network unfused,
+    fused and fused fast (B = 128, seeded weights) on the card against a
+    float64 CPU copy, with exact launches; GMH_X_EPOCHS epochs through
+    ``Trainer`` (finite losses, exact launches an epoch, train steps/s);
+    then ``Sampler`` (128 graphs, 1000 steps) on both paths with exact
+    launches and valid graphs, on seeded weights with the adjacency head
+    scaled as phase 5's (``smoke_sampler``): the 20-epoch checkpoint, like
+    seeded weights at full scale, leaves f32 within the 1000 steps (a CPU
+    rehearsal at B = 8: every entry NaN, quantized to 1); returns {run:
+    launches}."""
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+    from ccsd_tpu_torch.data.loader import init_flags
+    from ccsd_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ccsd_tpu_torch.models.registry import load_model, load_model_params, with_fused
+    from ccsd_tpu_torch.ops.masks import mask_adjs, mask_x
+    from ccsd_tpu_torch.training.trainer import Trainer
+
+    config = gmh_x_config()
+    dx = load_model_params(config)[0]
+    depth, L = int(config.model.depth), int(config.model.num_layers)
+    check(dx["model_type"] == "ScoreNetworkX_GMH", f"model.x gave {dx['model_type']}")
+    net = load_model(dx, generator=torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(3)
+    B, N, F = 128, int(config.data.max_node_num), int(config.data.max_feat_num)
+    flags = torch.from_numpy(init_flags(train_adjs, B, rng))
+    x = mask_x(torch.from_numpy(rng.standard_normal((B, N, F)).astype(np.float32)), flags)
+    adj = mask_adjs(sym(torch.from_numpy(rng.standard_normal((B, N, N)).astype(np.float32))),
+                    flags)
+    with torch.no_grad():
+        ref = copy.deepcopy(net).double()(x.double(), adj.double(), flags.double())
+    out = {}
+    for name, d, expect, tol in (
+            ("unfused", dx, {"gmh_attention": depth}, MODEL_TOL),
+            ("fused f32", with_fused({"x": dx}, fast=False)["x"],
+             {"channel_agg": depth, "gmh_scores": depth}, MODEL_TOL),
+            ("fused fast", with_fused({"x": dx})["x"],
+             {"channel_agg": depth, "gmh_scores": depth}, BF16_MODEL_TOL)):
+        model = load_model(d).eval()
+        model.load_state_dict(net.state_dict())
+        card = model.to(dev)
+        reset_launches()
+        with torch.no_grad():
+            got = card(x.to(dev), adj.to(dev), flags.to(dev))
+            torch.cuda.synchronize()
+        launched = {k: v for k, v in LAUNCHES.items() if v}
+        check(launched == expect, f"ScoreNetworkX_GMH {name}: launches {launched}, expected "
+                                  f"{expect}")
+        abs_err, rel_err, ok = compare(got.cpu().double(), ref, tol)
+        say("gmh_x", model=f"ScoreNetworkX_GMH {name}", shape="x".join(map(str, got.shape)),
+            launches=json.dumps(launched), max_abs_err=f"{abs_err:.3e}",
+            max_rel_err=f"{rel_err:.3e}", tol=json.dumps(tol), ok=ok)
+        check(ok, f"ScoreNetworkX_GMH {name} on the card disagrees with the CPU copy")
+        out[f"ScoreNetworkX_GMH {name}"] = launched
+
+    shutil.rmtree(config.folder, ignore_errors=True)
+    trainer = Trainer(config, adjs=train_adjs)
+    check([len(trainer.train_loader), len(trainer.test_loader)] == [1, 1],
+          "an epoch of community_small is not one train and one test batch")
+    reset_launches()
+    t0 = time.perf_counter()
+    name = trainer.train()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    per_epoch = {"gmh_attention": 2 * (depth + L), "gmh_attention_bwd": depth + L}
+    expect = {k: GMH_X_EPOCHS * per_epoch.get(k, 0) for k in LAUNCHES}
+    check(launches == expect, f"ScoreNetworkX_GMH train: launches {launches}, expected "
+                              f"exactly {expect}")
+    hist = np.asarray(trainer.history["train"])
+    check(np.isfinite(hist).all(), "non-finite ScoreNetworkX_GMH training losses")
+    say("gmh_x", epochs=trainer.epoch, ckpt=f"{name}_final", seconds=f"{seconds:.3f}",
+        **{f"loss_{n}": f"{hist[0][i]:.4f}->{hist[-1][i]:.4f}"
+           for i, n in enumerate(trainer.names)},
+        launches_per_epoch=json.dumps({k: v // GMH_X_EPOCHS for k, v in launches.items() if v}))
+    say("train_steps_per_s", config="community_small ScoreNetworkX_GMH",
+        steps_per_s=f"{trainer.step / seconds:.2f}", card=repr(smi_name_power()))
+    out["community_small ScoreNetworkX_GMH train"] = launches
+
+    for fused in (True, False):
+        path = "default (sample.fused, sample.fast on)" if fused else "sample.fused: false"
+        cfg = gmh_x_config()
+        cfg.sample.fused = fused
+        sampler = smoke_sampler(cfg, train_adjs)
+        reset_launches()
+        res = sampler.sample(128)
+        launches = dict(LAUNCHES)
+        expect = sample_launches(cfg, fused)
+        check_graphs(res, cfg, 128, f"ScoreNetworkX_GMH {path}")
+        check(launches == expect, f"ScoreNetworkX_GMH {path}: launches {launches}, expected "
+                                  f"exactly {expect}")
+        say("gmh_x", path=repr(path), weights=repr(res["weights"]), graphs=128,
+            steps=int(cfg.sde.adj.num_scales), steps_per_s=f"{res['steps_per_s']:.2f}",
+            mean_edges=f"{res['adj'].sum((1, 2)).mean() / 2:.3f}",
+            card=repr(smi_name_power()), launches=json.dumps(launches))
+        out[f"community_small ScoreNetworkX_GMH {'default' if fused else 'unfused'}"] = launches
     return out
 
 
@@ -2693,6 +3182,28 @@ def timing_specs():
                    functools.partial(gmh_scores_plain, bf16=True)),
           "f32": (gmh_scores, gmh_scores_plain)}, None, {},
          lambda c: scores_cost(*c[1:])),
+        # the bf16 variants (N <= 64): community_small_CC's shapes on the
+        # path, grid_small's kept out of the means; bytes at 2 an element
+        ("gcn_aggregate (bf16)", "ccsd_tpu_torch/csrc/gcn_aggregate.cu",
+         "ccsd_tpu/ops/pallas/gcn.py:45", "gcn_bf16", as_bf16(gcn_inputs),
+         {"bf16": (gcn_aggregate, bf16_plain(gcn_aggregate_plain))}, baddbmm_of_norm, {},
+         lambda c: gcn_cost(*c[1:5], esize=2)),
+        ("gmh_attention (bf16)", "ccsd_tpu_torch/csrc/gmh_attention.cu",
+         "ccsd_tpu/ops/pallas/gmh_attention.py:62", "gmh_bf16", as_bf16(gmh_path_inputs),
+         {"bf16": (gmh_attention, bf16_plain(gmh_attention_plain))}, None, {},
+         lambda c: gmh_cost(*c[1:], esize=2)),
+        ("channel_agg (bf16)", "ccsd_tpu_torch/csrc/channel_agg.cu",
+         "tools/probe_pallas_agg.py:43 (agg_pallas), tools/probe_pallas_agg.py:64 "
+         "(agg_pallas_2d)", "agg_bf16", as_bf16(agg_path_inputs),
+         {"bf16": (channel_agg, bf16_plain(channel_agg_plain))}, matmul_of_norm, {},
+         lambda c: agg_cost(*c[1:], esize=2)),
+        ("gmh_scores (bf16)", "ccsd_tpu_torch/csrc/gmh_scores.cu",
+         "tools/pallas_scores_probe.py:85 (make_pallas_reg), "
+         "tools/pallas_scores_probe.py:127 (make_pallas)", "scores_bf16", scores_inputs_bf16,
+         {"bf16 products": (functools.partial(gmh_scores, bf16=True),
+                            bf16_plain(functools.partial(gmh_scores_plain, bf16=True))),
+          "f32 products": (gmh_scores, bf16_plain(gmh_scores_plain))}, None, {},
+         lambda c: scores_cost(*c[1:], esize=2)),
         ("gcn_aggregate_bwd", "ccsd_tpu_torch/csrc/gcn_aggregate_bwd.cu",
          "ccsd_tpu/ops/pallas/gcn.py:45 (the gradient of gcn_aggregate_pallas; the JAX "
          "package differentiates the plain layer)", "gcn_bwd", gcn_bwd_inputs,
@@ -2753,6 +3264,8 @@ def tanh_rate(dev):
 # the attention map kernels' tanhf calls of a case: (B, C, N, H) by key
 TANH_CASE = {"gmh": lambda c: (c[1], c[2], c[3], c[7]),
              "scores": lambda c: (c[1], c[2], c[3], c[5]),
+             "gmh_bf16": lambda c: (c[1], c[2], c[3], c[7]),
+             "scores_bf16": lambda c: (c[1], c[2], c[3], c[5]),
              "score_grad": lambda c: (c[1], c[2], c[3], c[7])}
 # the keys whose cases above N = 64 replay GRID_TIMING_ITERS times, and the
 # place of N in a case of each
@@ -3004,7 +3517,8 @@ def main(argv) -> int:
         runs["grid ScoreNetworkX"] = timed("grid", phase_grid_x, dev)
         runs.update({f"grid ScoreNetworkA {k}": v
                      for k, v in timed("grid_a", phase_grid_a, dev).items()})
-        runs.update(timed("sample", phase_sample, train_adjs))
+        runs.update(timed("sample", phase_sample, train_adjs, "community_small", 128,
+                          "sample", None, SAMPLE_STEPS))
         # the train batch: all graphs but the first int(test_split M)
         n_train = len(train_adjs) - int(float(config.data.test_split) * len(train_adjs))
         shapes.update(train_shapes({"x": x_net, "adj": adj_net}, n_train))
@@ -3022,11 +3536,13 @@ def main(argv) -> int:
         # scale tried: scripts/random_weight_divergence.py)
         grid_adjs = generated_adjs(GRID_CONFIG, 0, 361)
         runs.update(timed("grid_sample", phase_sample, grid_adjs, GRID_CONFIG, 8,
-                          "grid_sample", grid_small_ckpt_path(gs_ckpt)))
+                          "grid_sample", grid_small_ckpt_path(gs_ckpt), GRID_SAMPLE_STEPS))
         runs[f"{GRID_CONFIG} train"] = timed("grid_train", phase_grid_train, dev)
         runs.update(timed("cc_models", phase_cc_models, dev))
+        runs.update(timed("bf16_models", phase_bf16_models, dev))
         runs[f"{CC_CONFIG} train"], cc_ckpt = timed("cc_train", phase_cc_train)
         runs.update(timed("cc_sample", phase_cc_sample, cc_ckpt))
+        runs.update(timed("carry_bf16", phase_carry_bf16, ckpt, train_adjs, cc_ckpt))
         timed("ts_models", phase_ts_models, dev)
         runs[f"{TS_CONFIG} train"], ts_ckpt = timed("ts_train", phase_ts_train)
         runs.update(timed("ts_sample", phase_ts_sample, ts_ckpt))
@@ -3038,9 +3554,16 @@ def main(argv) -> int:
                           "smoke_base_cc", base_ckpt, "base_cc_sample"))
         runs.update(timed("grid_cc", phase_grid_cc))
         runs.update(timed("s4_sample", phase_s4_sample, ckpt, train_adjs))
+        runs.update(timed("gmh_x", phase_gmh_x, train_adjs, dev))
         from ccsd_tpu_torch.kernels import LAUNCHES
 
-        launches = {k: {p: run.get(k, 0) for p, run in runs.items()} for k in LAUNCHES}
+        # each kernel's launches by run; a bf16 variant's from the runs whose
+        # networks ran in bf16, the f32 kernel's from the others
+        bf16_runs = {p for p in runs if p.endswith(BF16_RUN)}
+        launches = {k: {p: run.get(k, 0) for p, run in runs.items() if p not in bf16_runs}
+                    for k in LAUNCHES}
+        launches.update({f"{k} (bf16)": {p: runs[p].get(k, 0) for p in bf16_runs}
+                         for k in BF16_KERNELS})
         idle = [k for k, by in launches.items() if not any(by.values())]
         check(not idle, f"kernels launched in no path's run: {idle}")
         rows = timed("timing", phase_timing, shapes, dev, launches, errs)

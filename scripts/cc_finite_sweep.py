@@ -4,12 +4,13 @@ Trains a CC config through ``Trainer`` on its generated dataset with the
 sampler's SDEs set to ``--steps`` steps (the loss does not read them),
 stopping at each of ``--epochs``; at each stop samples the checkpoint
 through ``Sampler.sample`` on both paths, one round at the protocol's
-batch (``sample.max_samples``, f32 scores, evaluation off), and prints one
-JSON line a run: finite or not, the last training losses, steps/s, mean
-edges and cells per CC.
+batch (``sample.max_samples``, evaluation off) at each ``--score-dtype``
+(f32 unless said; ``sample.score_dtype``), and prints one JSON line a run:
+finite or not, the last training losses, steps/s, mean edges and cells
+per CC.
 
     python3 scripts/cc_finite_sweep.py --config grid_small_CC \\
-        --epochs 5 10 20 30 50 --steps 50
+        --epochs 5 10 20 30 50 --steps 50 [--score-dtype f32 bf16]
 
 A config whose ``model.num_layers_mlp`` is null (grid_small_Base_CC), with
 which neither package builds ScoreNetworkF, runs with 1, as the smoke
@@ -36,6 +37,7 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--folder", default=os.path.join(ROOT, "build", "cc_finite_sweep"))
     ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--score-dtype", nargs="+", default=["f32"], choices=["f32", "bf16"])
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -70,14 +72,15 @@ def main(argv=None) -> int:
         trainer.config.train.num_epochs = epochs
         ckpt = f"{trainer.train()}_final"
         seconds = time.perf_counter() - t0
-        for fused in (True, False):
+        for score_dtype, fused in ((sd, f) for sd in args.score_dtype for f in (True, False)):
             cfg = config(epochs)
             cfg.ckpt, cfg.sample.fused = ckpt, fused
             cfg.sample.max_samples, cfg.sample.eval = batch, False
-            cfg.sample.score_dtype = "f32"  # the bf16 score networks are not ported
+            cfg.sample.score_dtype = score_dtype
             res = Sampler(cfg, adjs[tr], adjs[te], device=args.device, log=False).sample()
             print(json.dumps({
                 "config": args.config, "epochs": epochs, "fused": fused,
+                "score_dtype": res["score_dtype"],
                 "train_seconds": seconds, "loss_last": trainer.history["train"][-1],
                 "weights": res["weights"], "batch": batch, "steps": args.steps,
                 "finite": res["finite"], "steps_per_s": res["steps_per_s"],

@@ -4,11 +4,12 @@ the CPU: train a graph config from scratch with ``Trainer.train_scanned``
 of epochs, then sample the final checkpoint by the config's protocol at
 each sampling seed and print the four graph MMDs and the degree histogram
 of the kept graphs beside the test split's (a CC config: its lifted
-dataset, the CC MMDs too, at f32 score networks).
+dataset, the CC MMDs too, at f32 score networks unless ``--score-dtype
+bf16`` asks for the JAX package's bf16 ones).
 
     JAX_PLATFORMS=cpu python3 scripts/jax_equal_budget.py --config grid_small \
         --epochs 500 [--seed 42] [--sample-seeds 12 42 1234] [--folder build/jax_budget] \
-        [--ckpt PATH]
+        [--ckpt PATH] [--score-dtype f32|bf16]
 
 ``--ckpt PATH`` skips the training and samples that checkpoint instead: a
 JAX ``.ckpt.pkl`` or a port ``.pth`` (the JAX sampler converts the port's
@@ -48,6 +49,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sample-seeds", type=int, nargs="+", default=[12, 42, 1234])
     ap.add_argument("--folder", default=os.path.join(ROOT, "build", "jax_budget"))
     ap.add_argument("--ckpt", default=None, help="sample this checkpoint; no training")
+    ap.add_argument("--score-dtype", default="f32", choices=["f32", "bf16"],
+                    help="sample.score_dtype of the sampling runs")
     args = ap.parse_args(argv)
 
     import jax
@@ -92,7 +95,7 @@ def main(argv=None) -> int:
         scfg = get_config(args.config, seed=args.seed, folder=ROOT)
         scfg.folder, scfg.data.dir = folder, data_dir
         scfg.ckpt, scfg.sample.seed = f"{name}_final", s
-        scfg.sample.score_dtype = "f32"  # its f32 rows are the bar (bf16: CC default)
+        scfg.sample.score_dtype = args.score_dtype
         t0 = time.perf_counter()
         try:
             res = get_sampler_from_config(scfg).sample()
@@ -104,7 +107,8 @@ def main(argv=None) -> int:
             continue
         rows.append(res["mmd"])
         print(json.dumps({
-            "run": "sample", "sample_seed": s, "graphs": len(res["graphs"]),
+            "run": "sample", "sample_seed": s, "score_dtype": args.score_dtype,
+            "graphs": len(res["graphs"]),
             "mmd": res["mmd"], "cc_mmd": res.get("cc_mmd"),
             "degree_hist": _hist_graphs(res["graphs"]),
             "seconds": time.perf_counter() - t0}), flush=True)
@@ -118,6 +122,7 @@ def main(argv=None) -> int:
     keys = list(rows[0]) if rows else []
     print(json.dumps({
         "run": "summary", "config": args.config, "epochs": None if args.ckpt else args.epochs,
+        "score_dtype": args.score_dtype,
         "sample_seeds": args.sample_seeds, "scored_seeds": len(rows),
         "mean": {k: float(np.mean([r[k] for r in rows])) for k in keys},
         "min": {k: float(min(r[k] for r in rows)) for k in keys},

@@ -27,9 +27,10 @@ stage 2's margin to overflow: the steps its F stayed finite and its
 largest finite |F|; a run whose F overflowed has its CC MMDs and cells
 per CC not measured, since ``quantize`` maps NaN to 1 and every candidate
 would become a cell).
-Every run samples at ``sample.score_dtype: f32``: the JAX package's f32
-rows are the bar, and its bf16 default for community_small_CC is not
-ported.  Prints
+Every run samples at ``sample.score_dtype: f32`` unless ``--score-dtype``
+names others (``--score-dtype f32 bf16``: each checkpoint scored once in
+each, on the same seeds; bf16 is the JAX package's default for
+community_small_CC, whose f32 rows are the bar all the same).  Prints
 one JSON line per run, the number of graphs in which the two paths'
 samples differ at each seed, then per path the mean, min and max of each
 MMD over the seeds, the train split scored against the test split (the
@@ -58,7 +59,7 @@ of its graphs' non-isolated nodes beside the test split's.
     python3 scripts/port_quality_run.py [--config community_small|grid_small|...] \
         [--epochs 5000] [--train-seconds S] [--eval-at 500] [--resume NAME | --ckpt NAME] \
         [--seed 42] [--sample-seeds 12 42 1234] [--folder build/quality_run] \
-        [--device cuda] [--matmul-precision highest|high]
+        [--device cuda] [--matmul-precision highest|high] [--score-dtype f32 [bf16]]
 
 Runs on CUDA (the kernels) unless ``--device cpu`` (the plain path, a
 rehearsal at a few epochs: the 1000 steps take about 2 minutes a run
@@ -191,12 +192,23 @@ def degree_hist(adjs: np.ndarray) -> list:
 
 
 def score(config, config_name, name, train, test, sample_seeds, device, epochs, published,
-          where, bounds) -> bool:
-    """Sample the checkpoint ``name`` at each seed on both paths, print a
-    line per run, the paths compared and a summary per path; returns
-    whether every bounded mean was measured and is inside its bound (or the
-    run is a cut).  A two-stage run whose F overflowed has its CC MMDs and
-    cells per CC not measured."""
+          where, bounds, score_dtypes=("f32",)) -> bool:
+    """``score_one`` in each of ``score_dtypes``; whether every one passed."""
+    ok = True
+    for score_dtype in score_dtypes:
+        ok &= score_one(config, config_name, name, train, test, sample_seeds, device, epochs,
+                        published, where, bounds, score_dtype)
+    return ok
+
+
+def score_one(config, config_name, name, train, test, sample_seeds, device, epochs, published,
+              where, bounds, score_dtype) -> bool:
+    """Sample the checkpoint ``name`` at each seed on both paths at
+    ``sample.score_dtype: score_dtype``, print a line per run, the paths
+    compared and a summary per path; returns whether every bounded mean
+    was measured and is inside its bound (or the run is a cut).  A
+    two-stage run whose F overflowed has its CC MMDs and cells per CC not
+    measured."""
     held = epochs is not None and epochs >= published and bool(bounds)
     runs = {p: [] for p in PATHS}
     graphs = {}  # (path, seed) -> the kept adjacencies
@@ -204,6 +216,7 @@ def score(config, config_name, name, train, test, sample_seeds, device, epochs, 
         for s in sample_seeds:
             cfg = AttrDict(config.to_dict())
             cfg.ckpt, cfg.sample.seed, cfg.sample.fused = name, s, fused
+            cfg.sample.score_dtype = score_dtype
             two_stage = bool(cfg.sample.get("two_stage"))
             if not two_stage:  # scored below, once the output is known to be finite
                 cfg.sample.eval = False
@@ -237,7 +250,7 @@ def score(config, config_name, name, train, test, sample_seeds, device, epochs, 
                    **{k: v for k, v in cells.items() if k not in ("k_max", "finite_stages")}}
             runs[path].append(row)
             graphs[path, s] = res["adj"]
-            emit(run="sample", path=path, sample_seed=s, epochs=epochs,
+            emit(run="sample", path=path, score_dtype=score_dtype, sample_seed=s, epochs=epochs,
                  weights=res["weights"], graphs=int(res["adj"].shape[0]),
                  mmd=res["mmd"], cc_mmd=res["cc_mmd"], **cells,
                  degree_hist=degree_hist(res["adj"]),
@@ -247,7 +260,7 @@ def score(config, config_name, name, train, test, sample_seeds, device, epochs, 
     # the same seed gives both paths the same flags and noise: count the
     # graphs the fused fast path's bf16 head scores changed
     a, b = PATHS
-    emit(run="paths_compared", epochs=epochs, graphs_that_differ={
+    emit(run="paths_compared", score_dtype=score_dtype, epochs=epochs, graphs_that_differ={
         s: int((graphs[a, s] != graphs[b, s]).any((1, 2)).sum()) for s in sample_seeds})
     ok = True
     for path, rows in runs.items():
@@ -258,7 +271,7 @@ def score(config, config_name, name, train, test, sample_seeds, device, epochs, 
         within = {k: mean[k] <= bounds[k] for k in bounds if k in mean}
         not_measured = sorted(set(rows[0]) - set(vals))
         ok &= (all(within.values()) and len(within) == len(bounds)) or not held
-        emit(run="summary", config=config_name, path=path,
+        emit(run="summary", config=config_name, path=path, score_dtype=score_dtype,
              sample_seeds=sample_seeds, mean=mean, min={k: min(v) for k, v in vals.items()},
              max={k: max(v) for k, v in vals.items()}, not_measured=not_measured,
              bounds=bounds, within_bounds=within,
@@ -285,6 +298,8 @@ def main(argv=None) -> int:
     ap.add_argument("--matmul-precision", default="highest", choices=["highest", "high"],
                     help="high: TF32 in the cuBLAS matmuls on the card (the hand kernels "
                          "stay f32), nearer the TPU's default f32 matmul precision")
+    ap.add_argument("--score-dtype", nargs="+", default=["f32"], choices=["f32", "bf16"],
+                    help="sample.score_dtype of the scored runs, each in turn (default f32)")
     args = ap.parse_args(argv)
     on_cpu = args.device == "cpu"
     where = "cpu (plain path)" if on_cpu else card()
@@ -294,7 +309,6 @@ def main(argv=None) -> int:
 
     config = AttrDict(get_config(args.config, args.seed, ROOT).to_dict())
     config.folder = args.folder
-    config.sample.score_dtype = "f32"
     if args.train_seed is not None:  # another training of the same dataset
         config.seed = args.train_seed
     published = int(config.train.num_epochs)
@@ -308,7 +322,7 @@ def main(argv=None) -> int:
 
     if args.ckpt:
         score(config, args.config, args.ckpt, train, test, args.sample_seeds, args.device,
-              None, published, where, BOUNDS)  # its epochs are not known here
+              None, published, where, BOUNDS, args.score_dtype)  # its epochs are not known
         return 0
     trainer = get_trainer_from_config(config, device=args.device, adjs=adjs)
     if args.resume:
@@ -331,7 +345,7 @@ def main(argv=None) -> int:
         emit(run="train", config=args.config, epochs=trainer.epoch, steps=trainer.step,
              seconds=time.perf_counter() - t0, train_steps_per_s=trainer.steps_per_s)
         score(config, args.config, f"{name}_final", train, test, args.sample_seeds,
-              args.device, trainer.epoch, published, where, BOUNDS)
+              args.device, trainer.epoch, published, where, BOUNDS, args.score_dtype)
     if trainer.epoch < target:
         emit(run="train_cut", epochs=trainer.epoch, published_epochs=published,
              train_seconds=args.train_seconds, resume=f"{name}_final",
@@ -345,7 +359,7 @@ def main(argv=None) -> int:
          **{f"loss_{n}": [hist[0][i], hist[-1][i]] for i, n in enumerate(trainer.names)},
          ckpt=trainer.checkpoint_path(f"{name}_final"), card=where)
     ok = score(config, args.config, f"{name}_final", train, test, args.sample_seeds,
-               args.device, trainer.epoch, published, where, BOUNDS)
+               args.device, trainer.epoch, published, where, BOUNDS, args.score_dtype)
 
     floor = Sampler(config, train, test, device=args.device, log=False).evaluate(test, train)
     emit(run="train_vs_test", graphs=[len(train), len(test)], mmd=floor["mmd"],

@@ -313,7 +313,7 @@ def test_cli_trains_and_samples_base_cc(tmp_path, capsys, tame_rank2_head):
     cfg.train.update(num_epochs=2, save_interval=2, print_interval=1)
     cfg.data.batch_size = 8
     cfg.model.num_layers_mlp = 1  # the form tame_rank2_head scales
-    cfg.sample.score_dtype = "f32"  # community_small_CC's data defaults to bf16 (not ported)
+    cfg.sample.score_dtype = "f32"  # the f32 networks (community_small_CC's data: bf16 by default)
     for k in NAMES:
         cfg.sde[k].num_scales = 3
     with open(tmp_path / "config" / "tiny_base_cc.yaml", "w") as f:

@@ -1,6 +1,6 @@
 """The port's CC loss, CC solver steps, CC sampler and the Sampler's CC
 evaluation against the JAX package's, on the CPU; and the
-``sample.score_dtype`` rule in both modes.
+``sample.score_dtype`` rule in both modes (bf16 now runs).
 
 Networks and inputs are those of tests/test_torch_cc_models.py (N = 8,
 cells of 3: E = 28, K = 56, B = 4, ragged flags).  Noise is shared as in
@@ -313,13 +313,17 @@ def test_sampler_cc_runs_and_keeps_its_incidences(tmp_path, tame_rank2_head):
     np.testing.assert_array_equal(saved["rank2"], res["rank2"])
 
 
-@pytest.mark.parametrize("is_cc,dtype,raises", [
+@pytest.mark.parametrize("is_cc,dtype,bf16", [
     (False, "bf16", True), (False, "bfloat16", True), (False, None, False),
     (False, "f32", False), (True, None, True), (True, "bf16", True), (True, "f32", False)])
-def test_score_dtype_resolves_as_jax_and_bf16_raises(is_cc, dtype, raises, tame_rank2_head):
+def test_score_dtype_resolves_as_jax_and_bf16_raises(is_cc, dtype, bf16, tame_rank2_head):
     """``sample.score_dtype``: f32 by default in graph mode, bf16 by
-    default for community_small_CC (the JAX package's clearance); a
-    resolved bf16 raises, naming the setting, instead of sampling in f32."""
+    default for community_small_CC (the JAX package's clearance), an
+    explicit value winning; a resolved bf16 now samples with the bf16 score
+    networks (it raised before they were ported) and says so in the
+    results, with finite f32 outputs."""
+    from ccsd_tpu.sampling.sampler import score_dtype_default as jdefault
+
     sample = {} if dtype is None else {"score_dtype": dtype}
     if is_cc:
         cfg = _cc_config(8, steps=2, **sample)
@@ -329,12 +333,12 @@ def test_score_dtype_resolves_as_jax_and_bf16_raises(is_cc, dtype, raises, tame_
         cfg = _tiny_config()
         cfg.sample.update(sample)
         adjs = community_small_adjs(6, 0, max_node_num=20)[:, :8, :8]
-    sampler = Sampler(cfg, adjs, device="cpu", log=False)
-    if raises:
-        with pytest.raises(NotImplementedError, match="sample.score_dtype"):
-            sampler.sample(2)
-    else:
-        assert sampler.sample(2)["adj"].shape == (2, 8, 8)
+    want = "bf16" if bf16 else "f32"
+    if dtype is None:
+        assert jdefault(is_cc, cfg.data.data) == want
+    res = Sampler(cfg, adjs, device="cpu", log=False).sample(2)
+    assert res["adj"].shape == (2, 8, 8) and res["finite"]
+    assert (res["score_dtype"], res["dtype"]) == (want, "f32")
 
 
 def test_cli_trains_and_samples_a_cc_config(tmp_path, capsys, tame_rank2_head):
@@ -350,13 +354,15 @@ def test_cli_trains_and_samples_a_cc_config(tmp_path, capsys, tame_rank2_head):
     assert report["epochs"] == 2 and np.isfinite(report["train_loss_rank2"])
     out = tmp_path / "s.npz"
     sample = ["--type", "sample", *common, "--out", str(out), "--ckpt", report["ckpt"]]
-    cfg["sample"].pop("score_dtype")  # community_small_CC's default: bf16, refused
+    cfg["sample"].pop("score_dtype")  # community_small_CC's default: bf16, which runs
     with open(tmp_path / "config" / "tiny_cc.yaml", "w") as f:
         yaml.safe_dump(cfg, f)
-    with pytest.raises(NotImplementedError, match="sample.score_dtype"):
-        cli.main(sample)
+    assert cli.main(sample) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["score_dtype"] == "bf16" and report["finite"]
     assert cli.main([*sample, "--score-dtype", "f32"]) == 0
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert report["samples"] == 2 and report["finite"] and "cells_per_cc" in report
+    assert (report["score_dtype"], report["dtype"]) == ("f32", "f32")
     assert set(report["cc_mmd"]) >= {"hodge_laplacian_spectrum"}
     assert np.load(out)["rank2"].shape == (2, 28, 56)

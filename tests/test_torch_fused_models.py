@@ -36,6 +36,7 @@ import jax.numpy as jnp
 import torch
 
 from ccsd_tpu.models import attention as jatt
+from ccsd_tpu.models.registry import FUSED_CAPABLE as jFUSED_CAPABLE
 from ccsd_tpu.models.registry import load_model as jload_model
 from ccsd_tpu.models.registry import load_model_params as jload_model_params
 from ccsd_tpu.models.registry import with_fused as jwith_fused
@@ -187,9 +188,10 @@ def test_with_fused_defs_match_jax(enable, fast):
     assert with_fused(named, enable, fast) == jwith_fused(named, enable, fast)
     # ScoreNetworkA_CC joined with CC mode, ScoreNetworkF's slab-unrolled
     # form with the two-stage model, ScoreNetworkA_Base_CC with the ablation
-    # network: the JAX set less the unported ScoreNetworkX_GMH
-    assert FUSED_CAPABLE == {"ScoreNetworkA", "ScoreNetworkA_CC", "ScoreNetworkA_Base_CC",
-                             "ScoreNetworkF"}
+    # network, ScoreNetworkX_GMH last: the JAX set
+    assert FUSED_CAPABLE == jFUSED_CAPABLE == {
+        "ScoreNetworkX_GMH", "ScoreNetworkA", "ScoreNetworkA_CC", "ScoreNetworkA_Base_CC",
+        "ScoreNetworkF"}
 
 
 def test_model_fused_in_a_training_config_matches_jax():

@@ -31,7 +31,8 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "ccsd_tpu", "networkx", "toponetx
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py")] + [
-        os.path.join(ROOT, "scripts", f) for f in ("port_quality_run.py", "cc_finite_sweep.py")]
+        os.path.join(ROOT, "scripts", f) for f in ("port_quality_run.py", "cc_finite_sweep.py",
+                                                "f32_bitcheck.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -49,10 +50,12 @@ def test_import_guard_covers_every_kernel_module():
             "ccsd_tpu_torch/eval/orbits/__init__.py", "ccsd_tpu_torch/data/cc_codec.py",
             "ccsd_tpu_torch/ops/hodge.py", "ccsd_tpu_torch/models/hodge_nn.py",
             "ccsd_tpu_torch/models/score_a_cc.py", "ccsd_tpu_torch/models/score_f.py",
-            "scripts/port_quality_run.py",
+            "scripts/port_quality_run.py", "scripts/f32_bitcheck.py",
             "ccsd_tpu_torch/diffusion/two_stage.py",
             "ccsd_tpu_torch/training/two_stage_trainer.py",
-            "ccsd_tpu_torch/sampling/two_stage_sampler.py"} <= rel
+            "ccsd_tpu_torch/sampling/two_stage_sampler.py",
+            "ccsd_tpu_torch/models/score_x.py", "ccsd_tpu_torch/models/nn.py",
+            "ccsd_tpu_torch/diffusion/losses.py", "ccsd_tpu_torch/diffusion/solvers.py"} <= rel
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
